@@ -1,0 +1,123 @@
+"""Between the reference and the port: state carried across, data exposed for
+comparison, and the one parity check of two `RunResult`s.
+
+  * `state_from_reference` turns a `repro` DDASimulator carry
+    `(z, x, xhat, res, t)`, given as numpy arrays, into the port's tensors,
+    so a run can start on one side and finish on the other.
+  * `problem_arrays` exposes a built port problem's data tensors as numpy,
+    under the names the reference's closures give them.
+  * `assert_results_match` compares two RunResult dicts under the port's
+    stated tolerances: host fields exactly, trace floats within
+    `RTOL`/`ATOL`, execution timings not at all.
+
+Numpy in, numpy out: this module imports neither `jax` nor `repro`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+__all__ = ["ATOL", "RTOL", "STATE_FIELDS", "assert_results_match",
+           "problem_arrays", "state_from_reference"]
+
+#: the carry of `DDASimulator._segment`, in order
+STATE_FIELDS = ("z", "x", "xhat", "res", "t")
+
+#: the float32 tolerance on the trace floats and time_to_target: the one
+#: `BENCH_dense.json` `config.tol` gates the reference's own fused path with
+RTOL = 1e-5
+ATOL = 1e-6
+
+#: trace fields compared within RTOL/ATOL; the other trace fields are host
+#: numpy and compared exactly
+_FLOAT_TRACE = ("fvals", "fvals_consensus", "disagreement")
+#: RunMetrics fields computed on the host in closed form
+_EXACT_METRICS = ("gossip_rounds", "msgs", "bytes_on_wire")
+
+
+def state_from_reference(arrays: Mapping[str, np.ndarray], device=None
+                         ) -> tuple[torch.Tensor, ...]:
+    """The carry `(z, x, xhat, res, t)` as float32 tensors on `device`
+    (None: the CUDA card). `arrays` maps each name of `STATE_FIELDS` to the
+    reference's array; `t` is the 0-d count of iterations done."""
+    device = resolve_device(device)
+    missing = [f for f in STATE_FIELDS if f not in arrays]
+    if missing:
+        raise KeyError(f"state is missing {missing}")
+    out = []
+    for f in STATE_FIELDS:
+        a = np.asarray(arrays[f])
+        if a.dtype != np.float32:
+            raise TypeError(f"{f} must be float32 (the reference's dtype), "
+                            f"got {a.dtype}")
+        out.append(torch.as_tensor(a.copy(), device=device))
+    if out[4].dim() != 0:
+        raise ValueError("t must be a 0-d count")
+    shape = out[0].shape
+    for f, v in zip(STATE_FIELDS[:4], out[:4]):
+        if v.shape != shape:
+            raise ValueError(f"{f} has shape {tuple(v.shape)}, z "
+                             f"{tuple(shape)}")
+    return tuple(out)
+
+
+def problem_arrays(problem) -> dict[str, np.ndarray]:
+    """A built port problem's data tensors, as numpy on the host."""
+    return {k: v.detach().cpu().numpy() for k, v in problem.arrays.items()}
+
+
+def _floats(values) -> np.ndarray:
+    """JSON floats as float64, with null (a sanitized inf/nan) as nan."""
+    return np.array([np.nan if v is None else v for v in values],
+                    dtype=np.float64)
+
+
+def _close(a, b) -> bool:
+    if a is None or b is None:
+        return a is None and b is None
+    a, b = _floats(np.atleast_1d(a)), _floats(np.atleast_1d(b))
+    return a.shape == b.shape and bool(np.allclose(a, b, rtol=RTOL,
+                                                   atol=ATOL, equal_nan=True))
+
+
+def assert_results_match(ours: Mapping[str, Any], ref: Mapping[str, Any]
+                         ) -> None:
+    """Raise AssertionError naming every field where two RunResult dicts
+    (`RunResult.to_dict()` of each side) disagree.
+
+    Exact: spec, backend, iters, sim_time, comms, eps_value, predictions,
+    r_measurement, extras, and the message counts of `metrics`.
+    Within RTOL/ATOL: fvals, fvals_consensus, disagreement, time_to_target.
+    Ignored (execution noise): wall_s and the rest of `metrics`.
+    """
+    bad = []
+    for key in ("spec", "backend", "eps_value", "predictions",
+                "r_measurement", "extras"):
+        if ours.get(key) != ref.get(key):
+            bad.append(f"{key}: {ours.get(key)!r} != {ref.get(key)!r}")
+    t_ours, t_ref = ours["trace"], ref["trace"]
+    for key in ("iters", "sim_time", "comms"):
+        if t_ours[key] != t_ref[key]:
+            bad.append(f"trace.{key} differs")
+    for key in _FLOAT_TRACE:
+        if not _close(t_ours[key], t_ref[key]):
+            err = (np.nanmax(np.abs(_floats(t_ours[key])
+                                    - _floats(t_ref[key])))
+                   if len(t_ours[key]) == len(t_ref[key]) else "shape")
+            bad.append(f"trace.{key} outside rtol={RTOL}, atol={ATOL} "
+                       f"(max abs err {err})")
+    if not _close(ours.get("time_to_target"), ref.get("time_to_target")):
+        bad.append(f"time_to_target: {ours.get('time_to_target')!r} != "
+                   f"{ref.get('time_to_target')!r}")
+    m_ours, m_ref = ours.get("metrics") or {}, ref.get("metrics") or {}
+    for key in _EXACT_METRICS:
+        if m_ours.get(key) != m_ref.get(key):
+            bad.append(f"metrics.{key}: {m_ours.get(key)!r} != "
+                       f"{m_ref.get(key)!r}")
+    if bad:
+        raise AssertionError("results differ:\n  " + "\n  ".join(bad))

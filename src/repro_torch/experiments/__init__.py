@@ -1,0 +1,36 @@
+"""One experiment API on the port: declarative `ExperimentSpec` ->
+`repro_torch.run()`, the same specs and the same `RunResult` as
+`repro.experiments`.
+
+    import repro_torch
+
+    spec = repro_torch.ExperimentSpec.from_file(
+        "benchmarks/manifests/expander_periodic.json")
+    result = repro_torch.run(spec)                 # on the CUDA card
+    result = repro_torch.run(spec, device="cpu")   # only when asked
+
+Only the dense backend is ported so far.
+"""
+
+from repro_torch.experiments.components import (Problem, problems,
+                                                schedules, stepsizes,
+                                                topologies)
+from repro_torch.experiments.registry import Registry
+from repro_torch.experiments.result import RunResult
+from repro_torch.experiments.runner import backends, run, run_all
+from repro_torch.experiments.spec import ComponentSpec, ExperimentSpec
+
+__all__ = [
+    "ComponentSpec",
+    "ExperimentSpec",
+    "Problem",
+    "Registry",
+    "RunResult",
+    "backends",
+    "problems",
+    "run",
+    "run_all",
+    "schedules",
+    "stepsizes",
+    "topologies",
+]

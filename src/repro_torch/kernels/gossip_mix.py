@@ -1,0 +1,116 @@
+"""Kernel K1: the weighted gossip mix on a stacked node state, in CUDA.
+
+    out[i] = w_self[i] * z[i] + sum_{j<k} w_edge[i, j] * msg[S_in[i, j]]
+
+The Hopper port of the Pallas kernel `repro.kernels.gossip_mix.
+gossip_mix_weighted` and the gather in front of it (`repro.kernels.ops.
+gossip_gather_mix_impl`): the kernel (`csrc/gossip_mix.cu`, where its
+design and bound are written down) reads the k neighbor rows through S_in
+itself, so the gathered (k, n, M) stack the TPU version was handed is never
+built. It is bandwidth-bound: one pass over z, msg and out.
+
+`gossip_mix_weighted` is the wrapper: it checks its inputs on the host,
+allocates the output, launches on the current stream without
+synchronizing, and counts its launches in `LAUNCHES`. It takes CUDA
+tensors only; `kernels.ops` sends CPU tensors to the plain version in
+`kernels.ref`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+__all__ = ["LAUNCHES", "gossip_mix_weighted", "library"]
+
+#: launches of the kernel since the count was last set to 0
+LAUNCHES = 0
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_INT_MAX = 2 ** 31 - 1
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built from `csrc/gossip_mix.cu` at first use."""
+    lib = build.load("gossip_mix")
+    if lib.gossip_mix_f32.argtypes is None:
+        for fn in (lib.gossip_mix_f32, lib.gossip_mix_bf16):
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} lies on {t.device}, z on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def gossip_mix_weighted(z: torch.Tensor, S_in: torch.Tensor,
+                        w_self: torch.Tensor, w_edge: torch.Tensor,
+                        msg: torch.Tensor | None = None) -> torch.Tensor:
+    """One weighted gossip round on the card.
+
+    z: (n, M) float32 or bfloat16, contiguous, on a CUDA device; S_in:
+    (n, k) int64 in-neighbor indices; w_self: (n,) and w_edge: (n, k)
+    float32 weights; msg: the transmitted stack, like z, or None for z
+    itself. Accumulates in float32 and returns a new (n, M) tensor in z's
+    dtype.
+
+    The range 0 <= S_in < n is checked by the kernel on the device (a
+    device-side assert, raised by the next synchronizing call, as PyTorch's
+    own CUDA index ops do): a host-side check would copy S_in back and wait
+    for the card on every launch.
+    """
+    global LAUNCHES
+    if not isinstance(z, torch.Tensor) or z.device.type != "cuda":
+        raise ValueError("gossip_mix_weighted runs on CUDA tensors only; "
+                         "kernels.ops sends CPU tensors to the plain "
+                         "version")
+    if z.dtype not in _DTYPES:
+        raise TypeError(f"z must be float32 or bfloat16, got {z.dtype}")
+    if z.dim() != 2:
+        raise ValueError(f"z must be (n, M), got shape {tuple(z.shape)}")
+    n, M = z.shape
+    if S_in.dim() != 2 or S_in.shape[0] != n or S_in.shape[1] < 1:
+        raise ValueError(f"S_in must be (n, k) with n={n} and k >= 1, got "
+                         f"{tuple(S_in.shape)}")
+    k = S_in.shape[1]
+    if max(n, M, n * k) > _INT_MAX:
+        raise ValueError(f"shape ({n}, {M}) with k={k} exceeds the "
+                         f"kernel's 32-bit extents")
+    _check("z", z, z.device, z.dtype, (n, M))
+    _check("S_in", S_in, z.device, torch.int64, (n, k))
+    _check("w_self", w_self, z.device, torch.float32, (n,))
+    _check("w_edge", w_edge, z.device, torch.float32, (n, k))
+    if msg is None:
+        msg = z
+    else:
+        _check("msg", msg, z.device, z.dtype, (n, M))
+    out = torch.empty_like(z)
+    if n == 0 or M == 0:
+        return out
+    lib = library()
+    fn = lib.gossip_mix_f32 if z.dtype == torch.float32 else lib.gossip_mix_bf16
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream(z.device).cuda_stream
+        err = fn(z.data_ptr(), msg.data_ptr(), S_in.data_ptr(),
+                 w_self.data_ptr(), w_edge.data_ptr(), out.data_ptr(),
+                 n, k, M, stream)
+    if err != 0:
+        raise RuntimeError(f"gossip_mix kernel launch failed with CUDA "
+                           f"error {err}")
+    LAUNCHES += 1
+    return out

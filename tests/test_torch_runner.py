@@ -1,0 +1,107 @@
+"""`repro_torch.run(spec, device="cpu")` against `repro.run(spec)` on the
+dense backend of every uncompressed dense manifest, under the port's parity
+check, plus the CLI and the refusals of what is not ported yet."""
+
+import copy
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+import repro
+
+import repro_torch
+from repro_torch.convert import ATOL, RTOL, assert_results_match
+from repro_torch.experiments import __main__ as cli
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+MANIFESTS = ROOT / "benchmarks" / "manifests"
+DENSE = ["complete_every", "expander_periodic", "expander_sparse",
+         "fig1_complete", "fig1_reduced", "fig2_sparse"]
+
+
+def _port(name, **kw):
+    spec = repro_torch.ExperimentSpec.from_file(MANIFESTS / f"{name}.json")
+    return repro_torch.run(spec, "dense", device="cpu", **kw)
+
+
+@pytest.mark.parametrize("name", DENSE)
+def test_dense_manifest_matches_reference(name):
+    ours = _port(name).to_dict()
+    theirs = repro.run(repro.ExperimentSpec.from_file(
+        MANIFESTS / f"{name}.json"), "dense").to_dict()
+    assert_results_match(ours, theirs)
+    assert ours["extras"]["mix_mode"] == (
+        "sparse" if name.startswith("expander") else "dense")
+
+
+def test_parity_check_catches_differences():
+    base = _port("expander_sparse").to_dict()
+    assert_results_match(base, copy.deepcopy(base))
+    near = copy.deepcopy(base)
+    near["trace"]["fvals"] = [v * (1 + RTOL / 4) for v in near["trace"]["fvals"]]
+    near["wall_s"] += 5.0
+    near["metrics"]["execute_s"] += 5.0
+    assert_results_match(near, base)
+    diverged = copy.deepcopy(base)
+    diverged["trace"]["fvals"][-1] = None  # a sanitized inf/nan
+    assert_results_match(diverged, copy.deepcopy(diverged))
+    with pytest.raises(AssertionError, match="fvals"):
+        assert_results_match(diverged, base)
+    for field, edit in [
+            ("fvals", lambda d: d["trace"]["fvals"].__setitem__(
+                -1, d["trace"]["fvals"][-1] * (1 + 10 * RTOL) + 10 * ATOL)),
+            ("iters", lambda d: d["trace"]["iters"].__setitem__(0, 16)),
+            ("time_to_target", lambda d: d.__setitem__(
+                "time_to_target", d["time_to_target"] + 0.1)),
+            ("predictions", lambda d: d["predictions"].__setitem__(
+                "h_opt", d["predictions"]["h_opt"] + 1)),
+            ("msgs", lambda d: d["metrics"].__setitem__(
+                "msgs", d["metrics"]["msgs"] + 1))]:
+        bad = copy.deepcopy(base)
+        edit(bad)
+        with pytest.raises(AssertionError, match=field):
+            assert_results_match(bad, base)
+
+
+def test_cli_run_writes_a_result_that_loads_back(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    manifest = MANIFESTS / "expander_periodic.json"
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.experiments", "run",
+         str(manifest), "--backend", "dense", "--device", "cpu",
+         "--out", str(tmp_path)],
+        env=env, capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    path = tmp_path / "expander_periodic__dense.json"
+    loaded = repro_torch.RunResult.from_json(path.read_text())
+    assert_results_match(loaded.to_dict(), _port("expander_periodic").to_dict())
+    assert (tmp_path / "expander_periodic__dense.trace.json").exists()
+    assert cli.main(["trace", str(path)]) == 0
+
+
+def test_cli_list_names_the_registries(capsys):
+    assert cli.main(["list"]) == 0
+    out = capsys.readouterr().out
+    assert "backend kinds: dense, launch, netsim" in out
+    assert "problem kinds: least_squares, lm, metric_learning" in out
+
+
+def test_run_all_on_a_dense_only_manifest():
+    spec = repro_torch.ExperimentSpec.from_file(MANIFESTS / "fig2_sparse.json")
+    results = repro_torch.run_all(spec, device="cpu")
+    assert [r.backend.kind for r in results] == ["dense"]
+
+
+@pytest.mark.parametrize("name,backend", [
+    ("expander_periodic", "netsim"),
+    ("launch_dryrun", "launch"),
+    ("compressed_expander", "dense"),
+    ("adaptive_adversarial", "dense"),
+])
+def test_unported_paths_raise(name, backend):
+    spec = repro_torch.ExperimentSpec.from_file(MANIFESTS / f"{name}.json")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        repro_torch.run(spec, backend, device="cpu")
