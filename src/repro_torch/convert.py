@@ -7,8 +7,8 @@ comparison, and the one parity check of two `RunResult`s.
   * `problem_arrays` exposes a built port problem's data tensors as numpy,
     under the names the reference's closures give them.
   * `assert_results_match` compares two RunResult dicts under the port's
-    stated tolerances: host fields exactly, trace floats within
-    `RTOL`/`ATOL`, execution timings not at all.
+    stated tolerances: host fields exactly, trace floats and residual
+    norms within `RTOL`/`ATOL`, execution timings not at all.
 
 Numpy in, numpy out: this module imports neither `jax` nor `repro`.
 """
@@ -38,6 +38,9 @@ ATOL = 1e-6
 _FLOAT_TRACE = ("fvals", "fvals_consensus", "disagreement")
 #: RunMetrics fields computed on the host in closed form
 _EXACT_METRICS = ("gossip_rounds", "msgs", "bytes_on_wire")
+#: the compression block's device-computed field; its other fields (kind,
+#: wire_ratio, bytes_saved) are host numbers and compared exactly
+_FLOAT_COMPRESSION = "residual_norms"
 
 
 def state_from_reference(arrays: Mapping[str, np.ndarray], device=None
@@ -77,41 +80,72 @@ def _floats(values) -> np.ndarray:
                     dtype=np.float64)
 
 
-def _close(a, b) -> bool:
+def _close(a, b, rtol: float = RTOL, atol: float = ATOL) -> bool:
     if a is None or b is None:
         return a is None and b is None
     a, b = _floats(np.atleast_1d(a)), _floats(np.atleast_1d(b))
-    return a.shape == b.shape and bool(np.allclose(a, b, rtol=RTOL,
-                                                   atol=ATOL, equal_nan=True))
+    return a.shape == b.shape and bool(np.allclose(a, b, rtol=rtol,
+                                                   atol=atol, equal_nan=True))
 
 
-def assert_results_match(ours: Mapping[str, Any], ref: Mapping[str, Any]
-                         ) -> None:
+def _compare_compression(where: str, ours, ref, bad: list[str],
+                         rtol: float, atol: float) -> None:
+    """A compression block (or None): residual norms within rtol/atol,
+    every other field exactly."""
+    if ours is None or ref is None:
+        if ours is not ref:
+            bad.append(f"{where}: {ours!r} != {ref!r}")
+        return
+    host = {k: v for k, v in ours.items() if k != _FLOAT_COMPRESSION}
+    host_ref = {k: v for k, v in ref.items() if k != _FLOAT_COMPRESSION}
+    if host != host_ref:
+        bad.append(f"{where}: {host!r} != {host_ref!r}")
+    if not _close(ours.get(_FLOAT_COMPRESSION), ref.get(_FLOAT_COMPRESSION),
+                  rtol, atol):
+        bad.append(f"{where}.{_FLOAT_COMPRESSION} outside rtol={rtol}, "
+                   f"atol={atol}")
+
+
+def assert_results_match(ours: Mapping[str, Any], ref: Mapping[str, Any],
+                         *, rtol: float = RTOL, atol: float = ATOL) -> None:
     """Raise AssertionError naming every field where two RunResult dicts
     (`RunResult.to_dict()` of each side) disagree.
 
     Exact: spec, backend, iters, sim_time, comms, eps_value, predictions,
-    r_measurement, extras, and the message counts of `metrics`.
-    Within RTOL/ATOL: fvals, fvals_consensus, disagreement, time_to_target.
+    r_measurement, extras (but for the residual norms of its compression
+    block), and the message counts and the compression block's kind,
+    wire_ratio and bytes_saved in `metrics`.
+    Within rtol/atol (by default the port's RTOL/ATOL): fvals,
+    fvals_consensus, disagreement, time_to_target and the compression
+    block's residual_norms. A looser rtol/atol is for compressed runs whose
+    transmitted entries flip between the two sides (PERF.md states where).
     Ignored (execution noise): wall_s and the rest of `metrics`.
     """
     bad = []
     for key in ("spec", "backend", "eps_value", "predictions",
-                "r_measurement", "extras"):
+                "r_measurement"):
         if ours.get(key) != ref.get(key):
             bad.append(f"{key}: {ours.get(key)!r} != {ref.get(key)!r}")
+    extras, extras_ref = dict(ours.get("extras") or {}), dict(
+        ref.get("extras") or {})
+    _compare_compression("extras.compression",
+                         extras.pop("compression", None),
+                         extras_ref.pop("compression", None), bad, rtol, atol)
+    if extras != extras_ref:
+        bad.append(f"extras: {extras!r} != {extras_ref!r}")
     t_ours, t_ref = ours["trace"], ref["trace"]
     for key in ("iters", "sim_time", "comms"):
         if t_ours[key] != t_ref[key]:
             bad.append(f"trace.{key} differs")
     for key in _FLOAT_TRACE:
-        if not _close(t_ours[key], t_ref[key]):
+        if not _close(t_ours[key], t_ref[key], rtol, atol):
             err = (np.nanmax(np.abs(_floats(t_ours[key])
                                     - _floats(t_ref[key])))
                    if len(t_ours[key]) == len(t_ref[key]) else "shape")
-            bad.append(f"trace.{key} outside rtol={RTOL}, atol={ATOL} "
+            bad.append(f"trace.{key} outside rtol={rtol}, atol={atol} "
                        f"(max abs err {err})")
-    if not _close(ours.get("time_to_target"), ref.get("time_to_target")):
+    if not _close(ours.get("time_to_target"), ref.get("time_to_target"),
+                  rtol, atol):
         bad.append(f"time_to_target: {ours.get('time_to_target')!r} != "
                    f"{ref.get('time_to_target')!r}")
     m_ours, m_ref = ours.get("metrics") or {}, ref.get("metrics") or {}
@@ -119,5 +153,7 @@ def assert_results_match(ours: Mapping[str, Any], ref: Mapping[str, Any]
         if m_ours.get(key) != m_ref.get(key):
             bad.append(f"metrics.{key}: {m_ours.get(key)!r} != "
                        f"{m_ref.get(key)!r}")
+    _compare_compression("metrics.compression", m_ours.get("compression"),
+                         m_ref.get("compression"), bad, rtol, atol)
     if bad:
         raise AssertionError("results differ:\n  " + "\n  ".join(bad))

@@ -11,13 +11,20 @@ with psi(x) = 0.5 ||x||^2 the proximal step is x = Proj_X(-a(t) z) (paper
 V.A). On cheap iterations (no communication) the consensus sum is replaced
 by z_i(t) = z_i(t-1) + g_i(t-1) (paper IV.A).
 
+With a compressor attached, the messages a node sends are compressed with
+error feedback: it sends C(z_i + res_i) and keeps res_i <- (z_i + res_i) -
+sent; its own z_i is always mixed exactly ([beyond paper], the reference's
+`repro.compress`; the wire ratio c scales the time axis's r to r*c).
+
 Nodes are a stacked leading axis of (n, d) tensors on one device. On a
-k-regular graph the consensus round is the hand-written gossip-mix kernel
-(`kernels.ops.gossip_gather_mix_impl`, O(nkd)); otherwise it is the dense
+k-regular graph the consensus round is a hand-written kernel, O(nkd): the
+gossip mix (`kernels.ops.gossip_gather_mix_impl`, K1), uncompressed or with
+a quantized message stack, or the compress-mix (`kernels.ops.
+compress_mix_impl`, K2) under a sparsifier. Otherwise it is the dense
 P @ z matmul. The comm pattern is host data (`CommSchedule.comm_mask`), so
 the reference's `lax.cond` is a Python `if` that never waits for the device,
 and the trace statistics stay on the device until one copy at the end of
-the run. Compression and the vmapped `run_batch` are not ported yet.
+the run. The vmapped `run_batch` is not ported yet.
 """
 
 from __future__ import annotations
@@ -141,7 +148,15 @@ class DDASimulator:
         multiplicity, `graphs.mix_weight_slots`).
       device: where the state lives; None means the CUDA card, and raises
         without one (see `repro_torch.resolve_device`).
-      compression, compress_keep: not ported yet; anything but None raises.
+      compression: a built `repro_torch.compress.Compressor` (or None). The
+        transmitted messages are compressed with error feedback kept in
+        the carry; on the sparse path sparsifiers (`topk`/`randk`) mix
+        through K2 and quantizers ship a dequantized message stack through
+        K1. The diagonal always mixes the node's exact own z.
+        `self.wire_ratio(d)` is the byte model for the effective tradeoff
+        r -> r*c. A "none" compressor is the uncompressed run.
+      compress_keep: legacy alias, `compress_keep=f` is exactly
+        `compression=TopK(keep=f)`. Mutually exclusive with `compression`.
     """
 
     def __init__(self, subgrad_fn, eval_fn, graph: CommGraph,
@@ -151,9 +166,20 @@ class DDASimulator:
                  mix: str = "auto",
                  mix_weights: np.ndarray | None = None,
                  compression=None, *, device=None):
-        if compression is not None or compress_keep is not None:
-            raise NotImplementedError(
-                "compressed gossip is not ported yet (slice: compression)")
+        if compress_keep is not None and compression is not None:
+            raise ValueError("pass either compression or the legacy "
+                             "compress_keep alias, not both")
+        if compress_keep is not None:
+            # imported here: repro_torch.compress imports the experiments
+            # registry, which imports this module
+            from repro_torch.compress import TopK
+            compression = TopK(keep=float(compress_keep))
+        self.compress_keep = compress_keep
+        # "none" normalizes to no compression, so the uncompressed run is
+        # K1's path unchanged
+        if compression is not None and compression.kind == "none":
+            compression = None
+        self.compression = compression
         self.device = resolve_device(device)
         self.subgrad_fn = subgrad_fn
         self.eval_fn = eval_fn
@@ -175,12 +201,26 @@ class DDASimulator:
                       else graph.mixing_matrix())
             self._P = torch.as_tensor(P_host, dtype=torch.float32,
                                       device=self.device)
+            # off-diagonal mixing applies to RECEIVED (possibly compressed)
+            # messages; the diagonal always uses the node's exact own state
+            self._P_diag = torch.diagonal(self._P).clone()
+            self._P_off = self._P - torch.diag(self._P_diag)
+        #: per-segment mean per-node error-feedback residual norms of the
+        #: last scanned run (np (S,); zeros when uncompressed)
+        self.last_res_norms: np.ndarray | None = None
         #: per-run wall split read by the experiments runner: `compile_s`
         #: is the first-use build of the kernel library, `execute_s` the
         #: iteration loop, `eval_s` the per-segment trace readback of
         #: loop="segment"
         self.last_timings: dict[str, float] = {
             "compile_s": 0.0, "execute_s": 0.0, "eval_s": 0.0}
+
+    def wire_ratio(self, d: int) -> float:
+        """Bytes-on-wire fraction c for a d-float message under the
+        attached compressor (1.0 uncompressed) -- the multiplier for the
+        paper's effective tradeoff r -> r*c."""
+        return (1.0 if self.compression is None
+                else self.compression.wire_ratio(int(d)))
 
     # -- mix-mode resolution -------------------------------------------------
 
@@ -236,21 +276,53 @@ class DDASimulator:
 
     # -- the iteration -------------------------------------------------------
 
-    def _mix(self, z: torch.Tensor) -> torch.Tensor:
+    def _mix(self, z: torch.Tensor, res: torch.Tensor, t: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+        """One consensus round: (mixed z, new residual). Under compression
+        the messages are the corrected `z + res`, compressed, and the
+        residual keeps what was not sent; `t` is the round's iteration
+        counter, which the randomized compressors fold into their key."""
+        comp = self.compression
         if self.mix_mode == "sparse":
             from repro_torch.kernels import ops as _kops
-            return _kops.gossip_gather_mix_impl(z, self._S_in, self._w_self,
-                                                self._w_edge)
-        return _cons.mix_dense(z, self._P)
+            if comp is None:
+                return _kops.gossip_gather_mix_impl(
+                    z, self._S_in, self._w_self, self._w_edge), res
+            corrected = z + res
+            if comp.is_sparsifier:
+                # the 0/1 support rides K2; the masked stack is formed
+                # only for the residual
+                mask = comp.support_mask_torch(corrected, t)
+                mixed = _kops.compress_mix_impl(
+                    z, corrected, mask, self._S_in, self._w_self,
+                    self._w_edge)
+                sent = corrected * mask
+            else:
+                sent = comp.compress_torch(corrected, t)
+                mixed = _kops.gossip_gather_mix_impl(
+                    z, self._S_in, self._w_self, self._w_edge, msg=sent)
+        else:
+            if comp is None:
+                return _cons.mix_dense(z, self._P), res
+            corrected = z + res
+            sent = comp.compress_torch(corrected, t)
+            mixed = (self._P_diag[:, None] * z
+                     + _cons.mix_dense(sent, self._P_off))
+        new_res = corrected - sent if comp.error_feedback else res
+        return mixed, new_res
 
     def _segment(self, z, x, xhat, res, t, comm_mask) -> State:
         """Run `len(comm_mask)` iterations from the carry (z, x, xhat, res,
         t); t is the float32 0-d count of iterations already done. The
         counterpart of the reference's jitted `_segment`, minus its RNG keys
-        (no registered problem reads them)."""
+        (no registered problem reads them; the compressors derive theirs
+        from t)."""
         for comm in comm_mask:
             g = self.subgrad_fn(x, t, None)
-            z_mixed = self._mix(z) if comm else z
+            if comm:
+                z_mixed, res = self._mix(z, res, t)
+            else:
+                z_mixed = z
             z = z_mixed + g
             t_new = t + 1.0
             a_t = self.a_fn(t_new)
@@ -262,11 +334,16 @@ class DDASimulator:
         return z, x, xhat, res, t
 
     def _trace_stats(self, state: State) -> torch.Tensor:
-        """(Fbar, F(xhat_bar), disagreement) of a carry, on the device."""
-        z, _, xhat, _, _ = state
+        """(Fbar, F(xhat_bar), disagreement, mean residual norm) of a
+        carry, on the device. The last is the mean over nodes of
+        sqrt(sum(res_i ** 2)), the reference's order: the compression
+        block's trajectory (zeros uncompressed)."""
+        z, _, xhat, res, _ = state
         fv = torch.mean(torch.func.vmap(self.eval_fn)(xhat))
         fvc = self.eval_fn(torch.mean(xhat, dim=0))
-        return torch.stack([fv, fvc, _cons.disagreement(z)])
+        rn = torch.mean(torch.sqrt(torch.sum(
+            res.reshape(res.shape[0], -1) ** 2, dim=-1)))
+        return torch.stack([fv, fvc, _cons.disagreement(z), rn])
 
     def _synchronize(self) -> None:
         if self.device.type == "cuda":
@@ -282,8 +359,10 @@ class DDASimulator:
         device and copies them back once, after the last iteration.
         loop="segment" copies them back after every segment and charges
         that readback to `last_timings["eval_s"]`. Both give the same
-        trace. `seed` is accepted for the reference's signature; no
-        registered problem draws random numbers.
+        trace, but only loop="scan" keeps `last_res_norms`, as in the
+        reference, whose segment loop does not compute them. `seed` is
+        accepted for the reference's signature; no registered problem
+        draws random numbers.
         """
         if x0_stack.shape[0] != self.graph.n:
             raise ValueError("x0 must be stacked (n, ...)")
@@ -294,12 +373,12 @@ class DDASimulator:
             raise ValueError(f"loop must be 'scan' or 'segment', got {loop!r}")
         self.last_timings = {"compile_s": 0.0, "execute_s": 0.0,
                              "eval_s": 0.0}
+        self.last_res_norms = None
         if T == 0:  # an empty trace, as the reference returns
             return SimTrace([], [], [], [], [])
         if self.mix_mode == "sparse" and self.device.type == "cuda":
-            from repro_torch.kernels import gossip_mix
             t0 = time.perf_counter()
-            gossip_mix.library()
+            self._kernel().library()
             self.last_timings["compile_s"] = time.perf_counter() - t0
         mask_full = np.asarray(self.schedule.comm_mask(0, T), dtype=bool)
 
@@ -320,17 +399,32 @@ class DDASimulator:
                 t_eval = time.perf_counter()
                 stats.append(self._trace_stats(state).cpu())
                 self.last_timings["eval_s"] += time.perf_counter() - t_eval
-        fv, fvc, dis = torch.stack(stats).cpu().numpy().T
+        fv, fvc, dis, rn = torch.stack(stats).cpu().numpy().T
         self._synchronize()
         self.last_timings["execute_s"] = time.perf_counter() - t0
-        return self._assemble_trace(mask_full, T, eval_every, fv, fvc, dis)
+        if loop == "scan":
+            self.last_res_norms = rn
+        # compressed messages are cheaper on the wire: the time axis charges
+        # the effective tradeoff r*c
+        r_eff = self.r * self.wire_ratio(int(np.prod(x0_stack.shape[1:])))
+        return self._assemble_trace(mask_full, T, eval_every, r_eff,
+                                    fv, fvc, dis)
 
-    def _assemble_trace(self, mask_full, T, eval_every,
+    def _kernel(self):
+        """The kernel module the sparse mix launches: K2 under a
+        sparsifier, K1 otherwise."""
+        if self.compression is not None and self.compression.is_sparsifier:
+            from repro_torch.kernels import compress_mix
+            return compress_mix
+        from repro_torch.kernels import gossip_mix
+        return gossip_mix
+
+    def _assemble_trace(self, mask_full, T, eval_every, r,
                         fv, fvc, dis) -> SimTrace:
         """Host bookkeeping: the simulated time axis (eq. 9 charges) from
         the precomputed comm mask, accumulated segment-by-segment in the
         exact float order of the reference."""
-        n, k, r = self.graph.n, self.graph.degree, self.r
+        n, k = self.graph.n, self.graph.degree
         trace = SimTrace([], [], [], [], [])
         sim_time = 0.0
         comm_total = 0

@@ -9,7 +9,7 @@
     result = repro_torch.run(spec)                 # on the CUDA card
     result = repro_torch.run(spec, device="cpu")   # only when asked
 
-Only the dense backend is ported so far.
+Only the dense backend is ported so far, uncompressed and compressed.
 """
 
 from repro_torch.experiments.components import (Problem, problems,
@@ -20,13 +20,26 @@ from repro_torch.experiments.result import RunResult
 from repro_torch.experiments.runner import backends, run, run_all
 from repro_torch.experiments.spec import ComponentSpec, ExperimentSpec
 
+
+def __getattr__(name):
+    # lazy: repro_torch.compress imports this package's registry module, so
+    # an eager import here would be circular when repro_torch.compress
+    # loads first
+    if name in ("Compressor", "compressors"):
+        from repro_torch.compress import Compressor, compressors
+        return {"Compressor": Compressor, "compressors": compressors}[name]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "ComponentSpec",
+    "Compressor",
     "ExperimentSpec",
     "Problem",
     "Registry",
     "RunResult",
     "backends",
+    "compressors",
     "problems",
     "run",
     "run_all",

@@ -1,12 +1,12 @@
 """`run(spec) -> RunResult` on the port: the dense backend of
 `repro.experiments.runner`, in PyTorch.
 
-The dense backend builds the problem, graph, schedule and stepsize from the
-spec, runs `core.dda.DDASimulator` on the requested device (the CUDA card
-unless the caller asks for the CPU) and returns the reference's
-`RunResult`. The netsim and launch backends, the dense closed loop
-("dense_adaptive") and the sweep executors are not ported yet: asking for
-them raises `NotImplementedError`.
+The dense backend builds the problem, graph, schedule, stepsize and
+compressor from the spec, runs `core.dda.DDASimulator` on the requested
+device (the CUDA card unless the caller asks for the CPU) and returns the
+reference's `RunResult`. The netsim and launch backends, the dense closed
+loop ("dense_adaptive") and the sweep executors are not ported yet: asking
+for them raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import math
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -102,17 +103,35 @@ def _target_fields(trace: SimTrace, eps_value: float | None
 
 
 def _dense_predictions(graph: CommGraph, r: float, schedule,
-                       lam2: float) -> dict[str, Any]:
-    """Paper design-rule outputs for a dense run. The wire ratio is 1.0:
-    compression is not ported yet."""
+                       lam2: float, c: float = 1.0) -> dict[str, Any]:
+    """Paper design-rule outputs for a dense run. `c` is the compressor's
+    bytes-on-wire ratio: every optimum is quoted at the effective tradeoff
+    r*c (see core.tradeoff)."""
     return {
         "r": r,
-        "wire_ratio": 1.0,
-        "n_opt": _tradeoff.n_opt_complete(r),
-        "h_opt": _tradeoff.h_opt_int(graph.n, graph.degree, r, lam2),
+        "wire_ratio": c,
+        "n_opt": _tradeoff.n_opt_complete(r, c),
+        "h_opt": _tradeoff.h_opt_int(graph.n, graph.degree, r, lam2, c),
         "tau_eps": _tradeoff.time_to_accuracy(
-            PREDICT_EPS, graph.n, graph.degree, r, lam2, schedule=schedule),
+            PREDICT_EPS, graph.n, graph.degree, r, lam2,
+            schedule=schedule, c=c),
     }
+
+
+def _compression_block(kind: str, ratio: float, full_bytes: float,
+                       wire_bytes: float, residual_norms
+                       ) -> dict[str, Any]:
+    """The canonical `RunMetrics.compression` record: the compressor kind,
+    its bytes-on-wire ratio, how many bytes compression kept off the wire,
+    and the mean per-node error-feedback residual norm at each trace
+    point."""
+    if residual_norms is None:
+        rns: list[float] = []
+    else:
+        rns = [float(v) for v in np.asarray(residual_norms).ravel()]
+    return {"kind": kind, "wire_ratio": float(ratio),
+            "bytes_saved": float(max(full_bytes - wire_bytes, 0.0)),
+            "residual_norms": rns}
 
 
 # ---------------------------------------------------------------------------
@@ -120,21 +139,22 @@ def _dense_predictions(graph: CommGraph, r: float, schedule,
 # ---------------------------------------------------------------------------
 
 
-def _dense_message_counts(trace: SimTrace, n: int, k: int, d: int
-                          ) -> dict[str, Any]:
+def _dense_message_counts(trace: SimTrace, n: int, k: int, d: int,
+                          ratio: float = 1.0) -> dict[str, Any]:
     """Closed-form message accounting for a dense run: each gossip round
-    is every node shipping its d-vector to its k neighbors."""
+    is every node shipping its d-vector to its k neighbors; `ratio` is the
+    compressor's wire ratio (bytes actually crossing the wire)."""
     rounds = int(trace.comms[-1]) if trace.comms else 0
     msgs = rounds * n * k
     return {"gossip_rounds": rounds, "msgs": msgs,
-            "bytes_on_wire": float(msgs * d * _DENSE_SCALAR_BYTES)}
+            "bytes_on_wire": float(msgs * d * _DENSE_SCALAR_BYTES * ratio)}
 
 
 def _dense_parts(spec: ExperimentSpec, backend: ComponentSpec,
                  device: torch.device) -> dict[str, Any]:
     """Validate a dense run and build everything BUT the simulator: the
-    problem (on `device`), graph, schedule and stepsize closures plus the
-    parsed backend params."""
+    problem (on `device`), graph, schedule and stepsize closures, the
+    compressor and the parsed backend params."""
     _require(spec.faults is None,
              "fault injection is event-driven (netsim backends only); the "
              "dense synchronous loop has no crash/recover semantics")
@@ -143,9 +163,15 @@ def _dense_parts(spec: ExperimentSpec, backend: ComponentSpec,
     mix = params.pop("mix", "auto")
     loop = params.pop("loop", "scan")
     _require(not params, f"dense backend has unknown params {sorted(params)}")
-    if spec.compression is not None or compress_keep is not None:
-        raise NotImplementedError("compressed gossip is not ported yet "
-                                  "(slice: compression)")
+    compression = None
+    if spec.compression is not None:
+        _require(compress_keep is None,
+                 "backend param 'compress_keep' and spec.compression are "
+                 "mutually exclusive; spec.compression is the canonical "
+                 "compression axis (kind 'topk' subsumes compress_keep)")
+        from repro_torch.compress import build_compressor
+        compression = build_compressor(spec.compression.kind,
+                                       dict(spec.compression.params))
     if spec.controller is not None:
         raise NotImplementedError(
             f"controller {spec.controller.kind!r} is not ported yet "
@@ -166,7 +192,9 @@ def _dense_parts(spec: ExperimentSpec, backend: ComponentSpec,
              "time_limit is event-clock only (netsim backends)")
     return dict(problem=problem, graph=graph,
                 schedule=_build_schedule(spec),
-                a_fn=_build_stepsize(spec), mix=mix, loop=loop)
+                a_fn=_build_stepsize(spec),
+                compress_keep=compress_keep, compression=compression,
+                mix=mix, loop=loop)
 
 
 def _dense_sim(spec: ExperimentSpec, parts: dict[str, Any],
@@ -175,7 +203,9 @@ def _dense_sim(spec: ExperimentSpec, parts: dict[str, Any],
     problem = parts["problem"]
     return DDASimulator(problem.subgrad_stack, problem.objective,
                         parts["graph"], parts["schedule"],
-                        a_fn=parts["a_fn"], r=spec.r, mix=parts["mix"],
+                        a_fn=parts["a_fn"], r=spec.r,
+                        compress_keep=parts["compress_keep"],
+                        compression=parts["compression"], mix=parts["mix"],
                         projection=problem.projection, device=device)
 
 
@@ -209,15 +239,26 @@ def _run_dense(spec: ExperimentSpec, backend: ComponentSpec,
     metrics_fields["execute_s"] = max(wall - compile_s, 0.0)
     metrics_fields["compile_s"] = min(compile_s, wall)
     eps_value, tta = _target_fields(trace, _eps_value(spec, problem))
+    ratio = sim.wire_ratio(problem.d)
     predictions = _dense_predictions(graph, spec.r, parts["schedule"],
-                                     graph.lambda2())
+                                     graph.lambda2(), c=ratio)
     counts = _dense_message_counts(trace, problem.n, graph.degree,
-                                   problem.d)
+                                   problem.d, ratio=ratio)
+    extras: dict[str, Any] = {"mix_mode": sim.mix_mode}
+    if sim.compression is not None:
+        comp_block = _compression_block(
+            sim.compression.kind, ratio,
+            full_bytes=float(counts["msgs"] * problem.d
+                             * _DENSE_SCALAR_BYTES),
+            wire_bytes=counts["bytes_on_wire"],
+            residual_norms=sim.last_res_norms)
+        extras["compression"] = comp_block
+        metrics_fields["compression"] = comp_block
     metrics = RunMetrics.from_tracer(tr, **metrics_fields, **counts)
     return RunResult(spec=spec, backend=backend, trace=trace, wall_s=wall,
                      eps_value=eps_value, time_to_target=tta,
-                     predictions=predictions,
-                     extras={"mix_mode": sim.mix_mode}, metrics=metrics)
+                     predictions=predictions, extras=extras,
+                     metrics=metrics)
 
 
 @backends.register("netsim")

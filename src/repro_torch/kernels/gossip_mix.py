@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["LAUNCHES", "gossip_mix_weighted", "library"]
+__all__ = ["LAUNCHES", "check_mix_operands", "check_operand",
+           "gossip_mix_weighted", "library"]
 
 #: launches of the kernel since the count was last set to 0
 LAUNCHES = 0
@@ -44,7 +45,9 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
+def check_operand(name: str, t: torch.Tensor, device, dtype, shape) -> None:
+    """Raise unless `t` is a contiguous tensor of `dtype` and `shape` on
+    `device`."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
     if t.device != device:
@@ -56,6 +59,35 @@ def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_mix_operands(kernel: str, z: torch.Tensor, S_in: torch.Tensor,
+                       w_self: torch.Tensor, w_edge: torch.Tensor
+                       ) -> tuple[int, int, int]:
+    """The host checks a gossip-mix kernel (K1, K2) makes before it
+    launches: z is a contiguous (n, M) float32 or bfloat16 CUDA tensor,
+    S_in (n, k) int64, w_self (n,) and w_edge (n, k) float32, all on z's
+    device and inside the kernel's 32-bit extents. Returns (n, M, k)."""
+    if not isinstance(z, torch.Tensor) or z.device.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA tensors only; kernels.ops "
+                         f"sends CPU tensors to the plain version")
+    if z.dtype not in _DTYPES:
+        raise TypeError(f"z must be float32 or bfloat16, got {z.dtype}")
+    if z.dim() != 2:
+        raise ValueError(f"z must be (n, M), got shape {tuple(z.shape)}")
+    n, M = z.shape
+    if S_in.dim() != 2 or S_in.shape[0] != n or S_in.shape[1] < 1:
+        raise ValueError(f"S_in must be (n, k) with n={n} and k >= 1, got "
+                         f"{tuple(S_in.shape)}")
+    k = S_in.shape[1]
+    if max(n, M, n * k) > _INT_MAX:
+        raise ValueError(f"shape ({n}, {M}) with k={k} exceeds the "
+                         f"kernel's 32-bit extents")
+    check_operand("z", z, z.device, z.dtype, (n, M))
+    check_operand("S_in", S_in, z.device, torch.int64, (n, k))
+    check_operand("w_self", w_self, z.device, torch.float32, (n,))
+    check_operand("w_edge", w_edge, z.device, torch.float32, (n, k))
+    return n, M, k
 
 
 def gossip_mix_weighted(z: torch.Tensor, S_in: torch.Tensor,
@@ -75,30 +107,12 @@ def gossip_mix_weighted(z: torch.Tensor, S_in: torch.Tensor,
     for the card on every launch.
     """
     global LAUNCHES
-    if not isinstance(z, torch.Tensor) or z.device.type != "cuda":
-        raise ValueError("gossip_mix_weighted runs on CUDA tensors only; "
-                         "kernels.ops sends CPU tensors to the plain "
-                         "version")
-    if z.dtype not in _DTYPES:
-        raise TypeError(f"z must be float32 or bfloat16, got {z.dtype}")
-    if z.dim() != 2:
-        raise ValueError(f"z must be (n, M), got shape {tuple(z.shape)}")
-    n, M = z.shape
-    if S_in.dim() != 2 or S_in.shape[0] != n or S_in.shape[1] < 1:
-        raise ValueError(f"S_in must be (n, k) with n={n} and k >= 1, got "
-                         f"{tuple(S_in.shape)}")
-    k = S_in.shape[1]
-    if max(n, M, n * k) > _INT_MAX:
-        raise ValueError(f"shape ({n}, {M}) with k={k} exceeds the "
-                         f"kernel's 32-bit extents")
-    _check("z", z, z.device, z.dtype, (n, M))
-    _check("S_in", S_in, z.device, torch.int64, (n, k))
-    _check("w_self", w_self, z.device, torch.float32, (n,))
-    _check("w_edge", w_edge, z.device, torch.float32, (n, k))
+    n, M, k = check_mix_operands("gossip_mix_weighted", z, S_in, w_self,
+                                 w_edge)
     if msg is None:
         msg = z
     else:
-        _check("msg", msg, z.device, z.dtype, (n, M))
+        check_operand("msg", msg, z.device, z.dtype, (n, M))
     out = torch.empty_like(z)
     if n == 0 or M == 0:
         return out

@@ -7,10 +7,11 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import compress_mix as _compress_mix
 from repro_torch.kernels import gossip_mix as _gossip_mix
 from repro_torch.kernels import ref
 
-__all__ = ["gossip_gather_mix_impl", "ref"]
+__all__ = ["compress_mix_impl", "gossip_gather_mix_impl", "ref"]
 
 
 def _weight_vector(w, shape: tuple[int, ...], device) -> torch.Tensor:
@@ -42,4 +43,24 @@ def gossip_gather_mix_impl(z: torch.Tensor, S_in: torch.Tensor, w_self,
     mf = None if msg is None else msg.reshape(n, -1)
     out = _gossip_mix.gossip_mix_weighted(z.reshape(n, -1), S_in, w_self,
                                           w_edge, msg=mf)
+    return out.reshape(z.shape)
+
+
+def compress_mix_impl(z: torch.Tensor, msg: torch.Tensor, mask: torch.Tensor,
+                      S_in: torch.Tensor, w_self, w_edge) -> torch.Tensor:
+    """Sparsified consensus round on a stacked z (kernel K2):
+    `w_self[i] z[i] + sum_j w_edge[i, j] (msg * mask)[S_in[i, j]]`.
+
+    Shapes and weights as in `gossip_gather_mix_impl`; msg is the corrected
+    message stack and mask its 0/1 support, both like z. Each node's own z
+    is mixed exactly; only the received messages are masked.
+    """
+    if z.device.type == "cpu":
+        return ref.compress_mix_ref(z, msg, mask, S_in, w_self, w_edge)
+    n, k = S_in.shape
+    w_self = _weight_vector(w_self, (n,), z.device)
+    w_edge = _weight_vector(w_edge, (n, k), z.device)
+    out = _compress_mix.compress_mix_weighted(
+        z.reshape(n, -1), msg.reshape(n, -1), mask.reshape(n, -1), S_in,
+        w_self, w_edge)
     return out.reshape(z.shape)

@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gossip_gather_mix_ref", "gossip_mix_weighted_ref"]
+__all__ = ["compress_mix_ref", "compress_mix_weighted_ref",
+           "gossip_gather_mix_ref", "gossip_mix_weighted_ref"]
 
 
 def gossip_mix_weighted_ref(self_buf: torch.Tensor,
@@ -53,3 +54,33 @@ def gossip_gather_mix_ref(z: torch.Tensor, S_in: torch.Tensor, w_self,
     for j in range(k):
         acc = acc + w_edge[:, j][:, None] * mf[S_in[:, j]]
     return acc.to(z.dtype).reshape(z.shape)
+
+
+def compress_mix_weighted_ref(self_buf: torch.Tensor,
+                              neighbor_msgs: torch.Tensor,
+                              neighbor_masks: torch.Tensor,
+                              w_self: torch.Tensor,
+                              w_edge: torch.Tensor) -> torch.Tensor:
+    """out[i] = w_self[i] * self[i] + sum_j w_edge[i, j] * (msg_j * mask_j)[i],
+    the pre-gathered form the TPU kernel takes. self_buf: (n, M);
+    neighbor_msgs, neighbor_masks: (K, n, M) already gathered; w_self:
+    (n,); w_edge: (n, K)."""
+    sent = neighbor_msgs.float() * neighbor_masks.float()
+    acc = w_self[:, None] * self_buf.float()
+    acc = acc + torch.einsum("nk,knm->nm", w_edge.float(), sent)
+    return acc.to(self_buf.dtype)
+
+
+def compress_mix_ref(z: torch.Tensor, msg: torch.Tensor, mask: torch.Tensor,
+                     S_in: torch.Tensor, w_self, w_edge) -> torch.Tensor:
+    """Masked (sparsified) consensus round:
+    out[i] = w_self[i] z[i] + sum_j w_edge[i, j] (msg * mask)[S_in[i, j]].
+
+    z/msg/mask: (n, ...) with mask the 0/1 transmitted support; S_in:
+    (n, K); weights as in `gossip_gather_mix_ref`. The transmitted stack is
+    formed in float32 before the gather, as `repro.kernels.ref` forms it.
+    """
+    n = S_in.shape[0]
+    sent = msg.reshape(n, -1).float() * mask.reshape(n, -1).float()
+    return gossip_gather_mix_ref(z, S_in, w_self, w_edge,
+                                 msg=sent.reshape(z.shape))

@@ -25,6 +25,7 @@ def test_import_leaves_jax_and_repro_out():
         "import sys\n"
         "import repro_torch, repro_torch.experiments, repro_torch.convert\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+        "import repro_torch.compress, repro_torch.kernels.compress_mix\n"
         "import repro_torch.experiments.__main__\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

@@ -1,6 +1,8 @@
 """`repro_torch.run(spec, device="cpu")` against `repro.run(spec)` on the
-dense backend of every uncompressed dense manifest, under the port's parity
-check, plus the CLI and the refusals of what is not ported yet."""
+dense backend of every dense manifest, compressed and uncompressed, under
+the port's parity check (`convert.assert_results_match`: host fields exact,
+trace floats and residual norms rtol 1e-5, atol 1e-6), plus the CLI and the
+refusals of what is not ported yet."""
 
 import copy
 import os
@@ -95,10 +97,79 @@ def test_run_all_on_a_dense_only_manifest():
     assert [r.backend.kind for r in results] == ["dense"]
 
 
+def _reference(name, backend="dense"):
+    return repro.run(repro.ExperimentSpec.from_file(
+        MANIFESTS / f"{name}.json"), backend).to_dict()
+
+
+def test_compressed_manifest_matches_reference():
+    """compressed_expander (top-k keep 1/8, sparse mix through K2's plain
+    version), the compression block included."""
+    ours = _port("compressed_expander").to_dict()
+    theirs = _reference("compressed_expander")
+    assert_results_match(ours, theirs)
+    block = ours["extras"]["compression"]
+    assert ours["extras"]["mix_mode"] == "sparse"
+    assert block == ours["metrics"]["compression"]
+    assert block["kind"] == "topk" and block["wire_ratio"] == 0.25
+    assert block["bytes_saved"] == 0.75 * 149 * 16 * 4 * 64 * 4
+    assert len(block["residual_norms"]) == len(ours["trace"]["iters"])
+    assert ours["predictions"]["wire_ratio"] == 0.25
+    assert ours["metrics"]["bytes_on_wire"] == 0.25 * 149 * 16 * 4 * 64 * 4
+
+
+def test_compress_keep_param_matches_reference():
+    spec = repro_torch.ExperimentSpec.from_file(MANIFESTS /
+                                                "expander_periodic.json")
+    backend = repro_torch.ComponentSpec("dense", {"compress_keep": 0.25})
+    ours = repro_torch.run(spec, backend, device="cpu").to_dict()
+    theirs = repro.run(repro.ExperimentSpec.from_file(
+        MANIFESTS / "expander_periodic.json"),
+        repro.ComponentSpec("dense", {"compress_keep": 0.25})).to_dict()
+    assert_results_match(ours, theirs)
+    assert ours["extras"]["compression"]["kind"] == "topk"
+    both = repro_torch.ExperimentSpec.from_file(
+        MANIFESTS / "compressed_expander.json")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        repro_torch.run(both, backend, device="cpu")
+
+
+def test_parity_check_compares_the_compression_block():
+    base = _port("compressed_expander").to_dict()
+    near = copy.deepcopy(base)
+    for block in (near["extras"]["compression"],
+                  near["metrics"]["compression"]):
+        block["residual_norms"] = [v * (1 + RTOL / 4)
+                                   for v in block["residual_norms"]]
+    assert_results_match(near, base)
+    for where, field, edit in [
+            ("extras", "residual_norms", lambda b: b["residual_norms"]
+             .__setitem__(-1, b["residual_norms"][-1] * (1 + 10 * RTOL))),
+            ("metrics", "residual_norms", lambda b: b["residual_norms"]
+             .pop()),
+            ("extras", "bytes_saved", lambda b: b.__setitem__(
+                "bytes_saved", b["bytes_saved"] + 1.0)),
+            ("metrics", "kind", lambda b: b.__setitem__("kind", "randk")),
+            ("extras", "wire_ratio", lambda b: b.__setitem__(
+                "wire_ratio", 0.5))]:
+        bad = copy.deepcopy(base)
+        edit(bad[where]["compression"])
+        with pytest.raises(AssertionError, match=f"{where}.compression"):
+            assert_results_match(bad, base)
+    missing = copy.deepcopy(base)
+    del missing["extras"]["compression"]
+    with pytest.raises(AssertionError, match="extras.compression"):
+        assert_results_match(missing, base)
+    other = copy.deepcopy(base)
+    other["extras"]["mix_mode"] = "dense"
+    with pytest.raises(AssertionError, match="extras"):
+        assert_results_match(other, base)
+
+
 @pytest.mark.parametrize("name,backend", [
     ("expander_periodic", "netsim"),
     ("launch_dryrun", "launch"),
-    ("compressed_expander", "dense"),
+    ("churn_adversarial", "netsim"),
     ("adaptive_adversarial", "dense"),
 ])
 def test_unported_paths_raise(name, backend):
