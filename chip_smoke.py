@@ -45,6 +45,38 @@ non-zero and the last line is not printed. The phases:
             compressor (TWIN_TOL), the flipped message entries between the
             two runs counted in lockstep; one rand-k mask at this shape
             must be bitwise equal on the card and on the CPU
+  kernel_k3 K3 (the flat per-node mix, `kernels.ops.gossip_mix`) against
+            its plain version over M in {1, 3, 130, 4099, 8192, 65537,
+            2^20} (and a misaligned view), k in {1, 4, 8}, fp32 and bf16
+            (fp32: rtol 1e-5, atol 1e-6; bf16: rtol 2e-2, atol 1e-5); then
+            the front door once at full width (one llama3-8b decoder
+            layer's parameters flattened, M = 218,112,000, k = 4, fp32,
+            sw = ew = 0.2) with every launch count set to 0 just before: it
+            must launch K3 once and agree with the plain version; then its
+            time beside the plain version, torch.addmv (a yardstick the
+            port never calls) and the bound
+  kernel_k4 K4 (`kernels.ops.flash_attention`) the same way, over
+            tests/test_kernels.py's shapes, Sq != Sk (causal and not), MHA,
+            GQA, MQA, ragged S and D in {16, 48, 80, 96, 160, 192, 256}
+            (fp32: atol 2e-5, rtol 2e-4, as tests/test_kernels.py; bf16:
+            atol 1e-5, rtol 1.6e-2, two bf16 ulps); at full width
+            llama3-8b's attention at train_4k (B=1, H=32, KH=8, S=4096,
+            D=128, bf16, causal), and again on exact fp32 copies of the
+            same q, k, v held to the fp32 tolerance (so a kernel that
+            rounded the scores or P to bf16 fails), timed beside the plain
+            version and torch's scaled_dot_product_attention (K and V
+            repeated outside the timed window)
+  kernel_k5 K5 (`kernels.ops.ssd_scan`) over tests/test_kernels.py's
+            shapes, ragged S and P, N in {6, 128} (atol 5e-4, rtol 2e-3,
+            as tests/test_kernels.py); at full width zamba2-2.7b's Mamba-2
+            mixer (Bt=1, S=4096, H=80, P=64, N=64, fp32). Its plain version
+            is a loop over tokens, thousands of launches, so it is timed
+            eagerly over 3 windows of one call; no single PyTorch call
+            computes the scan. Its bound counts the fewest operations of
+            the chunked form, at the chunk length that needs least
+  kernel_k6 K6 (`kernels.ops.selective_scan`) the same way, ragged d and
+            S, N in {1, 3, 32, 64} (atol 5e-4, rtol 2e-3); at full width
+            falcon-mamba-7b's mixer (Bt=1, S=4096, d=8192, N=16, fp32)
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as nvidia-smi prints them, and the result line
@@ -64,12 +96,22 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
-#: outside the tensor cores
+#: outside the tensor cores, dense bf16 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 FP32_TOL = dict(rtol=1e-5, atol=1e-6)
 BF16_TOL = dict(rtol=2e-2, atol=1e-5)
+#: K4 against its plain version, by dtype: fp32 as tests/test_kernels.py:31;
+#: bf16 tighter than that file's atol 2e-2 / rtol 2e-1, since both sides
+#: compute in fp32 and round once to bf16, so they may differ by one bf16
+#: ulp (at most 2^-7 of the value): rtol 1.6e-2 is two ulps, atol 1e-5
+#: covers the fp32 summation order near 0
+ATTN_TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
+            "bfloat16": dict(atol=1e-5, rtol=1.6e-2)}
+#: K5 and K6 against their plain versions, as tests/test_kernels.py:62,77
+SCAN_TOL = dict(atol=5e-4, rtol=2e-3)
 #: the rtol a compressed full-size run is held to against its mix="dense"
 #: twin, by compressor (atol 1e-6 throughout): "fvals" for fvals and
 #: fvals_consensus, "state" for disagreement and the residual norms. Top-k
@@ -111,19 +153,23 @@ def _median_window_ms(run_window, reps: int, inner: int) -> float:
     return statistics.median(samples)
 
 
-def time_ms(fn, reps: int = 25, inner: int = 20) -> dict:
+def time_ms(fn, reps: int = 25, inner: int = 20, graph: bool = True,
+            warmup: int = 3) -> dict:
     """Per-call time of `fn` in ms, the median over `reps` CUDA-event
-    windows of `inner` calls each, after a warm-up, two ways:
+    windows of `inner` calls each, after `warmup` calls, two ways:
 
       device: the `inner` calls captured once in a CUDA graph and the graph
               replayed, so the window holds the device work back to back
               without the host's launch overhead between calls;
       eager:  the calls issued from Python, as the main path issues them
               (host-bound when the wrapper costs more than the kernel).
+
+    `graph=False` leaves out the graph (a plain loop of thousands of
+    launches) and returns the eager time under both keys.
     """
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
 
@@ -132,6 +178,8 @@ def time_ms(fn, reps: int = 25, inner: int = 20) -> dict:
             fn()
 
     eager = _median_window_ms(eager_window, reps, inner)
+    if not graph:
+        return {"device": eager, "eager": eager}
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -195,18 +243,60 @@ def _dense_cell_spec(compression=None):
         backends=[{"kind": "dense", "params": {}}])
 
 
-def _launch_counts() -> dict:
-    from repro_torch.kernels import compress_mix, gossip_mix
+#: every kernel's launch count: (module, attribute), by kernel name
+_COUNTS = {"gossip_mix": ("gossip_mix", "LAUNCHES"),
+           "compress_mix": ("compress_mix", "LAUNCHES"),
+           "gossip_mix_flat": ("gossip_mix", "FLAT_LAUNCHES"),
+           "flash_attention": ("flash_attention", "LAUNCHES"),
+           "ssd_scan": ("ssd_scan", "LAUNCHES"),
+           "selective_scan": ("selective_scan", "LAUNCHES")}
 
-    return {"gossip_mix": gossip_mix.LAUNCHES,
-            "compress_mix": compress_mix.LAUNCHES}
+
+def _count_module(name: str):
+    import importlib
+
+    return importlib.import_module(f"repro_torch.kernels.{name}")
+
+
+def _launch_counts() -> dict:
+    return {kernel: getattr(_count_module(mod), attr)
+            for kernel, (mod, attr) in _COUNTS.items()}
 
 
 def _zero_launch_counts() -> None:
-    from repro_torch.kernels import compress_mix, gossip_mix
+    for mod, attr in _COUNTS.values():
+        setattr(_count_module(mod), attr, 0)
 
-    gossip_mix.LAUNCHES = 0
-    compress_mix.LAUNCHES = 0
+
+def _front_door_once(kernel: str, call):
+    """`call()` (one front-door call) with every launch count set to 0 just
+    before and read just after: it must have launched `kernel` exactly once
+    and no other kernel. Returns its output and the launches."""
+    import torch
+
+    _zero_launch_counts()
+    out = call()
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    if counts[kernel] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"one front-door call of {kernel} launched "
+                             f"{counts}")
+    return out, counts[kernel]
+
+
+def _bound(nbytes: float, flops: float, peak_flops: float = FP32_FLOPS
+           ) -> dict:
+    """The least time the card could take: each input read once and each
+    output written once at the HBM rate, or the operations at `peak_flops`,
+    whichever is longer."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / peak_flops * 1e3
+    return {"bound_ms": max(bytes_ms, flops_ms),
+            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+
+
+def _max_err(out, expect) -> float:
+    return float((out.float() - expect.float()).abs().max())
 
 
 def _mix_inputs(gen, n, M, k, dtype, vector_weights, with_msg):
@@ -468,8 +558,9 @@ def phase_main_path() -> int:
     result = repro_torch.run(spec, device="cuda")
     counts = _launch_counts()
     launches = counts["gossip_mix"]
-    if counts["compress_mix"]:
-        raise AssertionError(f"the uncompressed cell launched K2: {counts}")
+    if sum(counts.values()) != launches:
+        raise AssertionError(f"the uncompressed cell launched another "
+                             f"kernel than K1: {counts}")
     d = result.to_dict()
     trace = d["trace"]
     rounds = trace["comms"][-1]
@@ -597,10 +688,10 @@ def phase_main_path_compressed() -> int:
         counts = _launch_counts()
         d = result.to_dict()
         rounds = d["trace"]["comms"][-1]
-        other = [k for k in counts if k != kernel][0]
+        others = sum(v for k, v in counts.items() if k != kernel)
         if d["extras"]["mix_mode"] != "sparse":
             raise AssertionError(f"{kind}: mixed {d['extras']['mix_mode']}")
-        if counts[kernel] != 149 or rounds != 149 or counts[other] != 0:
+        if counts[kernel] != 149 or rounds != 149 or others != 0:
             raise AssertionError(f"{kind}: launches {counts} for {rounds} "
                                  f"rounds (expected 149 of {kernel})")
         block = d["extras"]["compression"]
@@ -665,6 +756,342 @@ def phase_main_path_compressed() -> int:
     return k2_launches
 
 
+def _hold(label: str, out, expect, tol: dict) -> float:
+    """A front door's `out` against its plain version's `expect` on the same
+    inputs: the same dtype and shape, finite, within `tol`. Returns the
+    largest absolute difference."""
+    import torch
+
+    torch.cuda.synchronize()
+    if out.dtype != expect.dtype or out.shape != expect.shape:
+        raise AssertionError(f"{label}: returned {out.dtype} "
+                             f"{tuple(out.shape)}, the plain version "
+                             f"{expect.dtype} {tuple(expect.shape)}")
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: non-finite values")
+    torch.testing.assert_close(out.float(), expect.float(), **tol,
+                               msg=lambda m: f"{label} disagrees: {m}")
+    return _max_err(out, expect)
+
+
+def _check_grid(name: str, label: str, cases, door, plain, tols: dict
+                ) -> None:
+    """`door` against `plain` on each of `cases`, (where, args, tolerance
+    key) triples, held to `tols[key]`; emits the largest error by key."""
+    worst = {}
+    checked = 0
+    for where, args, key in cases:
+        err = _hold(f"{label} at {where}", door(*args), plain(*args),
+                    tols[key])
+        worst[key] = max(worst.get(key, 0.0), err)
+        checked += 1
+    emit("kernel_check", name=name, cases=checked, max_abs_err=worst,
+         tol=tols)
+
+
+def _full_width(name: str, label: str, door, plain, args, tol: dict):
+    """One front-door call at full width, with the launch counts read around
+    it, held to `tol` against the plain version. Returns the launches and
+    the largest error."""
+    out, launches = _front_door_once(name, lambda: door(*args))
+    err = _hold(f"{label} at full width", out, plain(*args), tol)
+    del out
+    return launches, err
+
+
+def _report(name: str, source: str, replaces: str, launches: int,
+            err: float, kernel_t: dict, plain_t: dict, library_t, nbytes,
+            flops, peak: float = FP32_FLOPS, **emitted) -> dict:
+    """The kernel's entry of the `kernels` line, emitted with its eager
+    times and `emitted` as a `kernel_time` line."""
+    numbers = dict(name=name, route="cuda",
+                   source=f"src/repro_torch/kernels/csrc/{source}",
+                   replaces=replaces, launches=launches, max_abs_err=err,
+                   ms=kernel_t["device"], plain_ms=plain_t["device"],
+                   **_bound(nbytes, flops, peak),
+                   library_ms=library_t and library_t["device"])
+    emit("kernel_time", bytes=nbytes, flops=flops,
+         kernel_ms=kernel_t["device"], eager_ms=kernel_t["eager"],
+         plain_eager_ms=plain_t["eager"],
+         library_eager_ms=library_t and library_t["eager"], **emitted,
+         **numbers)
+    return numbers
+
+
+def _randn(gen, shape, dtype=None, scale: float = 1.0):
+    import torch
+
+    x = torch.randn(shape, generator=gen, device="cuda") * scale
+    return x if dtype is None else x.to(dtype)
+
+
+def phase_kernel_k3() -> dict:
+    """K3 (the flat per-node mix) against its plain version on the card,
+    then its front door at full width, then its times."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+
+    def cases():
+        for M in (1, 3, 130, 4099, 8192, 65537, 1 << 20):
+            for k in (1, 4, 8):
+                for dtype in (torch.float32, torch.bfloat16):
+                    for off in (0, 1):
+                        # a view one element in is not 16-byte aligned: the
+                        # kernel takes its scalar path
+                        sb = _randn(gen, (M + off,), dtype)[off:]
+                        nb = _randn(gen, (k * M + off,), dtype)[off:] \
+                            .view(k, M)
+                        yield (f"M={M} k={k} {dtype} offset={off}",
+                               (sb, nb, 0.2, 0.8 / k),
+                               str(dtype).split(".")[1])
+
+    _check_grid("gossip_mix_flat", "K3", cases(), ops.gossip_mix,
+                ref.gossip_mix_ref,
+                {"float32": FP32_TOL, "bfloat16": BF16_TOL})
+
+    # full width: one llama3-8b decoder layer's parameters, flattened
+    # (configs/llama3_8b.py: q, k, v, o 41,943,040 + SwiGLU 176,160,768 +
+    # two norms 8,192), k = 4 received buffers, fp32
+    M, k, sw, ew = 218_112_000, 4, 0.2, 0.2
+    args = (_randn(gen, (M,)), _randn(gen, (k, M)), sw, ew)
+    sb, nb = args[:2]
+    launches, err = _full_width("gossip_mix_flat", "K3", ops.gossip_mix,
+                                ref.gossip_mix_ref, args, FP32_TOL)
+    ew_vec = torch.full((k,), ew, device="cuda")
+    _hold("torch.addmv", torch.addmv(sb, nb.T, ew_vec, beta=sw),
+          ref.gossip_mix_ref(*args), FP32_TOL)
+    kernel_t = time_ms(lambda: ops.gossip_mix(*args), reps=10, inner=5)
+    plain_t = time_ms(lambda: ref.gossip_mix_ref(*args), reps=5, inner=2)
+    library_t = time_ms(lambda: torch.addmv(sb, nb.T, ew_vec, beta=sw),
+                        reps=5, inner=2)
+    # self and the k buffers read once, out written once; k + 2 flops an
+    # element (k - 1 adds, two products, one add)
+    numbers = _report(
+        "gossip_mix_flat", "gossip_mix.cu",
+        "src/repro/kernels/gossip_mix.py:46", launches, err, kernel_t,
+        plain_t, library_t, nbytes=(k + 2) * M * 4, flops=(k + 2) * M,
+        shape={"M": M, "k": k, "dtype": "float32"},
+        library_call="torch.addmv(self, nbrs.T, full(k, ew), beta=sw)")
+    del args, sb, nb
+    torch.cuda.empty_cache()
+    return numbers
+
+
+def _attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
+    """(row, column) pairs the mask keeps: all of them, or under the
+    top-left causal mask min(r + 1, Sk) for row r."""
+    if not causal:
+        return Sq * Sk
+    full = max(Sq - Sk, 0) * Sk
+    tri = min(Sq, Sk)
+    return tri * (tri + 1) // 2 + full
+
+
+def phase_kernel_k4() -> dict:
+    """K4 (flash attention) against its plain version on the card, then its
+    front door at full width, in bf16 and on fp32 copies, then its times."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    shapes = []
+    for S, D, H, KH in ((128, 64, 4, 4), (256, 64, 8, 2), (256, 128, 4, 1),
+                        (512, 32, 2, 2)):   # tests/test_kernels.py:17-22
+        for causal in (True, False):
+            shapes.append((2, H, KH, S, S, D, causal))
+    for Sq, Sk in ((128, 256), (256, 128), (128, 512), (100, 100)):
+        for causal in (True, False):
+            shapes.append((1, 4, 2, Sq, Sk, 64, causal))
+    for D in (16, 48, 80, 96, 160, 192, 256):
+        shapes.append((1, 2, 1, 128, 128, D, True))
+    shapes.append((1, 32, 32, 256, 256, 80, True))   # zamba2-2.7b's heads
+
+    def cases():
+        for B, H, KH, Sq, Sk, D, causal in shapes:
+            for dtype in (torch.float32, torch.bfloat16):
+                yield (f"B={B} H={H} KH={KH} Sq={Sq} Sk={Sk} D={D} "
+                       f"causal={causal} {dtype}",
+                       (_randn(gen, (B, H, Sq, D), dtype),
+                        _randn(gen, (B, KH, Sk, D), dtype),
+                        _randn(gen, (B, KH, Sk, D), dtype), causal),
+                       str(dtype).split(".")[1])
+
+    def door(q, k, v, causal=True):
+        return ops.flash_attention(q, k, v, causal=causal)
+
+    def plain(q, k, v, causal=True):
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+
+    _check_grid("flash_attention", "K4", cases(), door, plain, ATTN_TOL)
+
+    # full width: llama3-8b's attention (configs/llama3_8b.py: 32 heads, 8
+    # kv heads, head dim 128) at train_4k (configs/shapes.py), bf16, causal
+    B, H, KH, S, D = 1, 32, 8, 4096, 128
+    q, k, v = (_randn(gen, (B, h, S, D), torch.bfloat16)
+               for h in (H, KH, KH))
+    launches, err = _full_width("flash_attention", "K4", door, plain,
+                                (q, k, v), ATTN_TOL["bfloat16"])
+    # the same inputs as exact fp32 copies, held to the fp32 tolerance: a
+    # kernel that rounded the scores or P to bf16 would pass the bf16
+    # comparison above but not this one
+    copies = (q.float(), k.float(), v.float())
+    err_fp32 = _hold("K4 at full width on fp32 copies", door(*copies),
+                     plain(*copies), ATTN_TOL["float32"])
+    del copies
+    kr = k.repeat_interleave(H // KH, dim=1)
+    vr = v.repeat_interleave(H // KH, dim=1)
+    kernel_t = time_ms(lambda: door(q, k, v), reps=10, inner=3)
+    plain_t = time_ms(lambda: plain(q, k, v), reps=5, inner=2)
+    library_t = time_ms(lambda: F.scaled_dot_product_attention(
+        q, kr, vr, is_causal=True), reps=10, inner=5)
+    torch.cuda.empty_cache()
+    # q, k, v read once, out written once; 4 D flops (q.k and p v) for
+    # each (row, column) pair the causal mask keeps
+    nbytes = 2 * (2 * B * H * S * D + 2 * B * KH * S * D)
+    flops = 4 * D * B * H * _attention_pairs(S, S, True)
+    numbers = _report(
+        "flash_attention", "flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:79", launches, err, kernel_t,
+        plain_t, library_t, nbytes, flops, BF16_FLOPS,
+        shape={"B": B, "H": H, "KH": KH, "Sq": S, "Sk": S, "D": D,
+               "dtype": "bfloat16", "causal": True},
+        max_abs_err_fp32_copies=err_fp32,
+        bound_basis="bf16 tensor cores, 989 TFLOP/s; the kernel computes "
+                    "in fp32 on the CUDA cores",
+        fp32_bound_ms=_bound(nbytes, flops, FP32_FLOPS)["bound_ms"],
+        library_call="F.scaled_dot_product_attention(q, k, v, "
+                     "is_causal=True), K and V repeated per group outside "
+                     "the timed window")
+    del q, k, v, kr, vr
+    return numbers
+
+
+def _scan_inputs(gen, x_shape, dt_shape, A_shape, B_shape):
+    """tests/test_kernels.py's distributions: x ~ 0.5 N, dt = softplus(N -
+    1), A = -exp(0.3 N) < 0, B and C ~ 0.5 N."""
+    import torch
+    import torch.nn.functional as F
+
+    x = _randn(gen, x_shape, scale=0.5)
+    dt = F.softplus(_randn(gen, dt_shape) - 1.0)
+    A = -torch.exp(_randn(gen, A_shape, scale=0.3))
+    return x, dt, A, _randn(gen, B_shape, scale=0.5), \
+        _randn(gen, B_shape, scale=0.5)
+
+
+#: the plain scans issue a few launches per token; their timing windows
+PLAIN_SCAN_TIMING = dict(reps=3, inner=1, graph=False, warmup=1)
+PLAIN_SCAN_NOTE = ("eager, median of 3 windows of one call after one "
+                   "warm-up: the plain loop issues several launches per "
+                   "token, too many to capture in a graph")
+
+
+def _ssd_flops(Bt: int, S: int, H: int, P: int, N: int) -> float:
+    """The fewest operations of the SSD scan: its chunked form (ssd_scan.cu)
+    at the chunk length Q that needs least. Per token and head: 2NP for
+    C h0, 2NP + NP/Q for the state update (the decay once a chunk), (Q+1)P
+    for the in-chunk product's lower triangle; per token (Q+1)N for C B^T,
+    which the heads share. Q = 1 is the recurrence, 5NP; the least is near
+    Q = sqrt(N)."""
+    return min(Bt * S * (H * (4 * N * P + N * P / Q + (Q + 1) * P)
+                         + (Q + 1) * N)
+               for Q in range(1, S + 1))
+
+
+def phase_kernel_k5() -> dict:
+    """K5 (the SSD scan) against its plain version on the card, then its
+    front door at full width, then its times."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+
+    def cases():
+        for Bt, S, H, P, N in ((2, 256, 4, 32, 16), (2, 512, 2, 64, 64),
+                               (2, 128, 8, 64, 32),  # tests/test_kernels.py:65
+                               (1, 100, 3, 40, 6), (1, 128, 2, 80, 128),
+                               (1, 1024, 2, 64, 64)):
+            yield ((Bt, S, H, P, N),
+                   _scan_inputs(gen, (Bt, S, H, P), (Bt, S, H), (H,),
+                                (Bt, S, N)), "float32")
+
+    _check_grid("ssd_scan", "K5", cases(), ops.ssd_scan, ref.ssd_scan_ref,
+                {"float32": SCAN_TOL})
+
+    # full width: zamba2-2.7b's Mamba-2 mixer (configs/zamba2_2_7b.py:
+    # d_inner 5120 = 80 heads of 64, state 64) over 4096 tokens, fp32
+    Bt, S, H, P, N = 1, 4096, 80, 64, 64
+    args = _scan_inputs(gen, (Bt, S, H, P), (Bt, S, H), (H,), (Bt, S, N))
+    launches, err = _full_width("ssd_scan", "K5", ops.ssd_scan,
+                                ref.ssd_scan_ref, args, SCAN_TOL)
+    kernel_t = time_ms(lambda: ops.ssd_scan(*args), reps=10, inner=5)
+    plain_t = time_ms(lambda: ref.ssd_scan_ref(*args), **PLAIN_SCAN_TIMING)
+    # x, dt, A, B, C read once, y written once
+    return _report(
+        "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:69",
+        launches, err, kernel_t, plain_t, None,
+        nbytes=4 * (2 * Bt * S * H * P + Bt * S * H + H + 2 * Bt * S * N),
+        flops=_ssd_flops(Bt, S, H, P, N),
+        shape={"Bt": Bt, "S": S, "H": H, "P": P, "N": N,
+               "dtype": "float32"},
+        plain_timing=PLAIN_SCAN_NOTE, library_call=None)
+
+
+def phase_kernel_k6() -> dict:
+    """K6 (the selective scan) against its plain version on the card, then
+    its front door at full width, then its times."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+
+    def cases():
+        for Bt, S, d, N in ((2, 256, 128, 8), (2, 512, 256, 16),
+                            (2, 256, 512, 16),  # tests/test_kernels.py:48-49
+                            (1, 200, 100, 3), (1, 256, 1024, 1),
+                            (1, 512, 64, 32), (1, 256, 96, 64)):
+            yield ((Bt, S, d, N),
+                   _scan_inputs(gen, (Bt, S, d), (Bt, S, d), (d, N),
+                                (Bt, S, N)) + (_randn(gen, (d,)),),
+                   "float32")
+
+    _check_grid("selective_scan", "K6", cases(), ops.selective_scan,
+                ref.selective_scan_ref, {"float32": SCAN_TOL})
+
+    # full width: falcon-mamba-7b's mixer (configs/falcon_mamba_7b.py:
+    # d_inner = 2 x 4096, state 16) over 4096 tokens, fp32
+    Bt, S, d, N = 1, 4096, 8192, 16
+    args = _scan_inputs(gen, (Bt, S, d), (Bt, S, d), (d, N), (Bt, S, N)) \
+        + (torch.ones((d,), device="cuda"),)
+    launches, err = _full_width("selective_scan", "K6", ops.selective_scan,
+                                ref.selective_scan_ref, args, SCAN_TOL)
+    kernel_t = time_ms(lambda: ops.selective_scan(*args), reps=10, inner=5)
+    plain_t = time_ms(lambda: ref.selective_scan_ref(*args),
+                      **PLAIN_SCAN_TIMING)
+    # x, dt, A, B, C, D read once, y written once; 7 operations for each
+    # (token, channel, n): dt * A, its exp, two products and an add for the
+    # state, a product and an add for y
+    return _report(
+        "selective_scan", "selective_scan.cu",
+        "src/repro/kernels/selective_scan.py:54", launches, err, kernel_t,
+        plain_t, None,
+        nbytes=4 * (3 * Bt * S * d + d * N + 2 * Bt * S * N + d),
+        flops=7 * Bt * S * d * N,
+        shape={"Bt": Bt, "S": S, "d": d, "N": N, "dtype": "float32"},
+        plain_timing=PLAIN_SCAN_NOTE, library_call=None)
+
+
 def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     import torch
@@ -679,7 +1106,11 @@ def main() -> int:
     phase_manifests()
     k1["launches"] = phase_main_path()
     k2["launches"] = phase_main_path_compressed()
-    print(json.dumps({"kernels": [k1, k2]}), flush=True)
+    k3 = phase_kernel_k3()
+    k4 = phase_kernel_k4()
+    k5 = phase_kernel_k5()
+    k6 = phase_kernel_k6()
+    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

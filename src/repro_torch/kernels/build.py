@@ -30,7 +30,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 #: every CUDA source of the port, by stem
-SOURCES = ("gossip_mix", "compress_mix")
+SOURCES = ("gossip_mix", "compress_mix", "flash_attention", "ssd_scan",
+           "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -25,6 +25,22 @@
 // stops the kernel with a device-side assert, which the next synchronizing
 // call raises, as PyTorch's own CUDA index ops do.
 //
+// Kernel K3, in this file too: the flat per-node mix with scalar weights,
+//
+//   out[m] = sw * self[m] + ew * sum_{j<k} nbr[j, m],
+//
+// over one node's flattened (M,) buffer and the (k, M) stack of buffers it
+// received. Replaces the TPU kernel `gossip_mix` (src/repro/kernels/
+// gossip_mix.py:46, its pallas_call at :59) and the padding of its front
+// door `ops.gossip_mix` (src/repro/kernels/ops.py:50-62), which cut M into
+// whole (8, 1024) tiles: a grid-stride loop needs no padding. Bound: data
+// movement, (k + 2) * M * bytes (k neighbor rows and self read once, out
+// written once) at 3.35 TB/s; (k + 2) * M flops are far below the fp32
+// peak. Each thread walks packets of 16 bytes (float4, 8 x bf16) when M and
+// the pointers allow it, sums the k neighbor packets in fp32 in slot
+// order, as the plain version's sum does, and stores
+// fmaf(ew, sum, sw * self) once in the input dtype.
+//
 // Plain C interface, loaded with ctypes (src/repro_torch/kernels/
 // gossip_mix.py). Each entry point returns cudaGetLastError() after the
 // launch.
@@ -135,7 +151,68 @@ int launch(const void* z, const void* msg, const void* s_in,
   return static_cast<int>(cudaGetLastError());
 }
 
+// grid-stride over M in packets of V elements
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+    gossip_mix_flat_kernel(const T* __restrict__ self_buf,
+                           const T* __restrict__ nbrs, T* __restrict__ out,
+                           int k, int64_t M, float sw, float ew) {
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * V;
+  for (int64_t m = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x)
+                   * V;
+       m < M; m += step) {
+    float sum[V], buf[V];
+    load<T, V>(nbrs + m, sum);
+    for (int j = 1; j < k; ++j) {
+      load<T, V>(nbrs + static_cast<int64_t>(j) * M + m, buf);
+#pragma unroll
+      for (int e = 0; e < V; ++e) sum[e] += buf[e];
+    }
+    load<T, V>(self_buf + m, buf);
+#pragma unroll
+    for (int e = 0; e < V; ++e) sum[e] = fmaf(ew, sum[e], sw * buf[e]);
+    store<T, V>(out + m, sum);
+  }
+}
+
+template <typename T>
+int launch_flat(const void* self_buf, const void* nbrs, void* out, int k,
+                int64_t M, float sw, float ew, void* stream) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int64_t kMaxBlocks = 132 * 32;  // enough to fill 132 SMs
+  const bool packed = M % V == 0 && aligned16(self_buf) && aligned16(nbrs) &&
+                      aligned16(out);
+  const int64_t per_block = kThreads * (packed ? V : 1);
+  int64_t blocks = (M + per_block - 1) / per_block;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* st = static_cast<const T*>(self_buf);
+  const T* nt = static_cast<const T*>(nbrs);
+  T* ot = static_cast<T*>(out);
+  if (packed) {
+    gossip_mix_flat_kernel<T, V><<<static_cast<int>(blocks), kThreads, 0, s>>>(
+        st, nt, ot, k, M, sw, ew);
+  } else {
+    gossip_mix_flat_kernel<T, 1><<<static_cast<int>(blocks), kThreads, 0, s>>>(
+        st, nt, ot, k, M, sw, ew);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int gossip_mix_flat_f32(const void* self_buf, const void* nbrs,
+                                   void* out, int k, int64_t M, float sw,
+                                   float ew, void* stream) {
+  return launch_flat<float>(self_buf, nbrs, out, k, M, sw, ew, stream);
+}
+
+extern "C" int gossip_mix_flat_bf16(const void* self_buf, const void* nbrs,
+                                    void* out, int k, int64_t M, float sw,
+                                    float ew, void* stream) {
+  return launch_flat<__nv_bfloat16>(self_buf, nbrs, out, k, M, sw, ew,
+                                    stream);
+}
 
 extern "C" int gossip_mix_f32(const void* z, const void* msg,
                               const void* s_in, const void* w_self,

@@ -1,5 +1,7 @@
 """Plain PyTorch versions of the port's kernels (the oracles the kernels are
-held against, on the card by chip_smoke.py and in tests/test_torch_kernels.py).
+held against, on the card by chip_smoke.py and tests/test_torch_kernels_card.py,
+and against the reference on the CPU by tests/test_torch_kernels.py and
+tests/test_torch_kernel_ops.py).
 Deliberately naive and readable, and in the float order of
 `repro.kernels.ref`, so CPU parity with the reference is tight.
 
@@ -9,10 +11,91 @@ The main path calls these only for tensors that lie on the CPU
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["compress_mix_ref", "compress_mix_weighted_ref",
-           "gossip_gather_mix_ref", "gossip_mix_weighted_ref"]
+           "flash_attention_ref", "gossip_gather_mix_ref", "gossip_mix_ref",
+           "gossip_mix_weighted_ref", "selective_scan_ref", "ssd_scan_ref"]
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        sm_scale: float | None = None) -> torch.Tensor:
+    """Plain softmax attention in float32. q: (B, H, Sq, D); k, v:
+    (B, KH, Sk, D) with H % KH == 0 (GQA: query head h reads kv head
+    h // (H / KH)). Returns (B, H, Sq, D) in q's dtype.
+
+    The causal mask is top-left aligned: query row r sees key columns
+    c <= r, as the TPU kernel (`repro.kernels.flash_attention`, `rows >=
+    cols`) and its front door `repro.kernels.ops.flash_attention` compute.
+    `repro.kernels.ref.flash_attention_ref` aligns it bottom-right
+    (`tril(k=Sk-Sq)`), so the two oracles differ when Sq != Sk.
+    """
+    group = q.shape[1] // k.shape[1]
+    D = q.shape[-1]
+    kr = k.repeat_interleave(group, dim=1).float()
+    vr = v.repeat_interleave(group, dim=1).float()
+    scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+    if causal:
+        Sq, Sk = q.shape[2], k.shape[2]
+        mask = torch.ones((Sq, Sk), dtype=torch.bool,
+                          device=q.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, vr).to(q.dtype)
+
+
+def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor,
+                       D_skip: torch.Tensor) -> torch.Tensor:
+    """Mamba-1 recurrence, a Python loop over tokens.
+    x, dt: (Bt, S, d); A: (d, N); B, C: (Bt, S, N); D_skip: (d,).
+    Returns y: (Bt, S, d) float32."""
+    x, dt, B, C = x.float(), dt.float(), B.float(), C.float()
+    A = A.float()
+    Bt, S, d = x.shape
+    h = torch.zeros((Bt, d, A.shape[1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        x_t, dt_t = x[:, t], dt[:, t]
+        dA = torch.exp(dt_t[..., None] * A)                  # (Bt, d, N)
+        dBx = (dt_t * x_t)[..., None] * B[:, t, None, :]
+        h = dA * h + dBx
+        ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
+    return torch.stack(ys, dim=1) + x * D_skip.float()
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
+    """Mamba-2 SSD recurrence, a sequential loop over tokens.
+    x: (Bt, S, H, P); dt: (Bt, S, H); A: (H,) negative; B, C: (Bt, S, N).
+    Returns y: (Bt, S, H, P) float32 (no D skip, no gating)."""
+    x, dt, B, C = x.float(), dt.float(), B.float(), C.float()
+    A = A.float()
+    Bt, S, H, P = x.shape
+    h = torch.zeros((Bt, H, P, B.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(S):
+        x_t, dt_t = x[:, t], dt[:, t]                        # (Bt,H,P), (Bt,H)
+        dA = torch.exp(dt_t * A)                             # (Bt, H)
+        dBx = torch.einsum("bhp,bn->bhpn", x_t * dt_t[..., None], B[:, t])
+        h = dA[..., None, None] * h + dBx
+        ys.append(torch.einsum("bhpn,bn->bhp", h, C[:, t]))
+    return torch.stack(ys, dim=1)
+
+
+def gossip_mix_ref(self_buf: torch.Tensor, neighbor_bufs: torch.Tensor,
+                   self_weight: float, edge_weight: float) -> torch.Tensor:
+    """out = sw * self + ew * sum_k neighbor_k, accumulated in float32.
+    self_buf: (M,); neighbor_bufs: (K, M). Returns self_buf's dtype."""
+    acc = self_weight * self_buf.float()
+    acc = acc + edge_weight * torch.sum(neighbor_bufs.float(), 0)
+    return acc.to(self_buf.dtype)
 
 
 def gossip_mix_weighted_ref(self_buf: torch.Tensor,

@@ -189,7 +189,8 @@ def test_scalar_weights_become_vectors():
 
 
 def test_library_is_keyed_by_source_hash():
-    assert build.SOURCES == ("gossip_mix", "compress_mix")
+    assert build.SOURCES == ("gossip_mix", "compress_mix", "flash_attention",
+                             "ssd_scan", "selective_scan")
     paths = set()
     for name in build.SOURCES:
         path = build.library_path(name)

@@ -1,7 +1,10 @@
-"""Kernels K1 and K2 on a CUDA card: each CUDA kernel against its plain
-PyTorch version, its launch count, its device-side index check, and the
-dense main path on the card against the same run on the CPU, uncompressed
-(K1) and compressed (K2).
+"""The port's kernels on a CUDA card. K1 and K2: each CUDA kernel against its
+plain PyTorch version, its launch count, its device-side index check, and
+the dense main path on the card against the same run on the CPU,
+uncompressed (K1) and compressed (K2). K3 to K6: each front door of
+`kernels.ops` against its plain version on the shapes of
+tests/test_kernels.py and their edges, launching its kernel once per call,
+with the tolerances chip_smoke.py states.
 
 Every test here needs the card (the CUDA kernel has no CPU mode) and skips
 without one. This file imports nothing of JAX, so it runs on the card's
@@ -21,7 +24,8 @@ import torch
 
 import repro_torch
 from repro_torch.convert import assert_results_match
-from repro_torch.kernels import compress_mix, gossip_mix, ops, ref
+from repro_torch.kernels import (compress_mix, flash_attention, gossip_mix,
+                                 ops, ref, selective_scan, ssd_scan)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -153,3 +157,118 @@ def test_dense_main_path_on_the_card_matches_the_cpu(cuda_device, name,
     assert sum(launched.values()) == launched[kernel]
     on_cpu = repro_torch.run(spec, "dense", device="cpu")
     assert_results_match(on_card.to_dict(), on_cpu.to_dict())
+
+
+def _launched_once(module, count_name, call):
+    before = getattr(module, count_name)
+    out = call()
+    torch.cuda.synchronize()
+    assert getattr(module, count_name) == before + 1
+    return out
+
+
+@pytest.mark.parametrize("M,k", [(1, 1), (4099, 4), (1 << 20, 8),
+                                 (65537, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flat_mix_matches_plain_on_the_card(cuda_device, M, k, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(M + k)
+    sb = torch.randn((M,), generator=gen, device=cuda_device).to(
+        getattr(torch, dtype))
+    nb = torch.randn((k, M), generator=gen, device=cuda_device).to(sb.dtype)
+    out = _launched_once(gossip_mix, "FLAT_LAUNCHES",
+                         lambda: ops.gossip_mix(sb, nb, 0.2, 0.8 / k))
+    expect = ref.gossip_mix_ref(sb, nb, 0.2, 0.8 / k)
+    assert out.dtype == sb.dtype and out.shape == sb.shape
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == "float32"
+           else dict(rtol=2e-2, atol=1e-5))
+    torch.testing.assert_close(out.float(), expect.float(), **tol)
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", [
+    (2, 4, 4, 128, 128, 64, True),     # MHA
+    (2, 8, 2, 256, 256, 64, True),     # GQA 4x
+    (2, 4, 1, 256, 256, 128, True),    # MQA
+    (2, 2, 2, 512, 512, 32, True),
+    (1, 2, 2, 128, 256, 64, False),    # Sq != Sk
+    (1, 2, 1, 128, 256, 64, True),     # top-left mask at Sq < Sk
+    (1, 2, 1, 256, 128, 64, True),     # Sq > Sk
+    (1, 4, 4, 128, 128, 80, True),     # zamba2-2.7b's head dim
+    (1, 2, 2, 100, 100, 48, True),     # one ragged tile, D padded
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_matches_plain_on_the_card(cuda_device, B, H, KH, Sq, Sk,
+                                             D, causal, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(Sq * D + H)
+    td = getattr(torch, dtype)
+    q = torch.randn((B, H, Sq, D), generator=gen, device=cuda_device).to(td)
+    k = torch.randn((B, KH, Sk, D), generator=gen, device=cuda_device).to(td)
+    v = torch.randn((B, KH, Sk, D), generator=gen, device=cuda_device).to(td)
+    out = _launched_once(flash_attention, "LAUNCHES",
+                         lambda: ops.flash_attention(q, k, v, causal=causal))
+    expect = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert out.dtype == td and out.shape == q.shape
+    # bf16: both sides compute in fp32 and round once, so at most one bf16
+    # ulp apart (chip_smoke.py ATTN_TOL)
+    tol = (dict(atol=2e-5, rtol=2e-4) if dtype == "float32"
+           else dict(atol=1e-5, rtol=1.6e-2))
+    torch.testing.assert_close(out.float(), expect.float(), **tol)
+
+
+def _scan_inputs(shapes, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shapes["x"], generator=gen, device=device) * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn(shapes["dt"], generator=gen, device=device) - 1.0)
+    A = -torch.exp(torch.randn(shapes["A"], generator=gen, device=device)
+                   * 0.3)
+    B = torch.randn(shapes["B"], generator=gen, device=device) * 0.5
+    C = torch.randn(shapes["B"], generator=gen, device=device) * 0.5
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("S,d,N", [(256, 128, 8), (512, 256, 16),
+                                   (256, 512, 16), (200, 100, 5),
+                                   (128, 64, 64)])
+def test_selective_scan_matches_plain_on_the_card(cuda_device, S, d, N):
+    x, dt, A, B, C = _scan_inputs(dict(x=(2, S, d), dt=(2, S, d), A=(d, N),
+                                       B=(2, S, N)), S + d + N, cuda_device)
+    D_skip = torch.ones((d,), device=cuda_device)
+    out = _launched_once(selective_scan, "LAUNCHES",
+                         lambda: selective_scan.selective_scan(
+                             x, dt, A, B, C, D_skip))
+    expect = ref.selective_scan_ref(x, dt, A, B, C, D_skip)
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    torch.testing.assert_close(out, expect, atol=5e-4, rtol=2e-3)
+
+
+@pytest.mark.parametrize("S,H,P,N", [(256, 4, 32, 16), (512, 2, 64, 64),
+                                     (128, 8, 64, 32), (100, 3, 40, 6),
+                                     (128, 2, 64, 128)])
+def test_ssd_scan_matches_plain_on_the_card(cuda_device, S, H, P, N):
+    x, dt, A, B, C = _scan_inputs(dict(x=(2, S, H, P), dt=(2, S, H), A=(H,),
+                                       B=(2, S, N)), S + H + P + N,
+                                  cuda_device)
+    out = _launched_once(ssd_scan, "LAUNCHES",
+                         lambda: ssd_scan.ssd_scan(x, dt, A, B, C))
+    expect = ref.ssd_scan_ref(x, dt, A, B, C)
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    torch.testing.assert_close(out, expect, atol=5e-4, rtol=2e-3)
+
+
+def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda_device):
+    z = torch.ones((1, 2, 128, 64), device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention.flash_attention(z.half(), z.half(), z.half())
+    with pytest.raises(ValueError, match="exceeds"):
+        big = torch.ones((1, 1, 8, 264), device=cuda_device)
+        flash_attention.flash_attention(big, big, big)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention.flash_attention(z.transpose(2, 3).contiguous()
+                                        .transpose(2, 3), z, z)
+    x = torch.ones((1, 8, 4), device=cuda_device)
+    with pytest.raises(ValueError, match="state size"):
+        selective_scan.selective_scan(x, x, torch.ones((4, 65),
+                                                       device=cuda_device),
+                                      x, x, x[0, 0])
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan.ssd_scan(x[..., None].double(), x, x[0, 0], x, x)
