@@ -12,7 +12,8 @@ non-zero and the last line is not printed. The phases:
             run at "highest" precision (the dense P @ z stays full fp32)
   build     builds every kernel of the main path from src/repro_torch/
             kernels/csrc (one nvcc per source, all at once) and prints the
-            compiler's register/spill report
+            compiler's register/spill report, its warnings and its
+            performance remarks (wgmma serialized, fences injected)
   kernel    K1 (gossip mix) against its plain PyTorch version on the card
             over a grid of shapes, weights, messages and dtypes (fp32:
             rtol 1e-5, atol 1e-6; bf16: rtol 2e-2, atol 1e-5), then its
@@ -57,15 +58,23 @@ non-zero and the last line is not printed. The phases:
             port never calls) and the bound
   kernel_k4 K4 (`kernels.ops.flash_attention`) the same way, over
             tests/test_kernels.py's shapes, Sq != Sk (causal and not), MHA,
-            GQA, MQA, ragged S and D in {16, 48, 80, 96, 160, 192, 256}
-            (fp32: atol 2e-5, rtol 2e-4, as tests/test_kernels.py; bf16:
-            atol 1e-5, rtol 1.6e-2, two bf16 ulps); at full width
-            llama3-8b's attention at train_4k (B=1, H=32, KH=8, S=4096,
-            D=128, bf16, causal), and again on exact fp32 copies of the
-            same q, k, v held to the fp32 tolerance (so a kernel that
-            rounded the scores or P to bf16 fails), timed beside the plain
-            version and torch's scaled_dot_product_attention (K and V
-            repeated outside the timed window)
+            GQA, MQA, ragged S and D in {16, 48, 80, 96, 160, 192, 256},
+            each case on the route `flash_attention.route` names (every
+            bf16 case on "sm90", flash_attention_sm90.cu, launched once;
+            every fp32 case on "cuda_core", flash_attention.cu; fp32: atol
+            2e-5, rtol 2e-4, as tests/test_kernels.py; bf16: atol 1e-5, rtol
+            1.6e-2, two bf16 ulps); at full width llama3-8b's attention at
+            train_4k (B=1, H=32, KH=8, S=4096, D=128, bf16, causal) on the
+            sm90 route, with the launch counts by route read around it;
+            then on exact fp32 copies of the same q, k, v, both held to the
+            fp32 tolerance: the sm90 kernel's bf16-in, fp32-out entry (which
+            fails a kernel that rounds P to bf16) and the fp32 route. Times
+            the bf16 route beside the plain version and torch's
+            scaled_dot_product_attention (K and V repeated outside the timed
+            window), and the fp32-out entry, the fp32 route on the copies
+            and the CUDA-core kernel on the bf16 inputs; bounds for the
+            reference's work (4 D flops a kept pair) and the split's (6 D),
+            and the two sources' build seconds
   kernel_k5 K5 (`kernels.ops.ssd_scan`) over tests/test_kernels.py's
             shapes, ragged S and P, N in {6, 128} (atol 5e-4, rtol 2e-3,
             as tests/test_kernels.py); at full width zamba2-2.7b's Mamba-2
@@ -212,7 +221,7 @@ def phase_env() -> dict:
     return {"nvidia_smi": smi}
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -224,8 +233,11 @@ def phase_build() -> None:
     for name in build.SOURCES:
         log = build.library_path(name).with_suffix(".log")
         ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                       if "registers" in ln or "spill" in ln]
+                       if "registers" in ln or "spill" in ln
+                       or "warning" in ln.lower()
+                       or "Performance Loss" in ln]
     emit("build", seconds=seconds, wall_s=wall, ptxas=ptxas)
+    return seconds
 
 
 def _dense_cell_spec(compression=None):
@@ -252,6 +264,10 @@ _COUNTS = {"gossip_mix": ("gossip_mix", "LAUNCHES"),
            "selective_scan": ("selective_scan", "LAUNCHES")}
 
 
+#: K4's launches by route (flash_attention.route), beside its total above
+_ROUTE_COUNTS = {"sm90": "SM90_LAUNCHES", "cuda_core": "CUDA_CORE_LAUNCHES"}
+
+
 def _count_module(name: str):
     import importlib
 
@@ -263,9 +279,16 @@ def _launch_counts() -> dict:
             for kernel, (mod, attr) in _COUNTS.items()}
 
 
+def _route_counts() -> dict:
+    fa = _count_module("flash_attention")
+    return {route: getattr(fa, attr) for route, attr in _ROUTE_COUNTS.items()}
+
+
 def _zero_launch_counts() -> None:
     for mod, attr in _COUNTS.values():
         setattr(_count_module(mod), attr, 0)
+    for attr in _ROUTE_COUNTS.values():
+        setattr(_count_module("flash_attention"), attr, 0)
 
 
 def _front_door_once(kernel: str, call):
@@ -891,12 +914,15 @@ def _attention_pairs(Sq: int, Sk: int, causal: bool) -> int:
     return tri * (tri + 1) // 2 + full
 
 
-def phase_kernel_k4() -> dict:
-    """K4 (flash attention) against its plain version on the card, then its
-    front door at full width, in bf16 and on fp32 copies, then its times."""
+def phase_kernel_k4(build_s: dict) -> dict:
+    """K4 (flash attention) against its plain version on the card, each case
+    on the route `flash_attention.route` names, then its front door at full
+    width in bf16 (the sm90 route), the sm90 kernel's fp32-out entry and the
+    fp32 route on fp32 copies, then its times."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
 
     gen = torch.Generator(device="cuda")
@@ -923,13 +949,29 @@ def phase_kernel_k4() -> dict:
                         _randn(gen, (B, KH, Sk, D), dtype), causal),
                        str(dtype).split(".")[1])
 
+    grid_routes = {"sm90": 0, "cuda_core": 0}
+
     def door(q, k, v, causal=True):
-        return ops.flash_attention(q, k, v, causal=causal)
+        """The front door, which must launch once on the route's kernel."""
+        want = fa.route(q.dtype, q.shape[-1])
+        before = _route_counts()
+        out = ops.flash_attention(q, k, v, causal=causal)
+        moved = {r: n - before[r] for r, n in _route_counts().items()}
+        if moved != {r: int(r == want) for r in moved}:
+            raise AssertionError(f"K4 on {q.dtype} D={q.shape[-1]} should "
+                                 f"launch once on {want}, launched {moved}")
+        grid_routes[want] += 1
+        return out
 
     def plain(q, k, v, causal=True):
         return ref.flash_attention_ref(q, k, v, causal=causal)
 
     _check_grid("flash_attention", "K4", cases(), door, plain, ATTN_TOL)
+    grid_taken = dict(grid_routes)  # the grid's; calls below add more
+    if grid_taken != {"sm90": len(shapes), "cuda_core": len(shapes)}:
+        raise AssertionError(f"K4's grid took the routes {grid_taken}: "
+                             f"every bf16 case on sm90, every fp32 case on "
+                             f"cuda_core")
 
     # full width: llama3-8b's attention (configs/llama3_8b.py: 32 heads, 8
     # kv heads, head dim 128) at train_4k (configs/shapes.py), bf16, causal
@@ -938,34 +980,62 @@ def phase_kernel_k4() -> dict:
                for h in (H, KH, KH))
     launches, err = _full_width("flash_attention", "K4", door, plain,
                                 (q, k, v), ATTN_TOL["bfloat16"])
-    # the same inputs as exact fp32 copies, held to the fp32 tolerance: a
-    # kernel that rounded the scores or P to bf16 would pass the bf16
-    # comparison above but not this one
+    routes = _route_counts()
+    if routes != {"sm90": 1, "cuda_core": 0}:
+        raise AssertionError(f"K4 at full width took the routes {routes}")
+    # the same inputs as exact fp32 copies, held to the fp32 tolerance: the
+    # sm90 kernel with an fp32 output (a kernel that rounded P to bf16 would
+    # be about 1e-3 off, against rtol 2e-4), and the fp32 route's kernel
     copies = (q.float(), k.float(), v.float())
-    err_fp32 = _hold("K4 at full width on fp32 copies", door(*copies),
-                     plain(*copies), ATTN_TOL["float32"])
-    del copies
+    expect32 = plain(*copies)
+    err_fp32_out = _hold("K4 sm90 fp32-out at full width on fp32 copies",
+                         fa._flash_attention_fp32_out(q, k, v), expect32,
+                         ATTN_TOL["float32"])
+    err_fp32 = _hold("K4 fp32 route at full width on fp32 copies",
+                     door(*copies), expect32, ATTN_TOL["float32"])
+    del expect32
     kr = k.repeat_interleave(H // KH, dim=1)
     vr = v.repeat_interleave(H // KH, dim=1)
-    kernel_t = time_ms(lambda: door(q, k, v), reps=10, inner=3)
+    kernel_t = time_ms(lambda: ops.flash_attention(q, k, v), reps=10,
+                       inner=3)
     plain_t = time_ms(lambda: plain(q, k, v), reps=5, inner=2)
     library_t = time_ms(lambda: F.scaled_dot_product_attention(
         q, kr, vr, is_causal=True), reps=10, inner=5)
+    fp32_out_t = time_ms(lambda: fa._flash_attention_fp32_out(q, k, v),
+                         reps=10, inner=3)
+    fp32_route_t = time_ms(lambda: ops.flash_attention(*copies), reps=5,
+                           inner=2)
+    # the CUDA-core kernel on the same bf16 inputs: the route bf16 took
+    # before the sm90 kernel, timed in the same run
+    cuda_core_bf16_t = time_ms(lambda: fa._launch(
+        "cuda_core", q, k, v, torch.bfloat16, True), reps=5, inner=2)
+    del copies
     torch.cuda.empty_cache()
     # q, k, v read once, out written once; 4 D flops (q.k and p v) for
-    # each (row, column) pair the causal mask keeps
+    # each (row, column) pair the causal mask keeps: the reference's work;
+    # the sm90 kernel's split does P V twice, 6 D flops a pair
+    pairs = B * H * _attention_pairs(S, S, True)
     nbytes = 2 * (2 * B * H * S * D + 2 * B * KH * S * D)
-    flops = 4 * D * B * H * _attention_pairs(S, S, True)
+    flops = 4 * D * pairs
     numbers = _report(
-        "flash_attention", "flash_attention.cu",
+        "flash_attention", "flash_attention_sm90.cu",
         "src/repro/kernels/flash_attention.py:79", launches, err, kernel_t,
         plain_t, library_t, nbytes, flops, BF16_FLOPS,
         shape={"B": B, "H": H, "KH": KH, "Sq": S, "Sk": S, "D": D,
                "dtype": "bfloat16", "causal": True},
-        max_abs_err_fp32_copies=err_fp32,
-        bound_basis="bf16 tensor cores, 989 TFLOP/s; the kernel computes "
-                    "in fp32 on the CUDA cores",
-        fp32_bound_ms=_bound(nbytes, flops, FP32_FLOPS)["bound_ms"],
+        route_launches=routes, grid_routes=grid_taken,
+        max_abs_err_fp32_out=err_fp32_out,
+        max_abs_err_fp32_route=err_fp32,
+        bound_basis="the reference's work, 4 D flops a kept pair, on the "
+                    "bf16 tensor cores at 989 TFLOP/s",
+        split_flops=6 * D * pairs,
+        split_bound_ms=_bound(nbytes, 6 * D * pairs, BF16_FLOPS)["bound_ms"],
+        fp32_out_ms=fp32_out_t["device"],
+        fp32_route_ms=fp32_route_t["device"],
+        fp32_route_bound_ms=_bound(2 * nbytes, flops, FP32_FLOPS)["bound_ms"],
+        cuda_core_bf16_ms=cuda_core_bf16_t["device"],
+        build_s={name: build_s[name] for name in
+                 ("flash_attention_sm90", "flash_attention")},
         library_call="F.scaled_dot_product_attention(q, k, v, "
                      "is_causal=True), K and V repeated per group outside "
                      "the timed window")
@@ -1100,14 +1170,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     env = phase_env()
-    phase_build()
+    build_s = phase_build()
     k1 = phase_kernel()
     k2 = phase_kernel_k2()
     phase_manifests()
     k1["launches"] = phase_main_path()
     k2["launches"] = phase_main_path_compressed()
     k3 = phase_kernel_k3()
-    k4 = phase_kernel_k4()
+    k4 = phase_kernel_k4(build_s)
     k5 = phase_kernel_k5()
     k6 = phase_kernel_k6()
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}), flush=True)

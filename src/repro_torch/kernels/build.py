@@ -3,11 +3,13 @@
 Each source compiles with `nvcc` into a shared library with a plain C
 interface (loaded with `ctypes` by its wrapper module) under
 `build/repro_torch_kernels/` at the root of the checkout. The library's name
-carries a hash of the source and the flags, so an edited source builds
-anew and an unchanged one is loaded from disk. `build()` starts one `nvcc`
-per missing library, all at once, and waits for them together. The
-compiler's resource report (`-Xptxas -v`: registers, shared memory and
-spills per kernel) is kept beside each library as `<name>-<hash>.log`.
+carries a hash of the source, of every header under `csrc/` that it
+includes (`#include "name.cuh"`, followed into headers), and of the flags,
+so an edited source or header builds anew and an unchanged one is loaded
+from disk. `build()` starts one `nvcc` per missing library, all at once,
+and waits for them together. The compiler's resource report (`-Xptxas -v`:
+registers, shared memory and spills per kernel) is kept beside each
+library as `<name>-<hash>.log`.
 
 Nothing is compiled on import: the CPU tests import every module on a
 machine without `nvcc`.
@@ -19,6 +21,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -30,12 +33,13 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
 #: every CUDA source of the port, by stem
-SOURCES = ("gossip_mix", "compress_mix", "flash_attention", "ssd_scan",
-           "selective_scan")
+SOURCES = ("gossip_mix", "compress_mix", "flash_attention",
+           "flash_attention_sm90", "ssd_scan", "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -52,10 +56,29 @@ def _nvcc() -> str:
                        "toolkit")
 
 
+def _inputs(name: str) -> list[pathlib.Path]:
+    """Source `name` and every header under `CSRC` it includes, directly or
+    through another header, in a fixed order."""
+    found, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for include in _INCLUDE.findall(path.read_bytes()):
+            header = CSRC / include.decode()
+            if header.is_file():
+                todo.append(header)
+    return [found[0], *sorted(found[1:])]
+
+
 def library_path(name: str) -> pathlib.Path:
-    """Where the library of source `name` lives once built."""
-    source = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode())
+    """Where the library of source `name` lives once built: named by a hash
+    of the source, its headers under `CSRC` and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _inputs(name):
+        digest.update(f"\0{path.name}\0".encode())
+        digest.update(path.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -16,8 +16,11 @@ Tolerances:
     port's plain version the sequential one; the flat mix 1e-5).
 """
 
+import os
 import pathlib
 import re
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -326,3 +329,51 @@ def test_every_source_names_the_pallas_function_it_replaces():
             cited.add(fn)
     assert {"gossip_mix", "gossip_mix_weighted", "compress_mix_weighted",
             "flash_attention", "ssd_scan", "selective_scan"} <= cited
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 8, "sm90"), (torch.bfloat16, 16, "sm90"),
+    (torch.bfloat16, 48, "sm90"), (torch.bfloat16, 64, "sm90"),
+    (torch.bfloat16, 80, "sm90"), (torch.bfloat16, 128, "sm90"),
+    (torch.bfloat16, 160, "sm90"), (torch.bfloat16, 256, "sm90"),
+    (torch.bfloat16, 12, "cuda_core"), (torch.bfloat16, 100, "cuda_core"),
+    (torch.bfloat16, 1, "cuda_core"), (torch.float32, 64, "cuda_core"),
+    (torch.float32, 128, "cuda_core"), (torch.float32, 12, "cuda_core"),
+])
+def test_attention_route_rule(dtype, D, want):
+    """bf16 with D a multiple of 8 (16-byte TMA rows) goes to the sm90
+    kernel; fp32 (its tolerance is beyond single-pass TF32) and any other D
+    to the CUDA-core kernel. Each route names a source that build.py
+    builds."""
+    assert flash_attention.route(dtype, D) == want
+    stem, entries = flash_attention.ROUTES[want]
+    assert stem in build.SOURCES and dtype in entries
+
+
+def test_attention_wrapper_imports_and_routes_without_cuda():
+    """The wrapper module imports, and routes, on a machine with no card:
+    nothing is built or loaded at import."""
+    code = ("import torch\n"
+            "from repro_torch.kernels import build, flash_attention as fa\n"
+            "assert not torch.cuda.is_available()\n"
+            "assert fa.route(torch.bfloat16, 128) == 'sm90'\n"
+            "assert fa.SM90_LAUNCHES == fa.CUDA_CORE_LAUNCHES == 0\n"
+            "assert not build._LOADED\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
+                                     (torch.bfloat16, 12)])
+def test_fp32_out_entry_takes_only_the_sm90_route(dtype, D):
+    t = torch.ones((1, 1, 4, D), dtype=dtype)
+    with pytest.raises(ValueError, match="fp32-out entry takes bf16"):
+        flash_attention._flash_attention_fp32_out(t, t, t)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flash_attention._flash_attention_fp32_out(*(t.bfloat16()[..., :8],)
+                                                  * 3)

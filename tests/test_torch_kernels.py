@@ -190,7 +190,8 @@ def test_scalar_weights_become_vectors():
 
 def test_library_is_keyed_by_source_hash():
     assert build.SOURCES == ("gossip_mix", "compress_mix", "flash_attention",
-                             "ssd_scan", "selective_scan")
+                             "flash_attention_sm90", "ssd_scan",
+                             "selective_scan")
     paths = set()
     for name in build.SOURCES:
         path = build.library_path(name)
@@ -200,6 +201,29 @@ def test_library_is_keyed_by_source_hash():
         assert (build.CSRC / f"{name}.cu").exists()
         paths.add(path)
     assert len(paths) == len(build.SOURCES)
+
+
+@pytest.mark.parametrize("edit", ["header", "nested header", "source"])
+def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch,
+                                                  edit):
+    """An edited header under csrc/, included directly or through another
+    header, names a new library, as an edited source does; a header that
+    is not included does not."""
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\nint f() { return A; }\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n'
+                                    '#define A B\n')
+    (tmp_path / "b.cuh").write_text("#define B 1\n")
+    (tmp_path / "other.cuh").write_text("#define C 1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = build.library_path("k")
+    (tmp_path / "other.cuh").write_text("#define C 2\n")
+    assert build.library_path("k") == before
+    target = {"header": "a.cuh", "nested header": "b.cuh",
+              "source": "k.cu"}[edit]
+    (tmp_path / target).write_text((tmp_path / target).read_text() + "\n")
+    after = build.library_path("k")
+    assert after != before and after.parent == build.BUILD_DIR
+    assert after.name.startswith("k-") and after.suffix == ".so"
 
 
 # ---------------------------------------------------------------------------

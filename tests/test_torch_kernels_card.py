@@ -4,7 +4,9 @@ the dense main path on the card against the same run on the CPU,
 uncompressed (K1) and compressed (K2). K3 to K6: each front door of
 `kernels.ops` against its plain version on the shapes of
 tests/test_kernels.py and their edges, launching its kernel once per call,
-with the tolerances chip_smoke.py states.
+with the tolerances chip_smoke.py states; K4 on the route its rule names
+(bf16 on the sm90 kernel, fp32 on the CUDA-core kernel), and the sm90
+kernel's fp32-out entry at the fp32 tolerance.
 
 Every test here needs the card (the CUDA kernel has no CPU mode) and skips
 without one. This file imports nothing of JAX, so it runs on the card's
@@ -184,7 +186,8 @@ def test_flat_mix_matches_plain_on_the_card(cuda_device, M, k, dtype):
     torch.testing.assert_close(out.float(), expect.float(), **tol)
 
 
-@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", [
+#: (B, H, KH, Sq, Sk, D, causal): the kernels' edges
+ATTENTION_CASES = [
     (2, 4, 4, 128, 128, 64, True),     # MHA
     (2, 8, 2, 256, 256, 64, True),     # GQA 4x
     (2, 4, 1, 256, 256, 128, True),    # MQA
@@ -194,17 +197,49 @@ def test_flat_mix_matches_plain_on_the_card(cuda_device, M, k, dtype):
     (1, 2, 1, 256, 128, 64, True),     # Sq > Sk
     (1, 4, 4, 128, 128, 80, True),     # zamba2-2.7b's head dim
     (1, 2, 2, 100, 100, 48, True),     # one ragged tile, D padded
-])
+    (1, 2, 1, 256, 128, 64, False),    # Sq > Sk, not causal
+    (1, 4, 2, 100, 384, 128, True),    # ragged Sq < Sk, GQA
+    (1, 4, 1, 384, 100, 128, False),   # Sq > ragged Sk, MQA
+    (1, 2, 1, 128, 128, 16, True),     # D below one 64-column chunk
+    (1, 2, 2, 128, 128, 96, True),
+    (1, 2, 1, 128, 128, 160, True),
+    (1, 2, 1, 120, 120, 192, False),
+    (1, 2, 1, 384, 384, 256, True),    # D = 256: 64-key tiles
+]
+#: shapes the front door refuses (the reference's blocks) but the wrapper
+#: takes: ragged tiles past the first on both axes
+RAGGED_CASES = [
+    (1, 4, 2, 200, 300, 128, True),
+    (1, 4, 1, 300, 200, 128, False),
+    (1, 2, 1, 300, 200, 64, True),
+    (1, 2, 2, 192, 330, 256, True),
+    (2, 2, 1, 130, 130, 40, True),
+]
+
+
+def _attention_inputs(B, H, KH, Sq, Sk, D, dtype, device):
+    gen = torch.Generator(device=device).manual_seed(Sq * D + H)
+    q = torch.randn((B, H, Sq, D), generator=gen, device=device).to(dtype)
+    k = torch.randn((B, KH, Sk, D), generator=gen, device=device).to(dtype)
+    v = torch.randn((B, KH, Sk, D), generator=gen, device=device).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", ATTENTION_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_matches_plain_on_the_card(cuda_device, B, H, KH, Sq, Sk,
                                              D, causal, dtype):
-    gen = torch.Generator(device=cuda_device).manual_seed(Sq * D + H)
     td = getattr(torch, dtype)
-    q = torch.randn((B, H, Sq, D), generator=gen, device=cuda_device).to(td)
-    k = torch.randn((B, KH, Sk, D), generator=gen, device=cuda_device).to(td)
-    v = torch.randn((B, KH, Sk, D), generator=gen, device=cuda_device).to(td)
+    q, k, v = _attention_inputs(B, H, KH, Sq, Sk, D, td, cuda_device)
+    want = "sm90" if dtype == "bfloat16" else "cuda_core"
+    assert flash_attention.route(td, D) == want
+    routes = (flash_attention.SM90_LAUNCHES,
+              flash_attention.CUDA_CORE_LAUNCHES)
     out = _launched_once(flash_attention, "LAUNCHES",
                          lambda: ops.flash_attention(q, k, v, causal=causal))
+    moved = (flash_attention.SM90_LAUNCHES - routes[0],
+             flash_attention.CUDA_CORE_LAUNCHES - routes[1])
+    assert moved == ((1, 0) if want == "sm90" else (0, 1))
     expect = ref.flash_attention_ref(q, k, v, causal=causal)
     assert out.dtype == td and out.shape == q.shape
     # bf16: both sides compute in fp32 and round once, so at most one bf16
@@ -212,6 +247,42 @@ def test_attention_matches_plain_on_the_card(cuda_device, B, H, KH, Sq, Sk,
     tol = (dict(atol=2e-5, rtol=2e-4) if dtype == "float32"
            else dict(atol=1e-5, rtol=1.6e-2))
     torch.testing.assert_close(out.float(), expect.float(), **tol)
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", RAGGED_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_wrapper_takes_ragged_tiles_on_the_card(
+        cuda_device, B, H, KH, Sq, Sk, D, causal, dtype):
+    td = getattr(torch, dtype)
+    q, k, v = _attention_inputs(B, H, KH, Sq, Sk, D, td, cuda_device)
+    count = (flash_attention.SM90_LAUNCHES if dtype == "bfloat16"
+             else flash_attention.CUDA_CORE_LAUNCHES)
+    out = flash_attention.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_attention.SM90_LAUNCHES if dtype == "bfloat16"
+            else flash_attention.CUDA_CORE_LAUNCHES) == count + 1
+    expect = ref.flash_attention_ref(q, k, v, causal=causal)
+    tol = (dict(atol=2e-5, rtol=2e-4) if dtype == "float32"
+           else dict(atol=1e-5, rtol=1.6e-2))
+    torch.testing.assert_close(out.float(), expect.float(), **tol)
+
+
+@pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal",
+                         ATTENTION_CASES[::2] + RAGGED_CASES)
+def test_sm90_fp32_out_keeps_p_to_16_bits(cuda_device, B, H, KH, Sq, Sk, D,
+                                          causal):
+    """The sm90 kernel with an fp32 output, held to the fp32 tolerance on
+    exact fp32 copies of its bf16 inputs: a kernel that rounded P to bf16
+    would be about 1e-3 off, against rtol 2e-4."""
+    q, k, v = _attention_inputs(B, H, KH, Sq, Sk, D, torch.bfloat16,
+                                cuda_device)
+    out = _launched_once(flash_attention, "SM90_LAUNCHES",
+                         lambda: flash_attention._flash_attention_fp32_out(
+                             q, k, v, causal=causal))
+    expect = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                     causal=causal)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    torch.testing.assert_close(out, expect, atol=2e-5, rtol=2e-4)
 
 
 def _scan_inputs(shapes, seed, device):
@@ -253,6 +324,15 @@ def test_ssd_scan_matches_plain_on_the_card(cuda_device, S, H, P, N):
     expect = ref.ssd_scan_ref(x, dt, A, B, C)
     assert out.dtype == torch.float32 and out.shape == x.shape
     torch.testing.assert_close(out, expect, atol=5e-4, rtol=2e-3)
+
+
+def test_sm90_route_refuses_a_misaligned_view(cuda_device):
+    z = torch.ones((2 * 128 * 64 + 1,), device=cuda_device,
+                   dtype=torch.bfloat16)[1:].view(1, 2, 128, 64)
+    count = flash_attention.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention.flash_attention(z, z, z)
+    assert flash_attention.LAUNCHES == count
 
 
 def test_new_wrappers_refuse_what_their_kernels_do_not_take(cuda_device):
