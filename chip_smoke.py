@@ -75,17 +75,28 @@ non-zero and the last line is not printed. The phases:
             and the CUDA-core kernel on the bf16 inputs; bounds for the
             reference's work (4 D flops a kept pair) and the split's (6 D),
             and the two sources' build seconds
-  kernel_k5 K5 (`kernels.ops.ssd_scan`) over tests/test_kernels.py's
-            shapes, ragged S and P, N in {6, 128} (atol 5e-4, rtol 2e-3,
-            as tests/test_kernels.py); at full width zamba2-2.7b's Mamba-2
-            mixer (Bt=1, S=4096, H=80, P=64, N=64, fp32). Its plain version
-            is a loop over tokens, thousands of launches, so it is timed
-            eagerly over 3 windows of one call; no single PyTorch call
-            computes the scan. Its bound counts the fewest operations of
-            the chunked form, at the chunk length that needs least
-  kernel_k6 K6 (`kernels.ops.selective_scan`) the same way, ragged d and
-            S, N in {1, 3, 32, 64} (atol 5e-4, rtol 2e-3); at full width
-            falcon-mamba-7b's mixer (Bt=1, S=4096, d=8192, N=16, fp32)
+  kernel_k5 K5 (`kernels.ops.ssd_scan`, three kernels a call) over
+            tests/test_kernels.py's shapes, ragged S and P, odd P (P = 37,
+            N = 5), N in {6, 128, 136, 220 = MAX_N} and S = 4096 at a
+            narrow width (atol 5e-4, rtol 2e-3, as tests/test_kernels.py);
+            at full width zamba2-2.7b's Mamba-2 mixer (Bt=1, S=4096, H=80,
+            P=64, N=64, fp32), where its error must also be within
+            SCAN_CAP (1e-4: the 3xTF32 decision; an `error_cap` line).
+            Its plain version is a loop over tokens, thousands of
+            launches, so it is timed eagerly over 3 windows of one call; no
+            single PyTorch call computes the scan. Its bound counts the
+            fewest operations of the chunked form, at the chunk length that
+            needs least; its bytes' time stands beside it. Its entry adds
+            the kernels the full-width call launched (as the library counts
+            them), the chunk length, the heads a block and the workspace
+            bytes the call allocated
+  kernel_k6 K6 (`kernels.ops.selective_scan`) the same way, ragged and odd
+            d, S, N in {1, 3, 32, 64}, and S = 4096 at d = 64, where the
+            sequence is split into pieces (atol 5e-4, rtol 2e-3); at full
+            width falcon-mamba-7b's mixer (Bt=1, S=4096, d=8192, N=16,
+            fp32), one piece, its error within SCAN_CAP (2e-5: exp on the
+            SFU); its entry adds the kernels the call launched, the pieces,
+            the lanes a channel and the workspace bytes
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as nvidia-smi prints them, and the result line
@@ -121,6 +132,13 @@ ATTN_TOL = {"float32": dict(atol=2e-5, rtol=2e-4),
             "bfloat16": dict(atol=1e-5, rtol=1.6e-2)}
 #: K5 and K6 against their plain versions, as tests/test_kernels.py:62,77
 SCAN_TOL = dict(atol=5e-4, rtol=2e-3)
+#: the largest absolute error K5 and K6 may show at full width, far inside
+#: SCAN_TOL: they hold the precision decisions. K5's products run in
+#: 3xTF32 on the tensor cores (a single TF32 pass is about 1e-3 off there,
+#: tests/test_torch_scan_forms.py shows it on the CPU) and K6's exps on the
+#: SFU; about 4x and 10x the errors of the fp32 CUDA-core kernels they
+#: replaced (2.67e-5 and 1.9e-6)
+SCAN_CAP = {"ssd_scan": 1e-4, "selective_scan": 2e-5}
 #: the rtol a compressed full-size run is held to against its mix="dense"
 #: twin, by compressor (atol 1e-6 throughout): "fvals" for fvals and
 #: fvals_consensus, "state" for disagreement and the residual norms. Top-k
@@ -266,6 +284,8 @@ _COUNTS = {"gossip_mix": ("gossip_mix", "LAUNCHES"),
 
 #: K4's launches by route (flash_attention.route), beside its total above
 _ROUTE_COUNTS = {"sm90": "SM90_LAUNCHES", "cuda_core": "CUDA_CORE_LAUNCHES"}
+#: the kernels K5's and K6's calls launched, as their libraries count them
+_KERNEL_COUNTS = ("ssd_scan", "selective_scan")
 
 
 def _count_module(name: str):
@@ -289,6 +309,8 @@ def _zero_launch_counts() -> None:
         setattr(_count_module(mod), attr, 0)
     for attr in _ROUTE_COUNTS.values():
         setattr(_count_module("flash_attention"), attr, 0)
+    for mod in _KERNEL_COUNTS:
+        _count_module(mod).KERNELS = 0
 
 
 def _front_door_once(kernel: str, call):
@@ -824,15 +846,17 @@ def _full_width(name: str, label: str, door, plain, args, tol: dict):
 
 def _report(name: str, source: str, replaces: str, launches: int,
             err: float, kernel_t: dict, plain_t: dict, library_t, nbytes,
-            flops, peak: float = FP32_FLOPS, **emitted) -> dict:
-    """The kernel's entry of the `kernels` line, emitted with its eager
-    times and `emitted` as a `kernel_time` line."""
+            flops, peak: float = FP32_FLOPS, entry: dict | None = None,
+            **emitted) -> dict:
+    """The kernel's entry of the `kernels` line (with `entry` added to it),
+    emitted with its eager times and `emitted` as a `kernel_time` line."""
     numbers = dict(name=name, route="cuda",
                    source=f"src/repro_torch/kernels/csrc/{source}",
                    replaces=replaces, launches=launches, max_abs_err=err,
                    ms=kernel_t["device"], plain_ms=plain_t["device"],
                    **_bound(nbytes, flops, peak),
-                   library_ms=library_t and library_t["device"])
+                   library_ms=library_t and library_t["device"],
+                   **(entry or {}))
     emit("kernel_time", bytes=nbytes, flops=flops,
          kernel_ms=kernel_t["device"], eager_ms=kernel_t["eager"],
          plain_eager_ms=plain_t["eager"],
@@ -1075,12 +1099,21 @@ def _ssd_flops(Bt: int, S: int, H: int, P: int, N: int) -> float:
                for Q in range(1, S + 1))
 
 
+def _capped(name: str, err: float) -> None:
+    """Raise unless the full-width error `err` of `name` is within its
+    SCAN_CAP; emit the check."""
+    if not err <= SCAN_CAP[name]:
+        raise AssertionError(f"{name} at full width is {err} off the plain "
+                             f"version, over its cap {SCAN_CAP[name]}")
+    emit("error_cap", name=name, max_abs_err=err, cap=SCAN_CAP[name])
+
+
 def phase_kernel_k5() -> dict:
     """K5 (the SSD scan) against its plain version on the card, then its
     front door at full width, then its times."""
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, ssd_scan
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -1089,7 +1122,16 @@ def phase_kernel_k5() -> dict:
         for Bt, S, H, P, N in ((2, 256, 4, 32, 16), (2, 512, 2, 64, 64),
                                (2, 128, 8, 64, 32),  # tests/test_kernels.py:65
                                (1, 100, 3, 40, 6), (1, 128, 2, 80, 128),
-                               (1, 1024, 2, 64, 64)):
+                               (1, 1024, 2, 64, 64),
+                               # long S at a narrow width (64 chunks), the
+                               # 32-token chunks of N > 128, MAX_N, each
+                               # with a ragged last chunk
+                               (1, 4096, 2, 32, 16), (1, 100, 3, 72, 136),
+                               (1, 120, 2, 64, ssd_scan.MAX_N),
+                               # odd P, P N % 4 != 0: x staged and y
+                               # stored a float at a time, the state pass
+                               # one element a thread
+                               (1, 128, 2, 37, 5)):
             yield ((Bt, S, H, P, N),
                    _scan_inputs(gen, (Bt, S, H, P), (Bt, S, H), (H,),
                                 (Bt, S, N)), "float32")
@@ -1103,14 +1145,21 @@ def phase_kernel_k5() -> dict:
     args = _scan_inputs(gen, (Bt, S, H, P), (Bt, S, H), (H,), (Bt, S, N))
     launches, err = _full_width("ssd_scan", "K5", ops.ssd_scan,
                                 ref.ssd_scan_ref, args, SCAN_TOL)
+    kernels = ssd_scan.KERNELS  # counted by the library in that one call
+    _capped("ssd_scan", err)
+    how = ssd_scan.LAST_PLAN
     kernel_t = time_ms(lambda: ops.ssd_scan(*args), reps=10, inner=5)
     plain_t = time_ms(lambda: ref.ssd_scan_ref(*args), **PLAIN_SCAN_TIMING)
     # x, dt, A, B, C read once, y written once
+    nbytes = 4 * (2 * Bt * S * H * P + Bt * S * H + H + 2 * Bt * S * N)
     return _report(
         "ssd_scan", "ssd_scan.cu", "src/repro/kernels/ssd_scan.py:69",
-        launches, err, kernel_t, plain_t, None,
-        nbytes=4 * (2 * Bt * S * H * P + Bt * S * H + H + 2 * Bt * S * N),
+        launches, err, kernel_t, plain_t, None, nbytes=nbytes,
         flops=_ssd_flops(Bt, S, H, P, N),
+        entry={"kernels_per_call": kernels / launches, "chunk": how["chunk"],
+               "heads_per_block": how["heads_per_block"],
+               "workspace_bytes": how["workspace_bytes"],
+               "bytes_bound_ms": _bound(nbytes, 0)["bound_ms"]},
         shape={"Bt": Bt, "S": S, "H": H, "P": P, "N": N,
                "dtype": "float32"},
         plain_timing=PLAIN_SCAN_NOTE, library_call=None)
@@ -1121,7 +1170,7 @@ def phase_kernel_k6() -> dict:
     its front door at full width, then its times."""
     import torch
 
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, ref, selective_scan
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
@@ -1130,7 +1179,11 @@ def phase_kernel_k6() -> dict:
         for Bt, S, d, N in ((2, 256, 128, 8), (2, 512, 256, 16),
                             (2, 256, 512, 16),  # tests/test_kernels.py:48-49
                             (1, 200, 100, 3), (1, 256, 1024, 1),
-                            (1, 512, 64, 32), (1, 256, 96, 64)):
+                            (1, 512, 64, 32), (1, 256, 96, 64),
+                            # long S at a narrow width: 64 pieces and a carry
+                            (1, 4096, 64, 16),
+                            # odd d: x and dt staged 4 bytes a copy
+                            (1, 256, 37, 3)):
             yield ((Bt, S, d, N),
                    _scan_inputs(gen, (Bt, S, d), (Bt, S, d), (d, N),
                                 (Bt, S, N)) + (_randn(gen, (d,)),),
@@ -1146,6 +1199,9 @@ def phase_kernel_k6() -> dict:
         + (torch.ones((d,), device="cuda"),)
     launches, err = _full_width("selective_scan", "K6", ops.selective_scan,
                                 ref.selective_scan_ref, args, SCAN_TOL)
+    kernels = selective_scan.KERNELS  # counted by the library in that call
+    _capped("selective_scan", err)
+    how = selective_scan.LAST_PLAN
     kernel_t = time_ms(lambda: ops.selective_scan(*args), reps=10, inner=5)
     plain_t = time_ms(lambda: ref.selective_scan_ref(*args),
                       **PLAIN_SCAN_TIMING)
@@ -1158,6 +1214,9 @@ def phase_kernel_k6() -> dict:
         plain_t, None,
         nbytes=4 * (3 * Bt * S * d + d * N + 2 * Bt * S * N + d),
         flops=7 * Bt * S * d * N,
+        entry={"kernels_per_call": kernels / launches,
+               "nsplit": how["nsplit"], "lanes": how["lanes"],
+               "workspace_bytes": how["workspace_bytes"]},
         shape={"Bt": Bt, "S": S, "d": d, "N": N, "dtype": "float32"},
         plain_timing=PLAIN_SCAN_NOTE, library_call=None)
 

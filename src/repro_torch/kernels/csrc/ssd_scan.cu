@@ -1,245 +1,658 @@
-// Kernel K5 of the port: the Mamba-2 SSD scan in its chunked matmul form.
+// Kernel K5 of the port: the Mamba-2 SSD scan, parallel across the sequence.
 //
 // The recurrence, per batch b and head h, with a (P, N) state:
 //
 //   h_t = exp(dt_t * A_h) h_{t-1} + (dt_t x_t) B_t^T      y_t = h_t C_t
 //
 // x: (Bt, S, H, P); dt: (Bt, S, H); A: (H,); B, C: (Bt, S, N); y fp32, no D
-// skip. Over a chunk of Q tokens with cum = cumsum(dt * A) (SSD, the state
-// space duality):
+// skip. Over a chunk of Q tokens entered with state h_c, with cum =
+// cumsum(dt * A) over the chunk (SSD, the state space duality):
 //
-//   y     = ((C B^T) o L) (dt o x) + exp(cum) o (C h0^T)   L[s,t] = exp(cum_s - cum_t), s >= t
-//   h_new = exp(total) h0 + (exp(total - cum) o dt o x)^T B
+//   y     = ((C B^T) o L) (dt o x) + exp(cum) o (C h_c^T)   L[s,t] = exp(cum_s - cum_t), s >= t
+//   h_c+1 = exp(cum_Q) h_c + S_c,   S_c = (exp(cum_Q - cum) o dt o x)^T B
 //
 // which equals the recurrence for any Q; every exponent is <= 0 (A < 0,
 // dt >= 0), so nothing overflows.
 //
 // Replaces the TPU kernel `ssd_scan` (src/repro/kernels/ssd_scan.py:69, its
 // pallas_call at :79), whose grid ran the chunk axis in order on one core
-// and kept the (P, N) state in VMEM scratch. Here one block of 256 threads
-// owns one (b, h, p-tile of kPT rows of P) and loops over the chunks in
-// order with its slice of the state in shared memory: the P rows of the
-// state evolve independently given (dt, A, B, C), so P splits across blocks
-// and at zamba2-2.7b's width (H = 80, P = 64) the grid has 160 blocks, not
-// 80, for 132 SMs.
+// and kept the state in VMEM scratch. Here the chunk axis is parallel, in
+// Mamba-2's own three passes (chunk states, state passing, chunk outputs),
+// three launches per call:
 //
-// Bound: arithmetic. Per chunk and block the three products are Q*Q*N
-// (C B^T, lower triangle only), Q*Q*kPT (W (dt o x), lower triangle),
-// Q*N*kPT (C h0^T) and Q*kPT*N (the state update) multiply-adds in fp32
-// on the CUDA cores, against reads of x, dt, B, C and one write of y
-// (C B^T is recomputed by each p-tile's block). The design: each thread
-// computes a 4 x 4 tile of C B^T (4 x 2 of y and of the state) from
-// float4/float2 reads of shared memory laid out so a warp's reads are
-// broadcasts or consecutive (B and C are stored transposed, [n][t], beside
-// B's [t][n]); tiles above the diagonal are skipped. The cumulative sum
-// over the chunk runs on one thread, in token order.
+//   1. ssd_chunk_state: one block per (b, h, chunk, 64 rows of P, 64
+//      columns of N) computes the chunk's cumsum with a warp scan, the
+//      chunk's own end state S_c (P x N, depth Q) and exp(cum_Q), into a
+//      workspace of Bt*H*nc*P*N floats (ws) and Bt*H*nc (decay).
+//   2. ssd_state_pass: one thread per four (b, h, p, n) walks the chunks
+//      in order, h_{c+1} = decay_c h_c + S_c, and writes the state entering
+//      each chunk over S_c; it loads eight chunks ahead of the FMA chain.
+//   3. ssd_chunk_out: one block per (b, chunk, 64 rows of P, group of
+//      heads) computes G = C B^T (Q x Q, lower triangle) once and reuses it
+//      for every head of the group; per head it computes the in-chunk and
+//      carried terms of y above, with the next head's x, dt and h_c staged
+//      by cp.async into the other half of a double buffer meanwhile.
+//      Tiles above the diagonal are skipped; a chunk past S enters as
+//      dt = 0 and x = 0 and stores nothing.
+//
+// Every product runs on the tensor cores (mma.sync m16n8k8, TF32 in, fp32
+// accumulate) in 3xTF32: each operand is split into a TF32 value and the
+// TF32 value of its remainder, a*b ~ a_big b_big + a_big b_small +
+// a_small b_big, which keeps fp32 accuracy (a single TF32 pass keeps 10
+// mantissa bits, about 1e-3 at full width: a different function). The
+// split is two integer instructions a part (`split_tf32`); the three mma of
+// a product are issued term by term across a warp's tiles, so that none
+// waits on the one before it.
+//
+// exp(cum_s - cum_t): the cumsum is taken in double (fp32's ulp at the
+// -100 a chunk can reach would be 1e-4 at full width); below the diagonal
+// 16 x 16 blocks L is the product of two per-head tables, exp(cum_s -
+// cum_m) by (row, 8 columns) and exp(cum_m - cum_t) by column, m = t | 7,
+// both <= 1, so an exp is paid once a (row, 8 columns), not once an entry.
+//
+// Bound, at zamba2-2.7b's mixer (Bt=1, S=4096, H=80, P=64, N=64): the
+// fewest operations of the chunked form at fp32 on the CUDA cores take
+// 0.0855 ms (chip_smoke.py `_ssd_flops`); x, dt, A, B, C read once and y
+// written once are 171,180,352 bytes, 0.0511 ms at 3.35 TB/s. The design
+// moves the products to the tensor cores, where three passes of them take
+// less than the bytes' time, so its own floor is bytes: those of the call
+// plus the workspace (83,886,080 bytes at Q = 64, written by pass 1, read
+// and written by pass 2, read by pass 3). The chunk length is Q = 64 to
+// N = 128 and 32 above (pass 3 holds G, C and two heads' x and h_c in
+// shared memory; at N <= 64 that is 110 KB, so two of its blocks share an
+// SM and one's loads and stores overlap the other's products), which
+// keeps N up to 220. On the H100 a Q = 128 version, one pass-3 block an
+// SM, was slower despite half the workspace (PERF.md).
 //
 // Plain C interface, loaded with ctypes (src/repro_torch/kernels/
-// ssd_scan.py). The entry point returns cudaGetLastError() after the
-// launch.
+// ssd_scan.py, which picks Q and the head group and allocates the
+// workspace). The entry point returns the first launch's error, if any.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "async_copy.cuh"
+
 namespace {
 
-constexpr int kQ = 64;         // chunk length, tokens
-constexpr int kQP = kQ + 4;    // padded row of the [.][t] layouts
-constexpr int kPT = 32;        // rows of P per block
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;     // 8 warps
+constexpr int kPT = 64;           // rows of P per block
+constexpr int kNT = 64;           // columns of N per chunk-state block
+constexpr int kLdT = kPT + 8;     // row stride of tiles read with k = row
 constexpr int kMaxSmem = 232448;  // bytes of shared memory a block may use
+constexpr int kMaxN = 220;
 
-__host__ __device__ constexpr int padded_n(int N) { return (N + 3) / 4 * 4; }
+__host__ __device__ constexpr int pad8(int n) { return (n + 7) / 8 * 8; }
 
-// floats of shared memory a block uses for state size N
-__host__ __device__ constexpr int smem_floats(int N) {
-  return kQ * padded_n(N)          // bs   [t][n]
-         + 2 * padded_n(N) * kQP   // bT, cT [n][t]
-         + kQ * kPT                // xd   [t][p]   dt * x
-         + kQ * kQP                // wT   [t][s]   (C B^T o L) transposed
-         + padded_n(N) * kPT       // hT   [n][p]   the state
-         + 4 * kQ;                 // dts, cum, ecum, decay
+// floats of shared memory: pass 1, and pass 3 for chunk Q and state N
+__host__ __device__ constexpr int state_smem_floats(int Q) {
+  return 2 * Q * kLdT + 4 * Q;  // the cumsum: Q doubles
+}
+__host__ __device__ constexpr int out_buf_floats(int Q, int N) {
+  return Q * kLdT + kPT * (pad8(N) + 4) + Q;
+}
+__host__ __device__ constexpr int out_table_floats(int Q) {
+  return Q * (Q / 8 + 1) + Q;  // exp tables: by (row, 8 columns), by column
+}
+__host__ __device__ constexpr int out_smem_floats(int Q, int N) {
+  return Q * (Q + 4) + Q * (pad8(N) + 4) + 2 * out_buf_floats(Q, N) + 2 * Q +
+         out_table_floats(Q);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    ssd_scan_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                    const float* __restrict__ A, const float* __restrict__ Bm,
-                    const float* __restrict__ Cm, float* __restrict__ y,
-                    int S, int H, int P, int N) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int NP = padded_n(N);
-  float* bs = smem;
-  float* bT = bs + kQ * NP;
-  float* cT = bT + NP * kQP;
-  float* xd = cT + NP * kQP;
-  float* wT = xd + kQ * kPT;
-  float* hT = wT + kQ * kQP;
-  float* dts = hT + NP * kPT;
-  float* cum = dts + kQ;
-  float* ecum = cum + kQ;
-  float* decay = ecum + kQ;
+// ---- 3xTF32 on mma.sync ----------------------------------------------------
 
-  const int p0 = blockIdx.x * kPT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const float a = A[h];
-  const int64_t tok0 = static_cast<int64_t>(b) * S;
+struct FragA {  // a 16 x 8 row-major A operand, split
+  uint32_t big[4], small[4];
+};
+struct FragB {  // an 8 x 8 column-major B operand, split
+  uint32_t big[2], small[2];
+};
 
-  for (int e = tid; e < NP * kPT; e += kThreads) hT[e] = 0.f;
+// f = big + small: big is f rounded to TF32's 10 mantissa bits, ties away
+// from zero (what cvt.rna.tf32.f32 gives for a finite f, in two integer
+// instructions instead of its guarded sequence), small is the exact
+// remainder, |small| <= 2^-11 |f|, with its low 13 bits dropped as the
+// tensor core drops them: big + small is f to within 2^-21 |f|.
+__device__ __forceinline__ void split_tf32(float f, uint32_t& big,
+                                           uint32_t& small) {
+  big = (__float_as_uint(f) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(f - __uint_as_float(big)) & 0xffffe000u;
+}
 
-  for (int t0 = 0; t0 < S; t0 += kQ) {
-    // stage the chunk; tokens past S enter as zeros (dt = 0: no decay, no
-    // input) and their y is not stored
-    for (int e = tid; e < kQ * NP; e += kThreads) {
-      const int t = e / NP, n = e % NP;
-      const bool in = t0 + t < S && n < N;
-      const int64_t at = (tok0 + t0 + t) * N + n;
-      const float bv = in ? Bm[at] : 0.f;
-      bs[t * NP + n] = bv;
-      bT[n * kQP + t] = bv;
-      cT[n * kQP + t] = in ? Cm[at] : 0.f;
-    }
-    for (int e = tid; e < kQ * kPT; e += kThreads) {
-      const int t = e / kPT, p = e % kPT;
-      const bool in = t0 + t < S && p0 + p < P;
-      const int64_t tok = tok0 + t0 + t;
-      xd[e] = in ? x[(tok * H + h) * P + p0 + p] * dt[tok * H + h] : 0.f;
-    }
-    if (tid < kQ) {
-      dts[tid] = t0 + tid < S ? dt[(tok0 + t0 + tid) * H + h] : 0.f;
-    }
-    __syncthreads();
+// a0 (row g, col k), a1 (row g+8, col k), a2 (row g, col k+4), a3 (row
+// g+8, col k+4), with g = lane / 4 and k = lane % 4
+__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
+                                        float a3) {
+  FragA f;
+  split_tf32(a0, f.big[0], f.small[0]);
+  split_tf32(a1, f.big[1], f.small[1]);
+  split_tf32(a2, f.big[2], f.small[2]);
+  split_tf32(a3, f.big[3], f.small[3]);
+  return f;
+}
 
-    if (tid == 0) {  // cumsum of the log decays, in token order
-      float run = 0.f;
-      for (int t = 0; t < kQ; ++t) {
-        run += dts[t] * a;
-        cum[t] = run;
-      }
-    }
-    __syncthreads();
-    const float total = cum[kQ - 1];
-    if (tid < kQ) {
-      ecum[tid] = expf(cum[tid]);
-      decay[tid] = expf(total - cum[tid]);
-    }
+// b0 (row k, col g), b1 (row k+4, col g)
+__device__ __forceinline__ FragB frag_b(float b0, float b1) {
+  FragB f;
+  split_tf32(b0, f.big[0], f.small[0]);
+  split_tf32(b1, f.big[1], f.small[1]);
+  return f;
+}
 
-    // W = (C B^T) o L, stored transposed: wT[t][s]; 4 x 4 tiles, the
-    // tiles above the diagonal skipped (the y loop below never reads them)
-    {
-      const int ts = tid / 16, tt = tid % 16;
-      if (tt <= ts) {
-        float acc[4][4] = {};
-        for (int n = 0; n < NP; ++n) {
-          const float4 cv = *reinterpret_cast<const float4*>(
-              cT + n * kQP + 4 * ts);
-          const float4 bv = *reinterpret_cast<const float4*>(
-              bT + n * kQP + 4 * tt);
-          const float c4[4] = {cv.x, cv.y, cv.z, cv.w};
-          const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(c4[i], b4[j], acc[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int s = 4 * ts + i, t = 4 * tt + j;
-            wT[t * kQP + s] = t <= s ? acc[i][j] * expf(cum[s] - cum[t]) : 0.f;
-          }
-      }
-    }
-    __syncthreads();
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
-    // y = W (dt o x) + exp(cum) o (C h0^T): rows 4sy..4sy+3, p = 2py, 2py+1
-    {
-      const int sy = tid / 16, py = tid % 16;
-      float yi[4][2] = {}, ye[4][2] = {};
-      for (int t = 0; t < 4 * sy + 4; ++t) {
-        const float4 wv = *reinterpret_cast<const float4*>(wT + t * kQP + 4 * sy);
-        const float2 xv = *reinterpret_cast<const float2*>(xd + t * kPT + 2 * py);
-        const float w4[4] = {wv.x, wv.y, wv.z, wv.w};
+// acc[r][j] += a[r] b[j] in 3xTF32 for the row blocks r that are `on`;
+// acc: c0 (row g, col 2k), c1 (g, 2k+1), c2 (g+8, 2k), c3 (g+8, 2k+1).
+// The small terms first, the large one last, each term issued across all
+// tiles before the next, so that no mma waits on the one just before it.
+template <int NR, int NC>
+__device__ __forceinline__ void mma3_tiles(float (&acc)[NR][NC][4],
+                                           const FragA (&a)[NR],
+                                           const FragB (&b)[NC],
+                                           const bool (&on)[NR]) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          yi[i][0] = fmaf(w4[i], xv.x, yi[i][0]);
-          yi[i][1] = fmaf(w4[i], xv.y, yi[i][1]);
-        }
-      }
-      for (int n = 0; n < NP; ++n) {
-        const float4 cv = *reinterpret_cast<const float4*>(cT + n * kQP + 4 * sy);
-        const float2 hv = *reinterpret_cast<const float2*>(hT + n * kPT + 2 * py);
-        const float c4[4] = {cv.x, cv.y, cv.z, cv.w};
+  for (int r = 0; r < NR; ++r)
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          ye[i][0] = fmaf(c4[i], hv.x, ye[i][0]);
-          ye[i][1] = fmaf(c4[i], hv.y, ye[i][1]);
-        }
-      }
+    for (int j = 0; j < NC; ++j)
+      if (on[r]) mma_tf32(acc[r][j], a[r].small, b[j].big);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int s = 4 * sy + i;
-        if (t0 + s >= S) continue;
-        float* yrow = y + ((tok0 + t0 + s) * H + h) * P + p0;
+  for (int r = 0; r < NR; ++r)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int p = 2 * py + j;
-          if (p0 + p < P) yrow[p] = yi[i][j] + ecum[s] * ye[i][j];
-        }
-      }
-    }
-    __syncthreads();
+    for (int j = 0; j < NC; ++j)
+      if (on[r]) mma_tf32(acc[r][j], a[r].big, b[j].small);
+#pragma unroll
+  for (int r = 0; r < NR; ++r)
+#pragma unroll
+    for (int j = 0; j < NC; ++j)
+      if (on[r]) mma_tf32(acc[r][j], a[r].big, b[j].big);
+}
 
-    // h = exp(total) h0 + (decay o dt o x)^T B: n = 4ng..4ng+3, p = 2hp, 2hp+1
-    {
-      const int hn = tid / 16, hp = tid % 16;
-      const float etot = expf(total);
-      for (int ng = hn; 4 * ng < NP; ng += 16) {
-        float acc[4][2] = {};
-        for (int t = 0; t < kQ; ++t) {
-          const float4 bv = *reinterpret_cast<const float4*>(bs + t * NP + 4 * ng);
-          const float2 xv = *reinterpret_cast<const float2*>(xd + t * kPT + 2 * hp);
-          const float x0 = xv.x * decay[t], x1 = xv.y * decay[t];
-          const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+// cum[t] = sum_{u <= t} dts[u] * a over the chunk, by warp 0 alone: each
+// lane sums Q / 32 consecutive tokens, then a shuffle scan over the lanes.
+// In double: the kernels use differences cum_s - cum_t of sums that reach
+// about -100 over a chunk, and in fp32 their ulp (8e-6) would put that
+// relative error on exp(cum_s - cum_t), 1e-4 on y at full width.
+template <int Q>
+__device__ __forceinline__ void chunk_cumsum(const float* dts, float a,
+                                             double* cum) {
+  constexpr int kPer = Q / 32;
+  const int lane = threadIdx.x;
+  double v[kPer];
+  double run = 0.0;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][0] = fmaf(b4[i], x0, acc[i][0]);
-            acc[i][1] = fmaf(b4[i], x1, acc[i][1]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float* hrow = hT + (4 * ng + i) * kPT + 2 * hp;
-          hrow[0] = etot * hrow[0] + acc[i][0];
-          hrow[1] = etot * hrow[1] + acc[i][1];
-        }
-      }
-    }
-    __syncthreads();  // the next chunk's staging overwrites bs, xd, ...
+  for (int i = 0; i < kPer; ++i) {
+    run += static_cast<double>(dts[lane * kPer + i]) * a;
+    v[i] = run;
   }
+  double incl = run;
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    const double o = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += o;
+  }
+  double excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 0.0;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) cum[lane * kPer + i] = v[i] + excl;
+}
+
+// exp(cum_s - cum_t), the difference taken in double
+__device__ __forceinline__ float decay_between(double cs, double ct) {
+  return expf(static_cast<float>(cs - ct));
+}
+
+// ---- pass 1: chunk states --------------------------------------------------
+
+// grid (nc * ptiles * ntiles, H, Bt): S_c[p][n] = sum_t (dt_t exp(cum_Q -
+// cum_t) x[t][p]) B[t][n] for 64 rows of P and 64 columns of N
+template <int Q>
+__global__ void __launch_bounds__(kThreads)
+    ssd_chunk_state(const float* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const float* __restrict__ Bm,
+                    float* __restrict__ ws, float* __restrict__ decay, int S,
+                    int H, int P, int N, int nc, int ntiles, bool vec_x,
+                    bool vec_b) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);  // [Q][kLdT] x[t][p]
+  float* bs = xs + Q * kLdT;                      // [Q][kLdT] B[t][n]
+  float* dts = bs + Q * kLdT;                     // [Q]
+  double* cum = reinterpret_cast<double*>(dts + Q);  // [Q]
+  float* wt = dts + 3 * Q;                        // [Q] dt exp(cum_Q - cum)
+
+  const int tid = threadIdx.x;
+  const int c = blockIdx.x % nc;
+  const int rest = blockIdx.x / nc;
+  const int nt = rest % ntiles, pt = rest / ntiles;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int p0 = pt * kPT, n0 = nt * kNT;
+  const int t0 = c * Q;
+  const int vrows = min(Q, S - t0);
+  const int64_t tok0 = static_cast<int64_t>(b) * S + t0;
+
+  stage_tile<kThreads>(xs, kLdT, x + (tok0 * H + h) * P + p0,
+                       static_cast<int64_t>(H) * P, Q, kPT, vrows,
+                       min(kPT, P - p0), vec_x);
+  stage_tile<kThreads>(bs, kLdT, Bm + tok0 * N + n0, N, Q, kNT, vrows,
+                       min(kNT, N - n0), vec_b);
+  stage_tile<kThreads>(dts, 1, dt + tok0 * H + h, H, Q, 1, vrows, 1, false);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  if (tid < 32) chunk_cumsum<Q>(dts, A[h], cum);
+  __syncthreads();
+  const double total = cum[Q - 1];
+  for (int t = tid; t < Q; t += kThreads) {
+    wt[t] = dts[t] * decay_between(total, cum[t]);
+  }
+  if (tid == 0 && pt == 0 && nt == 0) {
+    decay[(static_cast<int64_t>(b) * H + h) * nc + c] =
+        expf(static_cast<float>(total));
+  }
+  __syncthreads();
+
+  // M = p (4 row blocks of 16), N = n (8 tiles of 8), K = t: warp w takes
+  // row block w % 4 and the four n-tiles of half w / 4
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, k = lane % 4;
+  const int rb = warp & 3, cb = (warp >> 2) * 4;
+  const int pr = 16 * rb + g;
+  float acc[1][4][4] = {};
+  const bool on[1] = {true};
+  for (int k0 = 0; k0 < Q; k0 += 8) {
+    const int ta = k0 + k, tb = ta + 4;
+    const float wa = wt[ta], wb = wt[tb];
+    const FragA fa[1] = {frag_a(xs[ta * kLdT + pr] * wa,
+                                xs[ta * kLdT + pr + 8] * wa,
+                                xs[tb * kLdT + pr] * wb,
+                                xs[tb * kLdT + pr + 8] * wb)};
+    FragB fb[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 8 * (cb + j) + g;
+      fb[j] = frag_b(bs[ta * kLdT + n], bs[tb * kLdT + n]);
+    }
+    mma3_tiles(acc, fa, fb, on);
+  }
+  float* out = ws + ((static_cast<int64_t>(b) * H + h) * nc + c) *
+                        static_cast<int64_t>(P) * N;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int p = p0 + pr + 8 * (i / 2);
+      const int n = n0 + 8 * (cb + j) + 2 * k + (i % 2);
+      if (p < P && n < N) out[static_cast<int64_t>(p) * N + n] = acc[0][j][i];
+    }
+}
+
+// ---- pass 2: state passing -------------------------------------------------
+
+// one thread per W elements (b, h, e..e+W-1) of the (P, N) state: ws[c]
+// becomes the state entering chunk c, h_0 = 0, h_{c+1} = decay_c h_c + S_c
+template <int W>  // elements a thread carries: 4 (one 16-byte load) or 1
+__global__ void __launch_bounds__(kThreads)
+    ssd_state_pass(float* __restrict__ ws, const float* __restrict__ decay,
+                   int64_t BH, int nc, int64_t PN) {
+  using Vec = typename std::conditional<W == 4, float4, float>::type;
+  constexpr int kAhead = 8;  // chunks loaded ahead of the FMA chain
+  const int64_t PNW = PN / W;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= BH * PNW) return;
+  const int64_t bh = i / PNW, e = i % PNW;
+  Vec* s = reinterpret_cast<Vec*>(ws + bh * nc * PN) + e;
+  const float* dec = decay + bh * nc;
+  float h[W] = {};
+  for (int c0 = 0; c0 < nc; c0 += kAhead) {
+    Vec sv[kAhead];
+    float dv[kAhead];
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      if (c0 + u < nc) {
+        sv[u] = s[(c0 + u) * PNW];
+        dv[u] = dec[c0 + u];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kAhead; ++u) {
+      if (c0 + u < nc) {
+        Vec out;
+        float* o = reinterpret_cast<float*>(&out);
+        const float* v = reinterpret_cast<const float*>(&sv[u]);
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          o[k] = h[k];
+          h[k] = dv[u] * h[k] + v[k];
+        }
+        s[(c0 + u) * PNW] = out;
+      }
+    }
+  }
+}
+
+// ---- pass 3: chunk outputs -------------------------------------------------
+
+// grid (nc * ptiles, head groups, Bt): G = C B^T once, then for each head
+// of the group y = (G o L) (dt o x) + exp(cum) o (C h_c^T) on 64 rows of P
+template <int Q>
+__global__ void __launch_bounds__(kThreads, 2)
+    ssd_chunk_out(const float* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ A, const float* __restrict__ Bm,
+                  const float* __restrict__ Cm, const float* __restrict__ ws,
+                  float* __restrict__ y, int S, int H, int P, int N, int nc,
+                  int HG, bool vec_x, bool vec_bc, bool vec_h, bool y_vec2) {
+  constexpr int R = Q / 16;           // row blocks of 16 tokens
+  constexpr int kPairs = R / 2;       // row blocks r and R-1-r go together
+  constexpr int kGroups = kThreads / 32 / kPairs;  // warps per pair
+  constexpr int CT = 8 / kGroups;     // n-tiles of 8 (of P) per warp
+  const int NP = pad8(N);
+  const int ldn = NP + 4, ldq = Q + 4;
+  const int bufsz = out_buf_floats(Q, N);
+
+  extern __shared__ float4 smem4[];
+  float* gs = reinterpret_cast<float*>(smem4);  // [Q][ldq]  C B^T
+  float* cs = gs + Q * ldq;                       // [Q][ldn]  C[s][n]
+  float* buf0 = cs + Q * ldn;  // x [Q][kLdT], h_c [kPT][ldn], dt [Q]
+  float* buf1 = buf0 + bufsz;
+  double* cum = reinterpret_cast<double*>(buf1 + bufsz);  // [Q]
+  // erow[s][ks] = exp(cum_s - cum_m), m = 8 ks + 7, for s > m, and
+  // ecol[t] = exp(cum_m - cum_t), m = t | 7: off the diagonal 16 x 16
+  // blocks L[s][t] = erow[s][t / 8] ecol[t], both factors <= 1
+  constexpr int KS = Q / 8, ldr = KS + 1;
+  float* erow = reinterpret_cast<float*>(cum + Q);  // [Q][ldr]
+  float* ecol = erow + Q * ldr;                     // [Q]
+  float* bs = buf1;  // [Q][ldn] B[t][n], until G is computed
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, k = lane % 4;
+  const int c = blockIdx.x % nc, pt = blockIdx.x / nc;
+  const int h0 = blockIdx.y * HG, b = blockIdx.z;
+  const int nh = min(HG, H - h0);
+  const int p0 = pt * kPT, vp = min(kPT, P - p0);
+  const int t0 = c * Q;
+  const int vrows = min(Q, S - t0);
+  const int64_t tok0 = static_cast<int64_t>(b) * S + t0;
+
+  auto stage_head = [&](int i, float* buf) {
+    const int h = h0 + i;
+    stage_tile<kThreads>(buf, kLdT, x + (tok0 * H + h) * P + p0,
+                         static_cast<int64_t>(H) * P, Q, kPT, vrows, vp,
+                         vec_x);
+    stage_tile<kThreads>(
+        buf + Q * kLdT, ldn,
+        ws + ((static_cast<int64_t>(b) * H + h) * nc + c) *
+                 static_cast<int64_t>(P) * N +
+            static_cast<int64_t>(p0) * N,
+        N, kPT, NP, vp, N, vec_h);
+    stage_tile<kThreads>(buf + Q * kLdT + kPT * ldn, 1, dt + tok0 * H + h, H,
+                         Q, 1, vrows, 1, false);
+  };
+
+  stage_tile<kThreads>(cs, ldn, Cm + tok0 * N, N, Q, NP, vrows, N, vec_bc);
+  stage_tile<kThreads>(bs, ldn, Bm + tok0 * N, N, Q, NP, vrows, N, vec_bc);
+  cp_async_commit();
+  stage_head(0, buf0);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+
+  // warp w owns row blocks rbs[0] = w % kPairs and rbs[1] = R-1-rbs[0] (one
+  // short and one long causal row, so the warps' work is even) and, of the
+  // 8 n-tiles of P, those of group cg
+  const int pr = warp % kPairs, cg = warp / kPairs;
+  const int rbs[2] = {pr, R - 1 - pr};
+
+  // G[s][t] = sum_n C[s][n] B[t][n] over the tiles on or below the
+  // diagonal: row block r has 2r + 2 tiles of 8 columns
+  {
+    const int first = 2 * rbs[0] + 2;
+    for (int q = cg; q < 2 * R + 2; q += kGroups) {
+      const int r = q < first ? rbs[0] : rbs[1];
+      const int ct = q < first ? q : q - first;
+      const int s = 16 * r + g, tc = 8 * ct + g;
+      // one accumulator a term, so the three chains of mma run side by side
+      float d[3][1][4] = {};
+      for (int k0 = 0; k0 < NP; k0 += 8) {
+        const FragA fa = frag_a(cs[s * ldn + k0 + k],
+                                cs[(s + 8) * ldn + k0 + k],
+                                cs[s * ldn + k0 + k + 4],
+                                cs[(s + 8) * ldn + k0 + k + 4]);
+        const FragB fb =
+            frag_b(bs[tc * ldn + k0 + k], bs[tc * ldn + k0 + k + 4]);
+        mma_tf32(d[0][0], fa.small, fb.big);
+        mma_tf32(d[1][0], fa.big, fb.small);
+        mma_tf32(d[2][0], fa.big, fb.big);
+      }
+      const int col = 8 * ct + 2 * k;
+      gs[s * ldq + col] = (d[0][0][0] + d[1][0][0]) + d[2][0][0];
+      gs[s * ldq + col + 1] = (d[0][0][1] + d[1][0][1]) + d[2][0][1];
+      gs[(s + 8) * ldq + col] = (d[0][0][2] + d[1][0][2]) + d[2][0][2];
+      gs[(s + 8) * ldq + col + 1] = (d[0][0][3] + d[1][0][3]) + d[2][0][3];
+    }
+  }
+  __syncthreads();  // G is read below; buf1 (bs) is staged next
+
+  for (int i = 0; i < nh; ++i) {
+    const float* cur = (i & 1) ? buf1 : buf0;
+    if (i + 1 < nh) {
+      stage_head(i + 1, ((i + 1) & 1) ? buf1 : buf0);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int h = h0 + i;
+    const float* xs = cur;
+    const float* hs = cur + Q * kLdT;
+    const float* dts = hs + kPT * ldn;
+    if (tid < 32) chunk_cumsum<Q>(dts, A[h], cum);
+    __syncthreads();
+    for (int e = tid; e < Q * KS; e += kThreads) {
+      const int s = e / KS, ks = e % KS, m = 8 * ks + 7;
+      erow[s * ldr + ks] = s > m ? decay_between(cum[s], cum[m]) : 0.f;
+    }
+    for (int t = tid; t < Q; t += kThreads) {
+      ecol[t] = decay_between(cum[t | 7], cum[t]);
+    }
+    __syncthreads();
+
+    float acc[2][CT][4] = {};
+    const bool both[2] = {true, true};
+    // carried term: C h_c^T (K = n), then rows scaled by exp(cum_s)
+    for (int k0 = 0; k0 < NP; k0 += 8) {
+      FragB fb[CT];
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int p = 8 * (cg * CT + j) + g;
+        fb[j] = frag_b(hs[p * ldn + k0 + k], hs[p * ldn + k0 + k + 4]);
+      }
+      FragA fa[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int s = 16 * rbs[r] + g;
+        fa[r] = frag_a(cs[s * ldn + k0 + k], cs[(s + 8) * ldn + k0 + k],
+                       cs[s * ldn + k0 + k + 4],
+                       cs[(s + 8) * ldn + k0 + k + 4]);
+      }
+      mma3_tiles(acc, fa, fb, both);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int s = 16 * rbs[r] + g;
+      const float e0 = expf(static_cast<float>(cum[s]));
+      const float e8 = expf(static_cast<float>(cum[s + 8]));
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        acc[r][j][0] *= e0;
+        acc[r][j][1] *= e0;
+        acc[r][j][2] *= e8;
+        acc[r][j][3] *= e8;
+      }
+    }
+
+    // in-chunk term: (G o L) (dt o x) (K = t <= s)
+    const int kmax = 2 * rbs[1] + 2;
+    for (int ks = 0; ks < kmax; ++ks) {
+      const int ta = 8 * ks + k, tb = ta + 4;
+      const float da = dts[ta], db = dts[tb];
+      const float eca = ecol[ta], ecb = ecol[tb];
+      const double ca = cum[ta], cb = cum[tb];
+      FragB fb[CT];
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int p = 8 * (cg * CT + j) + g;
+        fb[j] = frag_b(xs[ta * kLdT + p] * da, xs[tb * kLdT + p] * db);
+      }
+      FragA fa[2];
+      bool on[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        on[r] = ks < 2 * rbs[r] + 2;  // uniform across the warp
+        const int s = 16 * rbs[r] + g;
+        const float* g0 = gs + s * ldq;
+        const float* g8 = g0 + 8 * ldq;
+        if (ks < 2 * rbs[r]) {  // every t of the k-step is below row s
+          const float e0 = erow[s * ldr + ks], e8 = erow[(s + 8) * ldr + ks];
+          fa[r] = frag_a(g0[ta] * e0 * eca, g8[ta] * e8 * eca,
+                         g0[tb] * e0 * ecb, g8[tb] * e8 * ecb);
+        } else if (on[r]) {  // the diagonal block: masked, exp taken here
+          const double c0 = cum[s], c8 = cum[s + 8];
+          fa[r] = frag_a(
+              ta <= s ? g0[ta] * decay_between(c0, ca) : 0.f,
+              ta <= s + 8 ? g8[ta] * decay_between(c8, ca) : 0.f,
+              tb <= s ? g0[tb] * decay_between(c0, cb) : 0.f,
+              tb <= s + 8 ? g8[tb] * decay_between(c8, cb) : 0.f);
+        }
+      }
+      mma3_tiles(acc, fa, fb, on);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int s = 16 * rbs[r] + g + 8 * half;
+        if (s >= vrows) continue;
+        float* yrow = y + ((tok0 + s) * H + h) * P;
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          const int p = p0 + 8 * (cg * CT + j) + 2 * k;
+          const float v0 = acc[r][j][2 * half], v1 = acc[r][j][2 * half + 1];
+          if (y_vec2) {
+            if (p < P) *reinterpret_cast<float2*>(yrow + p) = make_float2(v0, v1);
+          } else {
+            if (p < P) yrow[p] = v0;
+            if (p + 1 < P) yrow[p + 1] = v1;
+          }
+        }
+      }
+    __syncthreads();  // the next head's staging overwrites this buffer
+  }
+}
+
+template <int Q>
+int launch(const float* x, const float* dt, const float* A, const float* B,
+           const float* C, float* y, float* ws, float* decay, int Bt, int S,
+           int H, int P, int N, int HG, cudaStream_t stream, int* launched) {
+  const int nc = (S + Q - 1) / Q;
+  const int ptiles = (P + kPT - 1) / kPT;
+  const int ntiles = (N + kNT - 1) / kNT;
+  const int groups = (H + HG - 1) / HG;
+  const int64_t state_blocks = static_cast<int64_t>(nc) * ptiles * ntiles;
+  const int64_t out_blocks = static_cast<int64_t>(nc) * ptiles;
+  const int64_t BH = static_cast<int64_t>(Bt) * H;
+  const int64_t PN = static_cast<int64_t>(P) * N;
+  const bool vec_pass = PN % 4 == 0;  // ws from torch.empty: aligned
+  const int64_t pass_blocks =
+      (BH * (vec_pass ? PN / 4 : PN) + kThreads - 1) / kThreads;
+  const int state_bytes = state_smem_floats(Q) * 4;
+  const int out_bytes = out_smem_floats(Q, N) * 4;
+  if (state_blocks > INT32_MAX || pass_blocks > INT32_MAX ||
+      out_bytes > kMaxSmem || groups > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t sH = static_cast<int64_t>(H);
+  const bool vec_x = vec_ok(x, sH * P, P);
+  const bool vec_bc = vec_ok(B, N, N) && vec_ok(C, N, N);
+  const bool vec_h = vec_ok(ws, N, N);
+  const bool y_vec2 = P % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 7) == 0;
+
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_chunk_state<Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      state_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(ssd_chunk_out<Q>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             out_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  ssd_chunk_state<Q><<<dim3(static_cast<unsigned>(state_blocks), H, Bt),
+                       kThreads, state_bytes, stream>>>(
+      x, dt, A, B, ws, decay, S, H, P, N, nc, ntiles, vec_x,
+      vec_ok(B, N, N));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launched;
+  if (vec_pass) {
+    ssd_state_pass<4><<<static_cast<unsigned>(pass_blocks), kThreads, 0,
+                        stream>>>(ws, decay, BH, nc, PN);
+  } else {
+    ssd_state_pass<1><<<static_cast<unsigned>(pass_blocks), kThreads, 0,
+                        stream>>>(ws, decay, BH, nc, PN);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launched;
+  ssd_chunk_out<Q><<<dim3(static_cast<unsigned>(out_blocks), groups, Bt),
+                     kThreads, out_bytes, stream>>>(
+      x, dt, A, B, C, ws, y, S, H, P, N, nc, HG, vec_x, vec_bc, vec_h,
+      y_vec2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ++*launched;
+  return 0;
 }
 
 }  // namespace
 
-// Returns cudaErrorInvalidValue for an N whose chunk does not fit kMaxSmem
-// (N > 220, MAX_N in ssd_scan.py) or a grid the card cannot hold.
+// Three launches on `stream`: chunk states into ws (Bt, H, nc, P, N) and
+// decay (Bt, H, nc), state passing in place, chunk outputs into y, with
+// nc = ceil(S / Q). Q is 64 (N <= 128) or 32; HG heads share one block's
+// C B^T in pass 3. Adds to *launched one for each kernel launched without
+// an error. Returns cudaErrorInvalidValue for arguments outside those
+// (N > 220, a chunk that does not fit shared memory, a grid the card
+// cannot hold), else the first launch's error.
 extern "C" int ssd_scan_f32(const void* x, const void* dt, const void* A,
-                            const void* B, const void* C, void* y, int Bt,
-                            int S, int H, int P, int N, void* stream) {
-  const int bytes = smem_floats(N) * 4;
-  if (N < 1 || bytes > kMaxSmem || H > 65535 || Bt > 65535) {
+                            const void* B, const void* C, void* y, void* ws,
+                            void* decay, int Bt, int S, int H, int P, int N,
+                            int Q, int HG, void* stream, int* launched) {
+  if (N < 1 || N > kMaxN || HG < 1 || H > 65535 || Bt > 65535 ||
+      (Q != 32 && Q != 64)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((P + kPT - 1) / kPT, H, Bt);
-  ssd_scan_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(A), static_cast<const float*>(B),
-      static_cast<const float*>(C), static_cast<float*>(y), S, H, P, N);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  const float* Bf = static_cast<const float*>(B);
+  const float* Cf = static_cast<const float*>(C);
+  float* yf = static_cast<float*>(y);
+  float* wsf = static_cast<float*>(ws);
+  float* df = static_cast<float*>(decay);
+  if (Q == 64) {
+    return launch<64>(xf, dtf, Af, Bf, Cf, yf, wsf, df, Bt, S, H, P, N, HG,
+                      s, launched);
+  }
+  return launch<32>(xf, dtf, Af, Bf, Cf, yf, wsf, df, Bt, S, H, P, N, HG, s,
+                    launched);
 }

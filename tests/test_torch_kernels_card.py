@@ -6,7 +6,11 @@ uncompressed (K1) and compressed (K2). K3 to K6: each front door of
 tests/test_kernels.py and their edges, launching its kernel once per call,
 with the tolerances chip_smoke.py states; K4 on the route its rule names
 (bf16 on the sm90 kernel, fp32 on the CUDA-core kernel), and the sm90
-kernel's fp32-out entry at the fp32 tolerance.
+kernel's fp32-out entry at the fp32 tolerance; K5 and K6 also on long
+sequences at narrow widths, ragged chunks, odd P and d (the unvectorized
+staging and stores) and the largest state sizes, with the plan (chunk or
+pieces, workspace) each wrapper reports and the kernels each call
+launched, as the library counts them.
 
 Every test here needs the card (the CUDA kernel has no CPU mode) and skips
 without one. This file imports nothing of JAX, so it runs on the card's
@@ -297,16 +301,34 @@ def _scan_inputs(shapes, seed, device):
     return x, dt, A, B, C
 
 
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @pytest.mark.parametrize("S,d,N", [(256, 128, 8), (512, 256, 16),
                                    (256, 512, 16), (200, 100, 5),
-                                   (128, 64, 64)])
+                                   (128, 64, 64),
+                                   # long S at a narrow width: pieces
+                                   (4096, 64, 16), (1000, 48, 32),
+                                   # odd d: x and dt staged 4 bytes a copy
+                                   (256, 37, 3)])
 def test_selective_scan_matches_plain_on_the_card(cuda_device, S, d, N):
     x, dt, A, B, C = _scan_inputs(dict(x=(2, S, d), dt=(2, S, d), A=(d, N),
                                        B=(2, S, N)), S + d + N, cuda_device)
     D_skip = torch.ones((d,), device=cuda_device)
+    kernels = selective_scan.KERNELS
     out = _launched_once(selective_scan, "LAUNCHES",
                          lambda: selective_scan.selective_scan(
                              x, dt, A, B, C, D_skip))
+    how = selective_scan.LAST_PLAN
+    assert how == selective_scan.plan(2, S, d, N, _sms(cuda_device))
+    assert selective_scan.KERNELS - kernels == how["kernels"] \
+        == (1 if how["nsplit"] == 1 else 3)
+    if how["nsplit"] > 1:
+        assert how["workspace"] == (2, how["nsplit"], d, N)
+        assert how["workspace_bytes"] == 2 * 4 * 2 * how["nsplit"] * d * N
+    if (S, d, N) == (4096, 64, 16):
+        assert how["nsplit"] > 1
     expect = ref.selective_scan_ref(x, dt, A, B, C, D_skip)
     assert out.dtype == torch.float32 and out.shape == x.shape
     torch.testing.assert_close(out, expect, atol=5e-4, rtol=2e-3)
@@ -314,13 +336,32 @@ def test_selective_scan_matches_plain_on_the_card(cuda_device, S, d, N):
 
 @pytest.mark.parametrize("S,H,P,N", [(256, 4, 32, 16), (512, 2, 64, 64),
                                      (128, 8, 64, 32), (100, 3, 40, 6),
-                                     (128, 2, 64, 128)])
+                                     (128, 2, 64, 128),
+                                     # long S at a narrow width; S not a
+                                     # multiple of the chunk; 32-token
+                                     # chunks above N = 128; MAX_N
+                                     (4096, 2, 32, 16), (300, 3, 64, 100),
+                                     (200, 2, 72, 136), (130, 2, 64, 220),
+                                     # odd P, P N % 4 != 0: x staged and
+                                     # y stored a float at a time, the
+                                     # state pass one element a thread
+                                     (128, 2, 37, 5)])
 def test_ssd_scan_matches_plain_on_the_card(cuda_device, S, H, P, N):
     x, dt, A, B, C = _scan_inputs(dict(x=(2, S, H, P), dt=(2, S, H), A=(H,),
                                        B=(2, S, N)), S + H + P + N,
                                   cuda_device)
+    kernels = ssd_scan.KERNELS
     out = _launched_once(ssd_scan, "LAUNCHES",
                          lambda: ssd_scan.ssd_scan(x, dt, A, B, C))
+    how = ssd_scan.LAST_PLAN
+    assert how == ssd_scan.plan(2, S, H, P, N, _sms(cuda_device))
+    assert ssd_scan.KERNELS - kernels == how["kernels"] \
+        == ssd_scan.KERNELS_PER_CALL == 3
+    Q = ssd_scan.chunk_length(N)
+    assert how["chunk"] == Q
+    nc = -(-S // Q)
+    assert how["workspace"] == (2, H, nc, P, N)
+    assert how["workspace_bytes"] == 4 * (2 * H * nc * P * N + 2 * H * nc)
     expect = ref.ssd_scan_ref(x, dt, A, B, C)
     assert out.dtype == torch.float32 and out.shape == x.shape
     torch.testing.assert_close(out, expect, atol=5e-4, rtol=2e-3)
