@@ -12,12 +12,19 @@ non-zero and the last line is not printed. The phases:
             run at "highest" precision (the dense P @ z stays full fp32)
   build     builds every kernel of the main path from src/repro_torch/
             kernels/csrc (one nvcc per source, all at once) and prints the
-            compiler's register/spill report, its warnings and its
+            compiler's report for each kernel instantiation (registers,
+            shared memory, stack and spills), its warnings and its
             performance remarks (wgmma serialized, fences injected)
   kernel    K1 (gossip mix) against its plain PyTorch version on the card
-            over a grid of shapes, weights, messages and dtypes (fp32:
-            rtol 1e-5, atol 1e-6; bf16: rtol 2e-2, atol 1e-5), then its
-            time at the main path's shape beside the plain version,
+            over a grid of shapes, k in {1, 4, 8, 9}, weights, messages
+            (none, its own tensor, a view not 16-byte aligned) and dtypes
+            (fp32: rtol 1e-5, atol 1e-6; bf16: rtol 2e-2, atol 1e-5), each
+            case on the kernel the library must pick (the slab kernel for
+            16-byte packets and k <= 8, else the register kernel), as it
+            reports it (gossip_mix.FORM_LAUNCHES); then at the main path's
+            call (n=256, M=4096, k=4, fp32, z seeded from numpy), which
+            must launch the slab kernel, the sha256 of its output's bits
+            (k1_digest) and its time beside the plain version,
             torch.matmul with the n x n mixing matrix (a yardstick the port
             never calls) and the bound
   kernel K2 K2 (compress-mix) the same way over the same grid with mask
@@ -33,14 +40,19 @@ non-zero and the last line is not printed. The phases:
   main_path the full-size dense cell of benchmarks/bench_dense.py (n=256,
             d=4096, expander k=4, periodic h=2, T=300) through
             repro_torch.run with every launch count set to 0 just before:
-            it must take the sparse mix, launch K1 exactly once per
-            communication round (149), and agree with its mix="dense" twin
+            it must take the sparse mix, launch K1's slab kernel exactly
+            once per communication round (149), and agree with its
+            mix="dense" twin; prints the sha256 of its fvals and
+            disagreement as float32 (main_path_digest) and the wall per
+            iteration of the run and of its twin, and their ratio
+            (twin_ratio: the host's noise falls on both alike)
   main_path_compressed
             the same cell under top-k and rand-k (keep 1/4, the compression
             axis of benchmarks/bench_compress.py) and deterministic int8,
             each with every launch count set to 0 just before: the sparse
-            mix must launch K2 (top-k, rand-k) or K1 (int8) exactly 149
-            times and the other kernel never, the residual norms must be
+            mix must launch K2 (top-k, rand-k) or K1's slab kernel (int8)
+            exactly 149 times and the other kernel never, the residual
+            norms must be
             finite and nonzero, and the run must agree with its
             mix="dense" twin within the tolerance stated for its
             compressor (TWIN_TOL), the flipped message entries between the
@@ -58,23 +70,29 @@ non-zero and the last line is not printed. The phases:
             port never calls) and the bound
   kernel_k4 K4 (`kernels.ops.flash_attention`) the same way, over
             tests/test_kernels.py's shapes, Sq != Sk (causal and not), MHA,
-            GQA, MQA, ragged S and D in {16, 48, 80, 96, 160, 192, 256},
-            each case on the route `flash_attention.route` names (every
-            bf16 case on "sm90", flash_attention_sm90.cu, launched once;
-            every fp32 case on "cuda_core", flash_attention.cu; fp32: atol
-            2e-5, rtol 2e-4, as tests/test_kernels.py; bf16: atol 1e-5, rtol
-            1.6e-2, two bf16 ulps); at full width llama3-8b's attention at
-            train_4k (B=1, H=32, KH=8, S=4096, D=128, bf16, causal) on the
-            sm90 route, with the launch counts by route read around it;
-            then on exact fp32 copies of the same q, k, v, both held to the
-            fp32 tolerance: the sm90 kernel's bf16-in, fp32-out entry (which
-            fails a kernel that rounds P to bf16) and the fp32 route. Times
-            the bf16 route beside the plain version and torch's
-            scaled_dot_product_attention (K and V repeated outside the timed
-            window), and the fp32-out entry, the fp32 route on the copies
-            and the CUDA-core kernel on the bf16 inputs; bounds for the
-            reference's work (4 D flops a kept pair) and the split's (6 D),
-            and the two sources' build seconds
+            GQA, MQA, ragged S, D in {16, 48, 80, 96, 160, 192, 256} and
+            D in {1, 12, 100}, each case on the route
+            `flash_attention.route` names and launched once there (bf16
+            with D % 8 == 0 on "sm90", flash_attention_sm90.cu; fp32 and
+            the other bf16 cases on "tf32x3", flash_attention.cu; fp32:
+            atol 2e-5, rtol 2e-4, as tests/test_kernels.py; bf16: atol
+            1e-5, rtol 1.6e-2, two bf16 ulps); at full width llama3-8b's
+            attention at train_4k (B=1, H=32, KH=8, S=4096, D=128, bf16,
+            causal) on the sm90 route, with the launch counts by route
+            read around it; then on exact fp32 copies of the same q, k, v,
+            all held to the fp32 tolerance: the sm90 kernel's bf16-in,
+            fp32-out entry (which fails a kernel that rounds P to bf16) and
+            the fp32 route (tf32x3), and torch's scaled_dot_product_attention
+            on the copies, whose error is reported. Times the bf16 route
+            beside the plain version and scaled_dot_product_attention (K
+            and V repeated outside the timed window), and the fp32-out
+            entry, the fp32 route, the plain version and
+            scaled_dot_product_attention on the copies
+            (fp32_route_library_ms); bounds for the reference's work
+            (4 D flops a kept pair) and the split's (6 D), the fp32 route's
+            for the reference's work at 495 TFLOP/s TF32, on the CUDA cores
+            at 67 TFLOP/s and its 3xTF32 floor (3 x 4 D flops a pair at
+            495 TFLOP/s TF32), and the two sources' build seconds
   kernel_k5 K5 (`kernels.ops.ssd_scan`, three kernels a call) over
             tests/test_kernels.py's shapes, ragged S and P, odd P (P = 37,
             N = 5), N in {6, 128, 136, 220 = MAX_N} and S = 4096 at a
@@ -105,8 +123,10 @@ limit as nvidia-smi prints them, and the result line
 
 from __future__ import annotations
 
+import hashlib
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -116,10 +136,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
-#: outside the tensor cores, dense bf16 FLOP/s on the tensor cores
+#: outside the tensor cores, dense bf16 and TF32 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 
 FP32_TOL = dict(rtol=1e-5, atol=1e-6)
 BF16_TOL = dict(rtol=2e-2, atol=1e-5)
@@ -247,15 +268,44 @@ def phase_build() -> dict:
     for name in build.SOURCES:
         build.load(name)
     wall = time.perf_counter() - t0
-    ptxas = {}
-    for name in build.SOURCES:
-        log = build.library_path(name).with_suffix(".log")
-        ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
-                       if "registers" in ln or "spill" in ln
-                       or "warning" in ln.lower()
-                       or "Performance Loss" in ln]
+    ptxas = {name: _ptxas_report(
+        build.library_path(name).with_suffix(".log").read_text())
+        for name in build.SOURCES}
     emit("build", seconds=seconds, wall_s=wall, ptxas=ptxas)
     return seconds
+
+
+def _ptxas_report(log: str) -> list:
+    """The compiler's `-Xptxas -v` report, one line for each kernel
+    instantiation (its name demangled where `c++filt` is on the path):
+    registers, shared memory, stack and spills; then every warning and
+    performance remark."""
+    import shutil
+
+    names, lines, spills = [], [], ""
+    for ln in log.splitlines():
+        ln = ln.strip()
+        entry = re.search(r"Compiling entry function '(\w+)'", ln)
+        if entry:
+            names.append(entry.group(1))
+            spills = ""
+        elif "spill" in ln:  # ptxas prints it before the registers
+            spills = "; " + ln
+        elif "Used" in ln and "registers" in ln and names:
+            lines.append(f"{names[-1]}: {ln.split(':', 1)[1].strip()}"
+                         f"{spills}")
+        elif "warning" in ln.lower() or "Performance Loss" in ln:
+            lines.append(ln)
+    filt = shutil.which("c++filt")
+    if filt and names:
+        plain = subprocess.run([filt], input="\n".join(names),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(plain) == len(names):
+            for mangled, readable in zip(names, plain):
+                lines = [ln.replace(mangled + ":", readable + ":")
+                         for ln in lines]
+    return lines
 
 
 def _dense_cell_spec(compression=None):
@@ -283,7 +333,7 @@ _COUNTS = {"gossip_mix": ("gossip_mix", "LAUNCHES"),
 
 
 #: K4's launches by route (flash_attention.route), beside its total above
-_ROUTE_COUNTS = {"sm90": "SM90_LAUNCHES", "cuda_core": "CUDA_CORE_LAUNCHES"}
+_ROUTE_COUNTS = {"sm90": "SM90_LAUNCHES", "tf32x3": "TF32X3_LAUNCHES"}
 #: the kernels K5's and K6's calls launched, as their libraries count them
 _KERNEL_COUNTS = ("ssd_scan", "selective_scan")
 
@@ -307,6 +357,7 @@ def _route_counts() -> dict:
 def _zero_launch_counts() -> None:
     for mod, attr in _COUNTS.values():
         setattr(_count_module(mod), attr, 0)
+    _count_module("gossip_mix").FORM_LAUNCHES.update(regs=0, slab=0)
     for attr in _ROUTE_COUNTS.values():
         setattr(_count_module("flash_attention"), attr, 0)
     for mod in _KERNEL_COUNTS:
@@ -360,8 +411,36 @@ def _mix_inputs(gen, n, M, k, dtype, vector_weights, with_msg):
     return z, S_in, w_self, w_edge, msg
 
 
+def _digest(*arrays) -> str:
+    """sha256 of the arrays' float32 bytes, one after the other."""
+    import numpy as np
+    import torch
+
+    h = hashlib.sha256()
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            a = a.detach().cpu().numpy()
+        h.update(np.ascontiguousarray(a, dtype=np.float32).tobytes())
+    return h.hexdigest()
+
+
+def _form_launched(before: dict) -> str:
+    """The kernel (slab or regs) of the one K1 call made since
+    gossip_mix.FORM_LAUNCHES read `before`."""
+    from repro_torch.kernels import gossip_mix
+
+    grown = [form for form, count in gossip_mix.FORM_LAUNCHES.items()
+             if count != before[form]]
+    if len(grown) != 1 or sum(gossip_mix.FORM_LAUNCHES.values()) != sum(
+            before.values()) + 1:
+        raise AssertionError(f"one K1 call counted {before} -> "
+                             f"{gossip_mix.FORM_LAUNCHES}")
+    return grown[0]
+
+
 def phase_kernel() -> dict:
     """K1 against its plain version on the card, then its times."""
+    import numpy as np
     import torch
 
     from repro_torch.kernels import gossip_mix, ops, ref
@@ -370,18 +449,29 @@ def phase_kernel() -> dict:
     gen.manual_seed(0)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     checked = 0
+    forms = {"regs": 0, "slab": 0}
     for n in (7, 12, 256, 1024):
         for M in (1, 130, 257, 4096, 65536):
-            for k in (1, 4, 8):
+            # k <= 8 takes a kernel built for its k, k = 9 the generic one
+            for k in (1, 4, 8, 9):
                 for dtype, tol in ((torch.float32, FP32_TOL),
                                    (torch.bfloat16, BF16_TOL)):
                     for vector_weights in (False, True):
-                        for with_msg in (False, True):
+                        # msg: none (z itself), its own tensor, or a view
+                        # one element in, not 16-byte aligned (the
+                        # one-element path)
+                        for with_msg in ("none", "own", "offset"):
                             args = _mix_inputs(gen, n, M, k, dtype,
-                                               vector_weights, with_msg)
+                                               vector_weights,
+                                               with_msg == "own")
                             z, S_in, w_self, w_edge, msg = args
+                            if with_msg == "offset":
+                                msg = _randn(gen, (n * M + 1,), dtype)[1:] \
+                                    .view(n, M)
+                            before = dict(gossip_mix.FORM_LAUNCHES)
                             out = ops.gossip_gather_mix_impl(
                                 z, S_in, w_self, w_edge, msg=msg)
+                            form = _form_launched(before)
                             expect = ref.gossip_gather_mix_ref(
                                 z, S_in, w_self, w_edge, msg=msg)
                             torch.cuda.synchronize()
@@ -393,15 +483,28 @@ def phase_kernel() -> dict:
                                 raise AssertionError(
                                     f"K1 returned {out.dtype} {out.shape} "
                                     f"for {dtype} {tuple(z.shape)}")
+                            where = (f"n={n} M={M} k={k} {dtype} "
+                                     f"vector={vector_weights} "
+                                     f"msg={with_msg}")
                             torch.testing.assert_close(
                                 out.float(), expect.float(), **tol,
-                                msg=lambda m: (f"K1 disagrees at n={n} "
-                                               f"M={M} k={k} {dtype} "
-                                               f"vector={vector_weights} "
-                                               f"msg={with_msg}: {m}"))
+                                msg=lambda m: f"K1 disagrees at {where}: {m}")
+                            # the slab kernel takes 16-byte packets (M a
+                            # multiple of 16 bytes, every operand aligned)
+                            # and k <= 8; its shared memory holds n = 1024
+                            packets = M * out.element_size() % 16 == 0 \
+                                and with_msg != "offset"
+                            expect_form = ("slab" if packets and k <= 8
+                                           else "regs")
+                            if form != expect_form:
+                                raise AssertionError(
+                                    f"K1 launched its {form} kernel at "
+                                    f"{where}, not {expect_form}")
+                            forms[form] += 1
                             checked += 1
     emit("kernel_check", name="gossip_mix", cases=checked,
-         max_abs_err=worst, fp32_tol=FP32_TOL, bf16_tol=BF16_TOL)
+         forms_launched=forms, max_abs_err=worst, fp32_tol=FP32_TOL,
+         bf16_tol=BF16_TOL)
 
     # the main path's call: n=256, M=4096, k=4, fp32, uniform weights
     n, M, k = 256, 4096, 4
@@ -410,16 +513,27 @@ def phase_kernel() -> dict:
     g = kregular_expander(n, k=k, seed=0)
     S_in = torch.as_tensor([list(p) for p in g.perms], device="cuda").T \
         .contiguous()
-    z = torch.randn((n, M), generator=gen, device="cuda")
+    # z from numpy, seeded, so that its bits depend on nothing else here
+    z = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (n, M), dtype=np.float32)).cuda()
     ws, we = float(g.self_weight), float(g.edge_weight)
     w_self = torch.full((n,), ws, device="cuda")
     w_edge = torch.full((n, k), we, device="cuda")
     P = torch.as_tensor(g.mixing_matrix(), dtype=torch.float32,
                         device="cuda")
+    before = dict(gossip_mix.FORM_LAUNCHES)
     out = gossip_mix.gossip_mix_weighted(z, S_in, w_self, w_edge)
+    # the kernel timed below, and the one the main path launches 149 times
+    form = _form_launched(before)
+    if form != "slab":
+        raise AssertionError(f"K1 launched its {form} kernel at the main "
+                             f"path's call, not the slab kernel")
     expect = ref.gossip_gather_mix_ref(z, S_in, ws, we)
     torch.cuda.synchronize()
     max_abs_err = float((out - expect).abs().max())
+    # the output's bits: a redesign of K1 keeps its arithmetic order, so
+    # this digest does not change
+    k1_digest = _digest(out)
     torch.testing.assert_close(out, expect, **FP32_TOL)
     torch.testing.assert_close(out, P @ z, **FP32_TOL)
     kernel_t = time_ms(
@@ -442,6 +556,7 @@ def phase_kernel() -> dict:
                    bound_by="bytes" if bytes_ms >= flops_ms else "operations",
                    library_ms=library_t["device"])
     emit("kernel_time", shape={"n": n, "M": M, "k": k, "dtype": "float32"},
+         k1_digest=k1_digest, form=form,
          bytes=nbytes, flops=flops, kernel_ms=kernel_t["device"],
          eager_ms=kernel_t["eager"],
          plain_eager_ms=plain_t["eager"], library_eager_ms=library_t["eager"],
@@ -598,14 +713,20 @@ def phase_main_path() -> int:
     from repro_torch.convert import assert_results_match
     from repro_torch.core.schedules import Periodic
 
+    from repro_torch.kernels import gossip_mix
+
     spec = _dense_cell_spec()
     _zero_launch_counts()
     result = repro_torch.run(spec, device="cuda")
     counts = _launch_counts()
+    forms = dict(gossip_mix.FORM_LAUNCHES)
     launches = counts["gossip_mix"]
     if sum(counts.values()) != launches:
         raise AssertionError(f"the uncompressed cell launched another "
                              f"kernel than K1: {counts}")
+    if forms != {"regs": 0, "slab": launches}:
+        raise AssertionError(f"the uncompressed cell's K1 launches took "
+                             f"the kernels {forms}, not the slab kernel")
     d = result.to_dict()
     trace = d["trace"]
     rounds = trace["comms"][-1]
@@ -631,11 +752,14 @@ def phase_main_path() -> int:
     assert_results_match(d, twin_d)
     m = result.metrics
     emit("main_path", launches=launches, rounds=rounds,
+         k1_forms_launched=forms,
+         main_path_digest=_digest(trace["fvals"], trace["disagreement"]),
          mix_mode=d["extras"]["mix_mode"], compile_s=m.compile_s,
          execute_s=m.execute_s, wall_s=result.wall_s,
          us_per_iter=m.execute_s / spec.T * 1e6,
          twin_execute_s=twin.metrics.execute_s,
          twin_us_per_iter=twin.metrics.execute_s / spec.T * 1e6,
+         twin_ratio=m.execute_s / twin.metrics.execute_s,
          final_f=trace["fvals"][-1], twin_final_f=twin_d["trace"]["fvals"][-1])
     return launches
 
@@ -721,6 +845,7 @@ def phase_main_path_compressed() -> int:
     import repro_torch
     from repro_torch.compress import RandK
     from repro_torch.convert import assert_results_match
+    from repro_torch.kernels import gossip_mix
 
     k2_launches = None
     for kind, params, kernel in (
@@ -739,6 +864,10 @@ def phase_main_path_compressed() -> int:
         if counts[kernel] != 149 or rounds != 149 or others != 0:
             raise AssertionError(f"{kind}: launches {counts} for {rounds} "
                                  f"rounds (expected 149 of {kernel})")
+        forms = dict(gossip_mix.FORM_LAUNCHES)
+        if forms != {"regs": 0, "slab": counts["gossip_mix"]}:
+            raise AssertionError(f"{kind}: K1's launches took the kernels "
+                                 f"{forms}, not the slab kernel")
         block = d["extras"]["compression"]
         norms = block["residual_norms"]
         if len(norms) != spec.T // spec.eval_every or not all(
@@ -767,6 +896,7 @@ def phase_main_path_compressed() -> int:
              execute_s=m.execute_s,
              us_per_iter=m.execute_s / spec.T * 1e6,
              twin_us_per_iter=twin.metrics.execute_s / spec.T * 1e6,
+             twin_ratio=m.execute_s / twin.metrics.execute_s,
              final_f=d["trace"]["fvals"][-1],
              twin_final_f=twin_d["trace"]["fvals"][-1],
              final_residual_norm=norms[-1], twin_max_rel_err=errors,
@@ -961,6 +1091,10 @@ def phase_kernel_k4(build_s: dict) -> dict:
             shapes.append((1, 4, 2, Sq, Sk, 64, causal))
     for D in (16, 48, 80, 96, 160, 192, 256):
         shapes.append((1, 2, 1, 128, 128, D, True))
+    # D not a multiple of 8: bf16 too takes the tf32x3 route, staged with
+    # a conversion; D = 1 and 12 rows go 4 bytes a copy in fp32
+    for D in (1, 12, 100):
+        shapes.append((1, 4, 2, 128, 128, D, True))
     shapes.append((1, 32, 32, 256, 256, 80, True))   # zamba2-2.7b's heads
 
     def cases():
@@ -973,7 +1107,7 @@ def phase_kernel_k4(build_s: dict) -> dict:
                         _randn(gen, (B, KH, Sk, D), dtype), causal),
                        str(dtype).split(".")[1])
 
-    grid_routes = {"sm90": 0, "cuda_core": 0}
+    grid_routes = {"sm90": 0, "tf32x3": 0}
 
     def door(q, k, v, causal=True):
         """The front door, which must launch once on the route's kernel."""
@@ -992,10 +1126,12 @@ def phase_kernel_k4(build_s: dict) -> dict:
 
     _check_grid("flash_attention", "K4", cases(), door, plain, ATTN_TOL)
     grid_taken = dict(grid_routes)  # the grid's; calls below add more
-    if grid_taken != {"sm90": len(shapes), "cuda_core": len(shapes)}:
+    sm90_cases = sum(shape[5] % 8 == 0 for shape in shapes)
+    if grid_taken != {"sm90": sm90_cases,
+                      "tf32x3": 2 * len(shapes) - sm90_cases}:
         raise AssertionError(f"K4's grid took the routes {grid_taken}: "
-                             f"every bf16 case on sm90, every fp32 case on "
-                             f"cuda_core")
+                             f"every bf16 case with D % 8 == 0 on sm90, "
+                             f"every other case on tf32x3")
 
     # full width: llama3-8b's attention (configs/llama3_8b.py: 32 heads, 8
     # kv heads, head dim 128) at train_4k (configs/shapes.py), bf16, causal
@@ -1005,7 +1141,7 @@ def phase_kernel_k4(build_s: dict) -> dict:
     launches, err = _full_width("flash_attention", "K4", door, plain,
                                 (q, k, v), ATTN_TOL["bfloat16"])
     routes = _route_counts()
-    if routes != {"sm90": 1, "cuda_core": 0}:
+    if routes != {"sm90": 1, "tf32x3": 0}:
         raise AssertionError(f"K4 at full width took the routes {routes}")
     # the same inputs as exact fp32 copies, held to the fp32 tolerance: the
     # sm90 kernel with an fp32 output (a kernel that rounded P to bf16 would
@@ -1017,9 +1153,12 @@ def phase_kernel_k4(build_s: dict) -> dict:
                          ATTN_TOL["float32"])
     err_fp32 = _hold("K4 fp32 route at full width on fp32 copies",
                      door(*copies), expect32, ATTN_TOL["float32"])
-    del expect32
     kr = k.repeat_interleave(H // KH, dim=1)
     vr = v.repeat_interleave(H // KH, dim=1)
+    kr32, vr32 = kr.float(), vr.float()
+    err_fp32_library = _max_err(F.scaled_dot_product_attention(
+        copies[0], kr32, vr32, is_causal=True), expect32)
+    del expect32
     kernel_t = time_ms(lambda: ops.flash_attention(q, k, v), reps=10,
                        inner=3)
     plain_t = time_ms(lambda: plain(q, k, v), reps=5, inner=2)
@@ -1029,10 +1168,11 @@ def phase_kernel_k4(build_s: dict) -> dict:
                          reps=10, inner=3)
     fp32_route_t = time_ms(lambda: ops.flash_attention(*copies), reps=5,
                            inner=2)
-    # the CUDA-core kernel on the same bf16 inputs: the route bf16 took
-    # before the sm90 kernel, timed in the same run
-    cuda_core_bf16_t = time_ms(lambda: fa._launch(
-        "cuda_core", q, k, v, torch.bfloat16, True), reps=5, inner=2)
+    fp32_plain_t = time_ms(lambda: plain(*copies), reps=5, inner=2)
+    # the library call on the fp32 copies: the fp32 route's yardstick
+    fp32_library_t = time_ms(lambda: F.scaled_dot_product_attention(
+        copies[0], kr32, vr32, is_causal=True), reps=10, inner=3)
+    del kr32, vr32
     del copies
     torch.cuda.empty_cache()
     # q, k, v read once, out written once; 4 D flops (q.k and p v) for
@@ -1056,8 +1196,14 @@ def phase_kernel_k4(build_s: dict) -> dict:
         split_bound_ms=_bound(nbytes, 6 * D * pairs, BF16_FLOPS)["bound_ms"],
         fp32_out_ms=fp32_out_t["device"],
         fp32_route_ms=fp32_route_t["device"],
+        fp32_route_plain_ms=fp32_plain_t["device"],
         fp32_route_bound_ms=_bound(2 * nbytes, flops, FP32_FLOPS)["bound_ms"],
-        cuda_core_bf16_ms=cuda_core_bf16_t["device"],
+        fp32_route_tf32_bound_ms=_bound(2 * nbytes, flops,
+                                        TF32_FLOPS)["bound_ms"],
+        fp32_route_library_ms=fp32_library_t["device"],
+        fp32_route_library_max_abs_err=err_fp32_library,
+        fp32_route_tf32x3_floor_ms=_bound(0, 3 * flops,
+                                          TF32_FLOPS)["bound_ms"],
         build_s={name: build_s[name] for name in
                  ("flash_attention_sm90", "flash_attention")},
         library_call="F.scaled_dot_product_attention(q, k, v, "

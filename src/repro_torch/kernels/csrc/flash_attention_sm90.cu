@@ -10,7 +10,7 @@
 //
 // Replaces the TPU kernel `flash_attention` (src/repro/kernels/
 // flash_attention.py:79, its pallas_call at :99) for bf16 inputs; fp32
-// inputs stay on the CUDA-core kernel of flash_attention.cu. The TPU kernel
+// inputs take the 3xTF32 kernel of flash_attention.cu. The TPU kernel
 // upcast q, k and v to fp32 (:47-49) and computed S = Q K^T and P V on fp32
 // operands. Here:
 //   - S = Q K^T runs on the bf16 tensor cores (wgmma m64nBNk16, both

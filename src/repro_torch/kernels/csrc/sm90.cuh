@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the port's
 // kernels that use the Tensor Memory Accelerator (TMA), mbarriers and the
-// warpgroup matrix multiply (wgmma): flash_attention_sm90.cu.
+// warpgroup matrix multiply (wgmma): flash_attention_sm90.cu, and the exp2
+// of flash_attention.cu.
 //
 // Shared-memory operands of wgmma are described by 64-bit matrix
 // descriptors over tiles that TMA wrote with the 128-byte swizzle: rows of

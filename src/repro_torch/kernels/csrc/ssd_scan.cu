@@ -40,7 +40,8 @@
 // TF32 value of its remainder, a*b ~ a_big b_big + a_big b_small +
 // a_small b_big, which keeps fp32 accuracy (a single TF32 pass keeps 10
 // mantissa bits, about 1e-3 at full width: a different function). The
-// split is two integer instructions a part (`split_tf32`); the three mma of
+// split is two integer instructions a part (`split_tf32` in tf32x3.cuh,
+// shared with flash_attention.cu); the three mma of
 // a product are issued term by term across a warp's tiles, so that none
 // waits on the one before it.
 //
@@ -74,8 +75,11 @@
 #include <type_traits>
 
 #include "async_copy.cuh"
+#include "tf32x3.cuh"
 
 namespace {
+
+using namespace tf32x3;
 
 constexpr int kThreads = 256;     // 8 warps
 constexpr int kPT = 64;           // rows of P per block
@@ -99,82 +103,6 @@ __host__ __device__ constexpr int out_table_floats(int Q) {
 __host__ __device__ constexpr int out_smem_floats(int Q, int N) {
   return Q * (Q + 4) + Q * (pad8(N) + 4) + 2 * out_buf_floats(Q, N) + 2 * Q +
          out_table_floats(Q);
-}
-
-// ---- 3xTF32 on mma.sync ----------------------------------------------------
-
-struct FragA {  // a 16 x 8 row-major A operand, split
-  uint32_t big[4], small[4];
-};
-struct FragB {  // an 8 x 8 column-major B operand, split
-  uint32_t big[2], small[2];
-};
-
-// f = big + small: big is f rounded to TF32's 10 mantissa bits, ties away
-// from zero (what cvt.rna.tf32.f32 gives for a finite f, in two integer
-// instructions instead of its guarded sequence), small is the exact
-// remainder, |small| <= 2^-11 |f|, with its low 13 bits dropped as the
-// tensor core drops them: big + small is f to within 2^-21 |f|.
-__device__ __forceinline__ void split_tf32(float f, uint32_t& big,
-                                           uint32_t& small) {
-  big = (__float_as_uint(f) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(f - __uint_as_float(big)) & 0xffffe000u;
-}
-
-// a0 (row g, col k), a1 (row g+8, col k), a2 (row g, col k+4), a3 (row
-// g+8, col k+4), with g = lane / 4 and k = lane % 4
-__device__ __forceinline__ FragA frag_a(float a0, float a1, float a2,
-                                        float a3) {
-  FragA f;
-  split_tf32(a0, f.big[0], f.small[0]);
-  split_tf32(a1, f.big[1], f.small[1]);
-  split_tf32(a2, f.big[2], f.small[2]);
-  split_tf32(a3, f.big[3], f.small[3]);
-  return f;
-}
-
-// b0 (row k, col g), b1 (row k+4, col g)
-__device__ __forceinline__ FragB frag_b(float b0, float b1) {
-  FragB f;
-  split_tf32(b0, f.big[0], f.small[0]);
-  split_tf32(b1, f.big[1], f.small[1]);
-  return f;
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// acc[r][j] += a[r] b[j] in 3xTF32 for the row blocks r that are `on`;
-// acc: c0 (row g, col 2k), c1 (g, 2k+1), c2 (g+8, 2k), c3 (g+8, 2k+1).
-// The small terms first, the large one last, each term issued across all
-// tiles before the next, so that no mma waits on the one just before it.
-template <int NR, int NC>
-__device__ __forceinline__ void mma3_tiles(float (&acc)[NR][NC][4],
-                                           const FragA (&a)[NR],
-                                           const FragB (&b)[NC],
-                                           const bool (&on)[NR]) {
-#pragma unroll
-  for (int r = 0; r < NR; ++r)
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      if (on[r]) mma_tf32(acc[r][j], a[r].small, b[j].big);
-#pragma unroll
-  for (int r = 0; r < NR; ++r)
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      if (on[r]) mma_tf32(acc[r][j], a[r].big, b[j].small);
-#pragma unroll
-  for (int r = 0; r < NR; ++r)
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      if (on[r]) mma_tf32(acc[r][j], a[r].big, b[j].big);
 }
 
 // cum[t] = sum_{u <= t} dts[u] * a over the chunk, by warp 0 alone: each
@@ -426,11 +354,9 @@ __global__ void __launch_bounds__(kThreads, 2)
                                 cs[(s + 8) * ldn + k0 + k],
                                 cs[s * ldn + k0 + k + 4],
                                 cs[(s + 8) * ldn + k0 + k + 4]);
-        const FragB fb =
-            frag_b(bs[tc * ldn + k0 + k], bs[tc * ldn + k0 + k + 4]);
-        mma_tf32(d[0][0], fa.small, fb.big);
-        mma_tf32(d[1][0], fa.big, fb.small);
-        mma_tf32(d[2][0], fa.big, fb.big);
+        const FragB fb[1] = {
+            frag_b(bs[tc * ldn + k0 + k], bs[tc * ldn + k0 + k + 4])};
+        mma3_terms(d, fa, fb);
       }
       const int col = 8 * ct + 2 * k;
       gs[s * ldq + col] = (d[0][0][0] + d[1][0][0]) + d[2][0][0];

@@ -8,21 +8,26 @@ aligned (query row r sees key columns c <= r, the TPU kernel's
 `rows >= cols`), fp32 arithmetic, out in q's dtype. `route(dtype, D)` picks
 the kernel:
 
-  "sm90"       bf16 with D a multiple of 8 (TMA's 16-byte rows):
-               `csrc/flash_attention_sm90.cu`, wgmma on the bf16 tensor cores
-               fed by TMA, P split into two bf16 halves so that P V keeps
-               about 16 bits of P (the reference's fp32 function to within
-               summation order)
-  "cuda_core"  everything else, fp32 above all: `csrc/flash_attention.cu`,
-               fp32 on the CUDA cores (single-pass TF32 cannot hold the
-               fp32 tolerance, atol 2e-5)
+  "sm90"    bf16 with D a multiple of 8 (TMA's 16-byte rows):
+            `csrc/flash_attention_sm90.cu`, wgmma on the bf16 tensor cores
+            fed by TMA, P split into two bf16 halves so that P V keeps
+            about 16 bits of P (the reference's fp32 function to within
+            summation order)
+  "tf32x3"  everything else, fp32 above all: `csrc/flash_attention.cu`,
+            3xTF32 on the tensor cores (mma.sync). One TF32 pass rounds
+            each operand to 10 mantissa bits and misses the fp32 tolerance
+            (atol 2e-5, rtol 2e-4); three passes, a_big b_big + a_big
+            b_small + a_small b_big over each operand's TF32 part and the
+            TF32 part of its remainder, drop only a_small b_small, below
+            2^-22 of the product, and hold it
+            (tests/test_torch_attention_forms.py shows both on the CPU)
 
 Both kernels skip the key tiles above the diagonal instead of loading them.
 
 `flash_attention` is the wrapper: it checks its inputs on the host,
 allocates the output, launches the route's kernel on the current stream
 without synchronizing, and counts its launches: `LAUNCHES` in all, and
-`SM90_LAUNCHES` and `CUDA_CORE_LAUNCHES` by route. There is no fallback: a
+`SM90_LAUNCHES` and `TF32X3_LAUNCHES` by route. There is no fallback: a
 route's kernel that fails to build or launch raises. It takes CUDA tensors
 only; `kernels.ops` sends CPU tensors to the plain version in `kernels.ref`.
 `_flash_attention_fp32_out` is the sm90 kernel with an fp32 output, a
@@ -39,14 +44,14 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.gossip_mix import check_on_card, check_operand
 
-__all__ = ["CUDA_CORE_LAUNCHES", "LAUNCHES", "MAX_D", "ROUTES",
-           "SM90_LAUNCHES", "flash_attention", "library", "route"]
+__all__ = ["LAUNCHES", "MAX_D", "ROUTES", "SM90_LAUNCHES",
+           "TF32X3_LAUNCHES", "flash_attention", "library", "route"]
 
 #: launches of either kernel since the count was last set to 0
 LAUNCHES = 0
 #: launches by route (they sum to LAUNCHES when all three are set together)
 SM90_LAUNCHES = 0
-CUDA_CORE_LAUNCHES = 0
+TF32X3_LAUNCHES = 0
 #: the largest head dim the kernels take (csrc/flash_attention*.cu)
 MAX_D = 256
 #: route -> (source stem, entry point by out dtype)
@@ -54,9 +59,9 @@ ROUTES = {
     "sm90": ("flash_attention_sm90",
              {torch.bfloat16: "flash_attention_sm90_bf16",
               torch.float32: "flash_attention_sm90_bf16_f32out"}),
-    "cuda_core": ("flash_attention",
-                  {torch.float32: "flash_attention_f32",
-                   torch.bfloat16: "flash_attention_bf16"}),
+    "tf32x3": ("flash_attention",
+               {torch.float32: "flash_attention_f32",
+                torch.bfloat16: "flash_attention_bf16"}),
 }
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -71,12 +76,12 @@ _ENCODE_ERROR = 100000
 def route(dtype: torch.dtype, D: int) -> str:
     """The kernel that takes inputs of `dtype` and head dim `D`: "sm90" for
     bf16 with D a multiple of 8 (a TMA row is a multiple of 16 bytes), else
-    "cuda_core"."""
-    return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "cuda_core"
+    "tf32x3"."""
+    return "sm90" if dtype == torch.bfloat16 and D % 8 == 0 else "tf32x3"
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The kernel library of route `name` ("sm90" or "cuda_core"), built
+    """The kernel library of route `name` ("sm90" or "tf32x3"), built
     from its source at first use."""
     stem, entries = ROUTES[name]
     lib = build.load(stem)
@@ -113,7 +118,7 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out_dtype: torch.dtype, causal: bool) -> torch.Tensor:
     """Launch route `name`'s kernel on checked inputs into a new tensor of
     `out_dtype`, and count it."""
-    global LAUNCHES, SM90_LAUNCHES, CUDA_CORE_LAUNCHES
+    global LAUNCHES, SM90_LAUNCHES, TF32X3_LAUNCHES
     B, H, KH, Sq, Sk, D = _check(q, k, v)
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     if out.numel() == 0:
@@ -142,7 +147,7 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if name == "sm90":
         SM90_LAUNCHES += 1
     else:
-        CUDA_CORE_LAUNCHES += 1
+        TF32X3_LAUNCHES += 1
     return out
 
 

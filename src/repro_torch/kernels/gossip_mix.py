@@ -9,7 +9,11 @@ gossip_mix_weighted` and the gather in front of it (`repro.kernels.ops.
 gossip_gather_mix_impl`): the kernel (`csrc/gossip_mix.cu`, where its
 design and bound are written down) reads the k neighbor rows through S_in
 itself, so the gathered (k, n, M) stack the TPU version was handed is never
-built. It is bandwidth-bound: one pass over z, msg and out.
+built. It is bandwidth-bound: one pass over z, msg and out. The library
+launches its slab kernel, which stages each slab of msg's columns in shared
+memory once, whenever that kernel takes the call, and its register kernel
+for the rest (ragged M, unaligned views, k > 8, n too large for the slab);
+both give the same bits, and `FORM_LAUNCHES` counts the calls of each.
 
 K3, the flat per-node mix with scalar weights:
 
@@ -36,20 +40,28 @@ import torch
 
 from repro_torch.kernels import build
 
-__all__ = ["FLAT_LAUNCHES", "LAUNCHES", "check_mix_operands",
-           "check_on_card", "check_operand", "gossip_mix",
-           "gossip_mix_weighted", "library"]
+__all__ = ["FLAT_LAUNCHES", "FORM_LAUNCHES", "LAUNCHES",
+           "check_mix_operands", "check_on_card", "check_operand",
+           "gossip_mix", "gossip_mix_weighted", "library"]
 
 #: launches of K1 since the count was last set to 0
 LAUNCHES = 0
 #: launches of K3 since the count was last set to 0
 FLAT_LAUNCHES = 0
+#: launches of K1 since the counts were last set to 0, by the kernel the
+#: library reported: "slab" (a slab of columns of all rows of msg staged in
+#: shared memory once) or "regs" (each output row's k + 1 input rows loaded
+#: into registers; csrc/gossip_mix.cu)
+FORM_LAUNCHES = {"regs": 0, "slab": 0}
 
+_FORM_NAMES = ("regs", "slab")  # by the `form` the library reports
 _DTYPES = (torch.float32, torch.bfloat16)
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+             + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 _FLAT_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int64]
                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 _INT_MAX = 2 ** 31 - 1
+_SMS: dict[int, int] = {}  # SMs of each card, by device index
 
 
 def library() -> ctypes.CDLL:
@@ -144,15 +156,21 @@ def gossip_mix_weighted(z: torch.Tensor, S_in: torch.Tensor,
         return out
     lib = library()
     fn = lib.gossip_mix_f32 if z.dtype == torch.float32 else lib.gossip_mix_bf16
+    device = z.device.index
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    form = ctypes.c_int(-1)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         err = fn(z.data_ptr(), msg.data_ptr(), S_in.data_ptr(),
                  w_self.data_ptr(), w_edge.data_ptr(), out.data_ptr(),
-                 n, k, M, stream)
+                 n, k, M, _SMS[device], ctypes.byref(form), stream)
     if err != 0:
         raise RuntimeError(f"gossip_mix kernel launch failed with CUDA "
                            f"error {err}")
     LAUNCHES += 1
+    FORM_LAUNCHES[_FORM_NAMES[form.value]] += 1
     return out
 
 

@@ -336,15 +336,15 @@ def test_every_source_names_the_pallas_function_it_replaces():
     (torch.bfloat16, 48, "sm90"), (torch.bfloat16, 64, "sm90"),
     (torch.bfloat16, 80, "sm90"), (torch.bfloat16, 128, "sm90"),
     (torch.bfloat16, 160, "sm90"), (torch.bfloat16, 256, "sm90"),
-    (torch.bfloat16, 12, "cuda_core"), (torch.bfloat16, 100, "cuda_core"),
-    (torch.bfloat16, 1, "cuda_core"), (torch.float32, 64, "cuda_core"),
-    (torch.float32, 128, "cuda_core"), (torch.float32, 12, "cuda_core"),
+    (torch.bfloat16, 12, "tf32x3"), (torch.bfloat16, 100, "tf32x3"),
+    (torch.bfloat16, 1, "tf32x3"), (torch.float32, 64, "tf32x3"),
+    (torch.float32, 128, "tf32x3"), (torch.float32, 12, "tf32x3"),
 ])
 def test_attention_route_rule(dtype, D, want):
     """bf16 with D a multiple of 8 (16-byte TMA rows) goes to the sm90
-    kernel; fp32 (its tolerance is beyond single-pass TF32) and any other D
-    to the CUDA-core kernel. Each route names a source that build.py
-    builds."""
+    kernel; fp32 (its tolerance is beyond single-pass TF32, so three
+    passes) and any other D to the 3xTF32 kernel. Each route names a source
+    that build.py builds."""
     assert flash_attention.route(dtype, D) == want
     stem, entries = flash_attention.ROUTES[want]
     assert stem in build.SOURCES and dtype in entries
@@ -357,7 +357,7 @@ def test_attention_wrapper_imports_and_routes_without_cuda():
             "from repro_torch.kernels import build, flash_attention as fa\n"
             "assert not torch.cuda.is_available()\n"
             "assert fa.route(torch.bfloat16, 128) == 'sm90'\n"
-            "assert fa.SM90_LAUNCHES == fa.CUDA_CORE_LAUNCHES == 0\n"
+            "assert fa.SM90_LAUNCHES == fa.TF32X3_LAUNCHES == 0\n"
             "assert not build._LOADED\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),

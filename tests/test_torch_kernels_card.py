@@ -5,7 +5,8 @@ uncompressed (K1) and compressed (K2). K3 to K6: each front door of
 `kernels.ops` against its plain version on the shapes of
 tests/test_kernels.py and their edges, launching its kernel once per call,
 with the tolerances chip_smoke.py states; K4 on the route its rule names
-(bf16 on the sm90 kernel, fp32 on the CUDA-core kernel), and the sm90
+(bf16 with D % 8 == 0 on the sm90 kernel, fp32 and the other bf16 on the
+3xTF32 kernel), and the sm90
 kernel's fp32-out entry at the fp32 tolerance; K5 and K6 also on long
 sequences at narrow widths, ragged chunks, odd P and d (the unvectorized
 staging and stores) and the largest state sizes, with the plan (chunk or
@@ -99,6 +100,85 @@ def test_compress_kernel_matches_plain_on_the_card(cuda_device, n, M, k,
     if density == 1.0:  # msg * 1 is exact: K1's result, bit for bit
         assert torch.equal(out, gossip_mix.gossip_mix_weighted(
             z, S_in, ws, we, msg=msg))
+
+
+def _k1_form(call):
+    """`call()` (one K1 call) and the kernel the library reported for it."""
+    before = dict(gossip_mix.FORM_LAUNCHES)
+    count = gossip_mix.LAUNCHES
+    out = call()
+    assert gossip_mix.LAUNCHES == count + 1
+    grown = [form for form, c in gossip_mix.FORM_LAUNCHES.items()
+             if c == before[form] + 1]
+    assert len(grown) == 1
+    assert sum(gossip_mix.FORM_LAUNCHES.values()) == sum(before.values()) + 1
+    return out, grown[0]
+
+
+@pytest.mark.parametrize("k", range(1, 10))  # k = 9: the generic kernel
+@pytest.mark.parametrize("M,msg_kind,dtype,packets", [
+    (4096, "none", "float32", True),     # slabs of 128 bytes a row
+    (257, "own", "float32", False),      # ragged M: one element a thread
+    (4096, "offset", "float32", False),  # a msg view not 16-byte aligned
+    (1000, "own", "bfloat16", True),     # packets of 8 bf16
+    (130, "none", "bfloat16", False),    # ragged in bf16
+])
+def test_k1_matches_plain_on_the_kernel_it_picks(cuda_device, k, M,
+                                                 msg_kind, dtype, packets):
+    """K1 against the plain version on the kernel the library picks: the
+    slab kernel for 16-byte packets and k <= 8, else the register kernel.
+    An unaligned msg view and an aligned copy of it (the register and the
+    slab kernel, at k <= 8) give the same bits: each takes the slots in
+    order, one FMA each after w_self * z, rounded once."""
+    n = 40
+    z, S_in, ws, we = _inputs(n, M, k, 7 * k + M, cuda_device,
+                              getattr(torch, dtype))
+    msg = None
+    if msg_kind != "none":
+        gen = torch.Generator(device=cuda_device).manual_seed(M + k)
+        off = int(msg_kind == "offset")
+        msg = torch.randn((n * M + off,), generator=gen,
+                          device=cuda_device).to(z.dtype)[off:].view(n, M)
+    out, form = _k1_form(lambda: gossip_mix.gossip_mix_weighted(
+        z, S_in, ws, we, msg=msg))
+    assert form == ("slab" if packets and k <= 8 else "regs")
+    expect = ref.gossip_gather_mix_ref(z, S_in, ws, we, msg=msg)
+    torch.cuda.synchronize()
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == "float32"
+           else dict(rtol=2e-2, atol=1e-5))
+    assert out.dtype == z.dtype and out.shape == z.shape
+    torch.testing.assert_close(out.float(), expect.float(), **tol)
+    if msg_kind == "offset":
+        aligned, aligned_form = _k1_form(
+            lambda: gossip_mix.gossip_mix_weighted(z, S_in, ws, we,
+                                                   msg=msg.clone()))
+        assert aligned_form == ("slab" if k <= 8 else "regs")
+        assert torch.equal(aligned, out)
+
+
+def test_k1_takes_the_register_kernel_past_the_slab_memory(cuda_device):
+    """n = 8192 at k = 8: S_in and the weights alone (544 KB) exceed a
+    block's shared memory, so the library launches the register kernel in
+    packets, and it agrees with the plain version."""
+    z, S_in, ws, we = _inputs(8192, 64, 8, 3, cuda_device, torch.float32)
+    out, form = _k1_form(lambda: gossip_mix.gossip_mix_weighted(
+        z, S_in, ws, we))
+    assert form == "regs"
+    expect = ref.gossip_gather_mix_ref(z, S_in, ws, we)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, expect, rtol=1e-5, atol=1e-6)
+
+
+def test_k1_gives_the_same_bits_twice(cuda_device):
+    """K1 at the main path's call (n=256, M=4096, k=4) twice on the same
+    inputs: fp32 FMAs in a fixed order and no atomics, so the same bits."""
+    z, S_in, ws, we = _inputs(256, 4096, 4, 0, cuda_device, torch.float32)
+    first, form = _k1_form(lambda: gossip_mix.gossip_mix_weighted(
+        z, S_in, ws, we))
+    assert form == "slab"  # the kernel the main path launches
+    second = gossip_mix.gossip_mix_weighted(z, S_in, ws, we)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
@@ -235,14 +315,14 @@ def test_attention_matches_plain_on_the_card(cuda_device, B, H, KH, Sq, Sk,
                                              D, causal, dtype):
     td = getattr(torch, dtype)
     q, k, v = _attention_inputs(B, H, KH, Sq, Sk, D, td, cuda_device)
-    want = "sm90" if dtype == "bfloat16" else "cuda_core"
+    want = "sm90" if dtype == "bfloat16" else "tf32x3"
     assert flash_attention.route(td, D) == want
     routes = (flash_attention.SM90_LAUNCHES,
-              flash_attention.CUDA_CORE_LAUNCHES)
+              flash_attention.TF32X3_LAUNCHES)
     out = _launched_once(flash_attention, "LAUNCHES",
                          lambda: ops.flash_attention(q, k, v, causal=causal))
     moved = (flash_attention.SM90_LAUNCHES - routes[0],
-             flash_attention.CUDA_CORE_LAUNCHES - routes[1])
+             flash_attention.TF32X3_LAUNCHES - routes[1])
     assert moved == ((1, 0) if want == "sm90" else (0, 1))
     expect = ref.flash_attention_ref(q, k, v, causal=causal)
     assert out.dtype == td and out.shape == q.shape
@@ -253,6 +333,27 @@ def test_attention_matches_plain_on_the_card(cuda_device, B, H, KH, Sq, Sk,
     torch.testing.assert_close(out.float(), expect.float(), **tol)
 
 
+@pytest.mark.parametrize("D", [1, 12, 100, 36])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_head_dims_off_the_sm90_grid_take_tf32x3(cuda_device, D,
+                                                          dtype):
+    """D not a multiple of 8: bf16 as well as fp32 takes the tf32x3 route
+    (bf16 converted while staged; rows of D = 1 and 12 fp32 values staged
+    4 bytes a copy), launched once there."""
+    td = getattr(torch, dtype)
+    q, k, v = _attention_inputs(1, 4, 2, 200, 300, D, td, cuda_device)
+    assert flash_attention.route(td, D) == "tf32x3"
+    count = flash_attention.TF32X3_LAUNCHES
+    out = _launched_once(flash_attention, "LAUNCHES",
+                         lambda: flash_attention.flash_attention(q, k, v))
+    assert flash_attention.TF32X3_LAUNCHES == count + 1
+    expect = ref.flash_attention_ref(q, k, v)
+    tol = (dict(atol=2e-5, rtol=2e-4) if dtype == "float32"
+           else dict(atol=1e-5, rtol=1.6e-2))
+    assert out.dtype == td and out.shape == q.shape
+    torch.testing.assert_close(out.float(), expect.float(), **tol)
+
+
 @pytest.mark.parametrize("B,H,KH,Sq,Sk,D,causal", RAGGED_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_attention_wrapper_takes_ragged_tiles_on_the_card(
@@ -260,11 +361,11 @@ def test_attention_wrapper_takes_ragged_tiles_on_the_card(
     td = getattr(torch, dtype)
     q, k, v = _attention_inputs(B, H, KH, Sq, Sk, D, td, cuda_device)
     count = (flash_attention.SM90_LAUNCHES if dtype == "bfloat16"
-             else flash_attention.CUDA_CORE_LAUNCHES)
+             else flash_attention.TF32X3_LAUNCHES)
     out = flash_attention.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert (flash_attention.SM90_LAUNCHES if dtype == "bfloat16"
-            else flash_attention.CUDA_CORE_LAUNCHES) == count + 1
+            else flash_attention.TF32X3_LAUNCHES) == count + 1
     expect = ref.flash_attention_ref(q, k, v, causal=causal)
     tol = (dict(atol=2e-5, rtol=2e-4) if dtype == "float32"
            else dict(atol=1e-5, rtol=1.6e-2))
