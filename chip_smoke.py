@@ -21,43 +21,74 @@ non-zero and the last line is not printed. The phases:
             (fp32: rtol 1e-5, atol 1e-6; bf16: rtol 2e-2, atol 1e-5), each
             case on the kernel the library must pick (the slab kernel for
             16-byte packets and k <= 8, else the register kernel), as it
-            reports it (gossip_mix.FORM_LAUNCHES); then at the main path's
+            reports it (gossip_mix.FORM_LAUNCHES); then at the sweep's
+            call (n=256, M=5 x 4096, k=4, fp32, the five lanes' carry as
+            one state), on the slab kernel, each lane's columns equal to
+            a one-lane call's bit for bit; then at the main path's
             call (n=256, M=4096, k=4, fp32, z seeded from numpy), which
             must launch the slab kernel, the sha256 of its output's bits
             (k1_digest) and its time beside the plain version,
             torch.matmul with the n x n mixing matrix (a yardstick the port
-            never calls) and the bound
+            never calls) and the bound; k1_digest must equal K1_DIGEST
   kernel K2 K2 (compress-mix) the same way over the same grid with mask
             densities 0, 1/8 and 1 (an all-ones mask must give K1's result
-            bit for bit), then its time at the main path's shape with a
+            bit for bit), then at the sweep's call (n=256, M=5 x 4096,
+            k=4, fp32, a top-k mask at keep 1/4 drawn per node and lane),
+            each lane's columns equal to a one-lane call's bit for bit;
+            then its time at the main path's shape with a
             top-k mask at keep 1/4, beside the plain version and the
             reference's dense compressed branch P_diag z + P_off (msg*mask)
-  manifests benchmarks/manifests/expander_{periodic,sparse}.json and the
-            dense backend of compressed_expander.json through
-            repro_torch.run on the card and on the CPU; the two results
-            must agree under convert.assert_results_match, and the run's
-            kernel must launch once per communication round
+  manifests the dense backend of the seven manifests that declare one
+            (benchmarks/manifests/: expander_periodic, expander_sparse,
+            compressed_expander mix through K1 or K2; complete_every,
+            fig1_complete, fig1_reduced, fig2_sparse through cuBLAS's
+            P @ z) through repro_torch.run on the card and on the CPU; the
+            two results must agree under convert.assert_results_match, the
+            run's kernel must launch once per communication round (no hand
+            kernel for the complete graphs), and the run must take the
+            loop its problem declares ("graph", captured; "eager" for
+            metric learning, whose eigh reads the card back). For the
+            nonsmooth and metric-learning manifests, the card and CPU runs
+            side by side count the discrete choices that differ (argmax
+            picks, clamped eigenvalue signs: card_cpu_flips)
   main_path the full-size dense cell of benchmarks/bench_dense.py (n=256,
             d=4096, expander k=4, periodic h=2, T=300) through
             repro_torch.run with every launch count set to 0 just before:
-            it must take the sparse mix, launch K1's slab kernel exactly
-            once per communication round (149), and agree with its
-            mix="dense" twin; prints the sha256 of its fvals and
-            disagreement as float32 (main_path_digest) and the wall per
-            iteration of the run and of its twin, and their ratio
-            (twin_ratio: the host's noise falls on both alike)
+            it must run captured as CUDA graphs (loop "graph"), take the
+            sparse mix, launch K1's slab kernel exactly once per
+            communication round (149, counted from the graphs' replays
+            through repro_torch.kernels.counters), and agree with its
+            mix="dense" twin; torch.profiler watches that run, and the K1
+            kernels it names must be those 149 slab kernels and the
+            capture's warm-up's 2; the sha256 of its fvals and
+            disagreement as float32 must equal MAIN_PATH_DIGEST, and so
+            must an unprofiled captured run's and the eager
+            loop="segment" run's; prints the wall per iteration of the
+            unprofiled captured run, of the eager run (eager_ratio) and of
+            its twin (twin_ratio: the host's noise falls on both alike)
   main_path_compressed
             the same cell under top-k and rand-k (keep 1/4, the compression
             axis of benchmarks/bench_compress.py) and deterministic int8,
-            each with every launch count set to 0 just before: the sparse
-            mix must launch K2 (top-k, rand-k) or K1's slab kernel (int8)
-            exactly 149 times and the other kernel never, the residual
+            each with every launch count set to 0 just before, captured: the
+            sparse mix must launch K2 (top-k, rand-k) or K1's slab kernel
+            (int8) exactly 149 times and the other kernel never, the residual
             norms must be
             finite and nonzero, and the run must agree with its
             mix="dense" twin within the tolerance stated for its
             compressor (TWIN_TOL), the flipped message entries between the
             two runs counted in lockstep; one rand-k mask at this shape
             must be bitwise equal on the card and on the CPU
+  sweep     the full-size cell swept over h in (1, 2, 4, 8, 16), the axis
+            of the paper's Fig. 2, uncompressed (K1) and under top-k at
+            keep 1/4 (K2): repro_torch.run_sweep(parallel="vmap") as one
+            captured program of five lanes, with every launch count set to
+            0 just before (one launch for each iteration at which any lane
+            communicates: 299), then the five runs serially; each lane must
+            equal its serial run, host fields exactly and device floats
+            within SWEEP_RTOL (the bitwise equal entries are counted);
+            prints the batched wall beside the serial walls' sum; then two
+            cells with parallel="process" on the card, equal to serial bit
+            for bit
   kernel_k3 K3 (the flat per-node mix, `kernels.ops.gossip_mix`) against
             its plain version over M in {1, 3, 130, 4099, 8192, 65537,
             2^20} (and a misaligned view), k in {1, 4, 8}, fp32 and bf16
@@ -172,6 +203,18 @@ SCAN_CAP = {"ssd_scan": 1e-4, "selective_scan": 2e-5}
 TWIN_TOL = {"topk": {"fvals": 5e-5, "state": 5e-2},
             "randk": {"fvals": 1e-5, "state": 1e-5},
             "int8": {"fvals": 1e-5, "state": 1e-2}}
+#: the bits of K1's output at the main path's call and of the full-size
+#: cell's fvals and disagreement (`_digest`), as the eager loop gave them:
+#: the captured run launches the same kernels in the same order, so it
+#: must give them too
+K1_DIGEST = "268a95744011ca0ff7df2cce4d3ffd801ae69a0ad4069e5aa15e0faf75cb974a"
+MAIN_PATH_DIGEST = ("5f506e54118168c58972cac6e3be08280cfc1bf33a76ab994d99009f"
+                    "03e75c49")
+#: the relative error a sweep lane's device floats may show against its
+#: serial run, as tests/test_sweeps.py holds the reference's lanes: the
+#: lanes' states are the solo runs' bit for bit (the mix sees them as
+#: columns), their statistics reduce per lane in another order
+SWEEP_RTOL = 1e-6
 
 
 def emit(phase: str, **fields) -> None:
@@ -323,7 +366,7 @@ def _dense_cell_spec(compression=None):
         backends=[{"kind": "dense", "params": {}}])
 
 
-#: every kernel's launch count: (module, attribute), by kernel name
+#: each kernel's launch count in repro_torch.kernels.counters, by kernel
 _COUNTS = {"gossip_mix": ("gossip_mix", "LAUNCHES"),
            "compress_mix": ("compress_mix", "LAUNCHES"),
            "gossip_mix_flat": ("gossip_mix", "FLAT_LAUNCHES"),
@@ -334,34 +377,29 @@ _COUNTS = {"gossip_mix": ("gossip_mix", "LAUNCHES"),
 
 #: K4's launches by route (flash_attention.route), beside its total above
 _ROUTE_COUNTS = {"sm90": "SM90_LAUNCHES", "tf32x3": "TF32X3_LAUNCHES"}
-#: the kernels K5's and K6's calls launched, as their libraries count them
-_KERNEL_COUNTS = ("ssd_scan", "selective_scan")
-
-
-def _count_module(name: str):
-    import importlib
-
-    return importlib.import_module(f"repro_torch.kernels.{name}")
 
 
 def _launch_counts() -> dict:
-    return {kernel: getattr(_count_module(mod), attr)
-            for kernel, (mod, attr) in _COUNTS.items()}
+    from repro_torch.kernels import counters
+
+    snap = counters.snapshot()
+    return {kernel: snap[key] for kernel, key in _COUNTS.items()}
 
 
 def _route_counts() -> dict:
-    fa = _count_module("flash_attention")
-    return {route: getattr(fa, attr) for route, attr in _ROUTE_COUNTS.items()}
+    from repro_torch.kernels import counters
+
+    snap = counters.snapshot()
+    return {route: snap[("flash_attention", attr)]
+            for route, attr in _ROUTE_COUNTS.items()}
 
 
 def _zero_launch_counts() -> None:
-    for mod, attr in _COUNTS.values():
-        setattr(_count_module(mod), attr, 0)
-    _count_module("gossip_mix").FORM_LAUNCHES.update(regs=0, slab=0)
-    for attr in _ROUTE_COUNTS.values():
-        setattr(_count_module("flash_attention"), attr, 0)
-    for mod in _KERNEL_COUNTS:
-        _count_module(mod).KERNELS = 0
+    """Every counter of repro_torch.kernels.counters to 0 (the ones the run
+    program adds on replay among them)."""
+    from repro_torch.kernels import counters
+
+    counters.zero()
 
 
 def _front_door_once(kernel: str, call):
@@ -438,6 +476,102 @@ def _form_launched(before: dict) -> str:
     return grown[0]
 
 
+def _sweep_call(kernel: str) -> dict:
+    """K1 ("gossip_mix") or K2 ("compress_mix") at the sweep phase's call:
+    the five lanes' (n, B, d) carry of the full-size cell (n=256, B=5,
+    d=4096, k=4, fp32, its expander) handed to the front door as the run
+    program hands it, one (n, B*d) state to the kernel. Each case must
+    launch its kernel once (K1 its slab kernel), agree with the plain
+    version on the same inputs within FP32_TOL, and give each lane's
+    columns the bits of a one-lane call on them (every column mixes on its
+    own). K1 mixes z and a message stack of its own; K2's mask is top-k at
+    keep 1/4, drawn per node and lane. Both weight forms: the scalars the
+    run program passes and per-node vectors."""
+    import numpy as np
+    import torch
+
+    from repro_torch.compress import topk_mask_torch
+    from repro_torch.core.graphs import kregular_expander
+    from repro_torch.kernels import gossip_mix, ops, ref
+
+    n, B, d, k = 256, len(SWEEP_VALUES), 4096, 4
+    g = kregular_expander(n, k=k, seed=0)
+    S_in = torch.as_tensor([list(p) for p in g.perms], device="cuda").T \
+        .contiguous()
+    ws, we = float(np.float32(g.self_weight)), float(np.float32(
+        g.edge_weight))
+    rng = np.random.default_rng(2)
+
+    def draw():
+        return torch.from_numpy(rng.standard_normal(
+            (n, B, d), dtype=np.float32)).cuda()
+
+    def door(w_self, w_edge, z, msg, mask):
+        if kernel == "gossip_mix":
+            return ops.gossip_gather_mix_impl(z, S_in, w_self, w_edge,
+                                              msg=msg)
+        return ops.compress_mix_impl(z, msg, mask, S_in, w_self, w_edge)
+
+    def plain(w_self, w_edge, z, msg, mask):
+        if kernel == "gossip_mix":
+            return ref.gossip_gather_mix_ref(z, S_in, w_self, w_edge,
+                                             msg=msg)
+        return ref.compress_mix_ref(z, msg, mask, S_in, w_self, w_edge)
+
+    worst, cases, lanes_equal = 0.0, 0, 0
+    for weights in ((ws, we), (torch.full((n,), ws, device="cuda"),
+                               torch.full((n, k), we, device="cuda"))):
+        for with_msg in ((False, True) if kernel == "gossip_mix"
+                         else (True,)):
+            z = draw()
+            msg = z + 0.1 * draw() if with_msg else None
+            mask = None
+            if kernel == "compress_mix":
+                mask = topk_mask_torch(msg, d // 4)
+                kept = mask.sum(dim=-1)
+                if mask.shape != z.shape or not bool(
+                        (kept == d // 4).all()):
+                    raise AssertionError("the sweep call's top-k mask does "
+                                         "not keep d/4 a node and lane")
+            where = (f"{kernel} at the sweep's call (n={n}, M={B}x{d}, "
+                     f"k={k}, vector weights="
+                     f"{isinstance(weights[0], torch.Tensor)}, "
+                     f"msg={with_msg})")
+            forms = dict(gossip_mix.FORM_LAUNCHES)
+            before = _launch_counts()
+            out = door(*weights, z, msg, mask)
+            grown = {kern: c - before[kern]
+                     for kern, c in _launch_counts().items()
+                     if c != before[kern]}
+            if grown != {kernel: 1}:
+                raise AssertionError(f"{where} launched {grown}")
+            if kernel == "gossip_mix" and _form_launched(forms) != "slab":
+                raise AssertionError(f"{where} did not take the slab "
+                                     f"kernel")
+            expect = plain(*weights, z, msg, mask)
+            torch.cuda.synchronize()
+            if out.dtype != torch.float32 or out.shape != z.shape:
+                raise AssertionError(f"{where} returned {out.dtype} "
+                                     f"{tuple(out.shape)}")
+            torch.testing.assert_close(out, expect, **FP32_TOL,
+                                       msg=lambda m: f"{where}: {m}")
+            worst = max(worst, _max_err(out, expect))
+            cases += 1
+            for lane in range(B):
+                def one(a):
+                    return None if a is None else a[:, lane].contiguous()
+
+                solo = door(*weights, one(z), one(msg), one(mask))
+                if not torch.equal(out[:, lane], solo):
+                    raise AssertionError(f"{where}: lane {lane} differs "
+                                         f"from a one-lane call")
+                lanes_equal += 1
+    return {"name": kernel, "shape": {"n": n, "M": B * d, "lanes": B,
+                                      "k": k, "dtype": "float32"},
+            "cases": cases, "lanes_bitwise_equal": lanes_equal,
+            "max_abs_err": worst, "fp32_tol": FP32_TOL}
+
+
 def phase_kernel() -> dict:
     """K1 against its plain version on the card, then its times."""
     import numpy as np
@@ -505,6 +639,7 @@ def phase_kernel() -> dict:
     emit("kernel_check", name="gossip_mix", cases=checked,
          forms_launched=forms, max_abs_err=worst, fp32_tol=FP32_TOL,
          bf16_tol=BF16_TOL)
+    emit("kernel_check_sweep_call", **_sweep_call("gossip_mix"))
 
     # the main path's call: n=256, M=4096, k=4, fp32, uniform weights
     n, M, k = 256, 4096, 4
@@ -534,6 +669,9 @@ def phase_kernel() -> dict:
     # the output's bits: a redesign of K1 keeps its arithmetic order, so
     # this digest does not change
     k1_digest = _digest(out)
+    if k1_digest != K1_DIGEST:
+        raise AssertionError(f"K1's output bits changed: k1_digest "
+                             f"{k1_digest}, not {K1_DIGEST}")
     torch.testing.assert_close(out, expect, **FP32_TOL)
     torch.testing.assert_close(out, P @ z, **FP32_TOL)
     kernel_t = time_ms(
@@ -619,6 +757,7 @@ def phase_kernel_k2() -> dict:
     emit("kernel_check", name="compress_mix", cases=checked,
          all_ones_equal_k1=ones_checked, max_abs_err=worst,
          fp32_tol=FP32_TOL, bf16_tol=BF16_TOL)
+    emit("kernel_check_sweep_call", **_sweep_call("compress_mix"))
 
     # the main path's call: n=256, M=4096, k=4, fp32, uniform weights, a
     # top-k support at keep 1/4 of the corrected messages
@@ -678,46 +817,143 @@ def phase_kernel_k2() -> dict:
     return numbers
 
 
+#: the seven manifests with a dense backend: the first three mix through
+#: the hand kernels (expanders), the other four through cuBLAS's P @ z
+#: (complete graphs), which launches no hand kernel
+SPARSE_MANIFESTS = ("expander_periodic", "expander_sparse",
+                    "compressed_expander")
+DENSE_MIX_MANIFESTS = ("complete_every", "fig1_complete", "fig1_reduced",
+                       "fig2_sparse")
+
+
 def phase_manifests() -> None:
     import repro_torch
     from repro_torch.convert import assert_results_match
+    from repro_torch.experiments import components as C
 
-    for name in ("expander_periodic", "expander_sparse",
-                 "compressed_expander"):
+    for name in SPARSE_MANIFESTS + DENSE_MIX_MANIFESTS:
         spec = repro_torch.ExperimentSpec.from_file(
             ROOT / "benchmarks" / "manifests" / f"{name}.json")
-        kernel = "gossip_mix" if spec.compression is None else "compress_mix"
+        kernel = ("none" if name in DENSE_MIX_MANIFESTS
+                  else "gossip_mix" if spec.compression is None
+                  else "compress_mix")
+        # a problem whose closures read the card back cannot be captured
+        loop = ("graph" if C.build_component(
+            C.problems, spec.problem.kind, spec.problem.params,
+            device="cpu").capturable else "eager")
         before = _launch_counts()
         on_card = repro_torch.run(spec, "dense", device="cuda")
         after = _launch_counts()
         launches = {k: after[k] - before[k] for k in after}
         on_cpu = repro_torch.run(spec, "dense", device="cpu")
         card, cpu = on_card.to_dict(), on_cpu.to_dict()
-        assert_results_match(card, cpu)
-        rounds = card["trace"]["comms"][-1]
-        if launches[kernel] != rounds or sum(launches.values()) != rounds:
-            raise AssertionError(f"{name}: launches {launches} for "
-                                 f"{rounds} rounds of {kernel}")
+        flips = (_manifest_flips(spec) if name in DENSE_MIX_MANIFESTS
+                 and spec.problem.kind != "quadratic_consensus" else None)
         emit("manifest", name=name, mix_mode=card["extras"]["mix_mode"],
-             kernel=kernel, launches=launches[kernel],
+             kernel=kernel, launches=launches.get(kernel, 0),
+             loop=on_card.metrics.notes["loop"],
              final_f_card=card["trace"]["fvals"][-1],
              final_f_cpu=cpu["trace"]["fvals"][-1],
-             time_to_target=card["time_to_target"])
+             time_to_target=card["time_to_target"],
+             max_rel_err={f: _max_rel_err(card["trace"][f], cpu["trace"][f])
+                          for f in ("fvals", "fvals_consensus",
+                                    "disagreement")},
+             card_cpu_flips=flips)
+        assert_results_match(card, cpu)
+        if on_card.metrics.notes["loop"] != loop:
+            raise AssertionError(f"{name}: ran {on_card.metrics.notes} on "
+                                 f"the card, its problem declares {loop}")
+        rounds = card["trace"]["comms"][-1]
+        expect = 0 if kernel == "none" else rounds
+        if launches.get(kernel, 0) != expect or sum(
+                launches.values()) != expect:
+            raise AssertionError(f"{name}: launches {launches} for "
+                                 f"{rounds} rounds of {kernel}")
+
+
+def _manifest_flips(spec) -> dict:
+    """A complete-graph manifest on the card and on the CPU side by side,
+    one iteration at a time, as `_flipped_entries` runs its twins: after
+    every iteration, the discrete choices of each side's state that
+    differ. For the nonsmooth problem the subgradient's picks (which of
+    each center pair `argmax` takes at x), for metric learning the signs
+    of the eigenvalues the PSD projection clamps (of -a(t) z's symmetric
+    part). Returns the first iteration that differs, the entries there,
+    and the totals over the run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.dda import DDASimulator
+    from repro_torch.experiments import components as C
+
+    sims, states, problems = [], [], []
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        problem = C.build_component(C.problems, spec.problem.kind,
+                                    spec.problem.params, device=dev)
+        graph = C.build_component(C.topologies, spec.topology.kind,
+                                  spec.topology.params, n=problem.n)
+        sims.append(DDASimulator(
+            problem.subgrad_stack, problem.objective, graph,
+            C.build_component(C.schedules, spec.schedule.kind,
+                              spec.schedule.params),
+            a_fn=C.build_component(C.stepsizes, spec.stepsize.kind,
+                                   spec.stepsize.params),
+            r=spec.r, projection=problem.projection, device=dev))
+        zeros = torch.zeros((problem.n, problem.d), device=dev)
+        states.append((zeros, zeros, zeros, zeros,
+                       torch.zeros((), device=dev)))
+        problems.append(problem)
+
+    def codes(problem, sim, state):
+        z, x, _, _, t = state
+        if spec.problem.kind == "nonsmooth":
+            diff = x[:, None, None, :] - problem.arrays["centers_j"]
+            return torch.argmax(torch.sum(diff * diff, dim=-1), dim=-1)
+        f = int(round((problem.d - 1) ** 0.5))
+        A = (-sim.a_fn(t) * z)[:, :f * f].reshape(-1, f, f)
+        return torch.linalg.eigvalsh(0.5 * (A + A.transpose(-1, -2))) > 0
+
+    mask = np.asarray(sims[0].schedule.comm_mask(0, spec.T), dtype=bool)
+    first, total, iters_with = None, 0, 0
+    for i in range(spec.T):
+        states = [sim._segment(*s, mask[i:i + 1])
+                  for sim, s in zip(sims, states)]
+        a, b = (codes(p, sim, s).cpu()
+                for p, sim, s in zip(problems, sims, states))
+        flips = int((a != b).sum())
+        total += flips
+        iters_with += flips > 0
+        if flips and first is None:
+            first = {"iteration": i + 1, "entries": flips}
+    return {"first_flip": first, "flipped_entries": total,
+            "iterations_with_flips": iters_with}
+
+
+def _profiled_kernels(prof, name: str) -> int:
+    """How many kernels whose name holds `name` the profiler saw run."""
+    return sum(ev.count for ev in prof.key_averages() if name in ev.key)
 
 
 def phase_main_path() -> int:
-    """The full-size dense cell, with the launch counts read around it."""
+    """The full-size dense cell, with the launch counts read around it and
+    the profiler watching it; then again unprofiled, for its wall."""
     import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
     import repro_torch
     from repro_torch.convert import assert_results_match
+    from repro_torch.core.dda import _LaneProgram
     from repro_torch.core.schedules import Periodic
 
     from repro_torch.kernels import gossip_mix
 
     spec = _dense_cell_spec()
     _zero_launch_counts()
-    result = repro_torch.run(spec, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = repro_torch.run(spec, device="cuda")
+        torch.cuda.synchronize()
     counts = _launch_counts()
     forms = dict(gossip_mix.FORM_LAUNCHES)
     launches = counts["gossip_mix"]
@@ -727,6 +963,15 @@ def phase_main_path() -> int:
     if forms != {"regs": 0, "slab": launches}:
         raise AssertionError(f"the uncompressed cell's K1 launches took "
                              f"the kernels {forms}, not the slab kernel")
+    # the counts are derived from the graphs' replays: hold them to the
+    # kernels the card ran, which are those and the capture's warm-up (one
+    # comm body, so one K1 launch, a pass)
+    profiled = {form: _profiled_kernels(prof, f"gossip_mix_{form}")
+                for form in ("regs", "slab")}
+    if profiled != {"regs": 0, "slab": launches + _LaneProgram.WARMUP}:
+        raise AssertionError(f"the profiler saw the K1 kernels {profiled}, "
+                             f"not {launches} replayed and "
+                             f"{_LaneProgram.WARMUP} warming up")
     d = result.to_dict()
     trace = d["trace"]
     rounds = trace["comms"][-1]
@@ -740,23 +985,52 @@ def phase_main_path() -> int:
     if len(trace["fvals"]) != spec.T // spec.eval_every or not all(
             v is not None and math.isfinite(v) for v in trace["fvals"]):
         raise AssertionError(f"main path trace malformed: {trace['fvals']}")
+    if result.metrics.notes["loop"] != "graph":
+        raise AssertionError(f"the main path ran {result.metrics.notes}, "
+                             f"not captured")
+    digest = _digest(trace["fvals"], trace["disagreement"])
+    if digest != MAIN_PATH_DIGEST:
+        raise AssertionError(f"the main path's bits changed: "
+                             f"main_path_digest {digest}, not "
+                             f"{MAIN_PATH_DIGEST}")
+    # unprofiled, for the captured wall, and the same bits
+    timed = repro_torch.run(spec, device="cuda")
+    if timed.metrics.notes["loop"] != "graph" or _digest(
+            timed.trace.fvals, timed.trace.disagreement) != digest:
+        raise AssertionError("the unprofiled captured run differs from "
+                             "the profiled one")
+    # the eager host loop over the same kernels, for its wall beside the
+    # captured run's, and its bits
+    eager = repro_torch.run(
+        spec, repro_torch.ComponentSpec("dense", {"loop": "segment"}),
+        device="cuda")
+    if eager.metrics.notes["loop"] != "eager" or _digest(
+            eager.trace.fvals, eager.trace.disagreement) != digest:
+        raise AssertionError("the eager loop='segment' run differs from "
+                             "the captured one")
     twin = repro_torch.run(
         spec, repro_torch.ComponentSpec("dense", {"mix": "dense"}),
         device="cuda")
     twin_d = twin.to_dict()
-    if twin_d["extras"]["mix_mode"] != "dense":
-        raise AssertionError("the mix='dense' twin did not mix dense")
+    if twin_d["extras"]["mix_mode"] != "dense" or \
+            twin.metrics.notes["loop"] != "graph":
+        raise AssertionError(f"the mix='dense' twin mixed "
+                             f"{twin_d['extras']['mix_mode']}, ran "
+                             f"{twin.metrics.notes}")
     # the twin differs by construction only in its backend params and the
     # mix mode it reports; everything the run computed must agree
     twin_d["backend"], twin_d["extras"] = d["backend"], d["extras"]
     assert_results_match(d, twin_d)
-    m = result.metrics
+    m = timed.metrics
     emit("main_path", launches=launches, rounds=rounds,
-         k1_forms_launched=forms,
-         main_path_digest=_digest(trace["fvals"], trace["disagreement"]),
+         k1_forms_launched=forms, k1_kernels_profiled=profiled,
+         main_path_digest=digest,
+         loop=m.notes["loop"],
          mix_mode=d["extras"]["mix_mode"], compile_s=m.compile_s,
-         execute_s=m.execute_s, wall_s=result.wall_s,
+         execute_s=m.execute_s, wall_s=timed.wall_s,
          us_per_iter=m.execute_s / spec.T * 1e6,
+         eager_us_per_iter=eager.metrics.execute_s / spec.T * 1e6,
+         eager_ratio=m.execute_s / eager.metrics.execute_s,
          twin_execute_s=twin.metrics.execute_s,
          twin_us_per_iter=twin.metrics.execute_s / spec.T * 1e6,
          twin_ratio=m.execute_s / twin.metrics.execute_s,
@@ -861,6 +1135,9 @@ def phase_main_path_compressed() -> int:
         others = sum(v for k, v in counts.items() if k != kernel)
         if d["extras"]["mix_mode"] != "sparse":
             raise AssertionError(f"{kind}: mixed {d['extras']['mix_mode']}")
+        if result.metrics.notes["loop"] != "graph":
+            raise AssertionError(f"{kind}: ran {result.metrics.notes}, not "
+                                 f"captured")
         if counts[kernel] != 149 or rounds != 149 or others != 0:
             raise AssertionError(f"{kind}: launches {counts} for {rounds} "
                                  f"rounds (expected 149 of {kernel})")
@@ -881,8 +1158,11 @@ def phase_main_path_compressed() -> int:
             spec, repro_torch.ComponentSpec("dense", {"mix": "dense"}),
             device="cuda")
         twin_d = twin.to_dict()
-        if twin_d["extras"]["mix_mode"] != "dense":
-            raise AssertionError("the mix='dense' twin did not mix dense")
+        if twin_d["extras"]["mix_mode"] != "dense" or \
+                twin.metrics.notes["loop"] != "graph":
+            raise AssertionError(f"{kind}: the mix='dense' twin mixed "
+                                 f"{twin_d['extras']['mix_mode']}, ran "
+                                 f"{twin.metrics.notes}")
         errors = {f: _max_rel_err(d["trace"][f], twin_d["trace"][f])
                   for f in ("fvals", "fvals_consensus", "disagreement")}
         errors["residual_norms"] = _max_rel_err(
@@ -891,7 +1171,7 @@ def phase_main_path_compressed() -> int:
         m = result.metrics
         emit("main_path_compressed", compression=kind, params=params,
              kernel=kernel, launches=counts[kernel], rounds=rounds,
-             mix_mode=d["extras"]["mix_mode"],
+             mix_mode=d["extras"]["mix_mode"], loop=m.notes["loop"],
              wire_ratio=block["wire_ratio"], compile_s=m.compile_s,
              execute_s=m.execute_s,
              us_per_iter=m.execute_s / spec.T * 1e6,
@@ -929,6 +1209,109 @@ def phase_main_path_compressed() -> int:
     emit("randk_mask", shape=[256, 4096], t=299, bitwise_equal=True,
          kept_per_row=int(on_cpu.sum(dim=-1)[0]))
     return k2_launches
+
+
+#: the sweep phase's axis: the comm period h of Fig. 2
+SWEEP_AXIS, SWEEP_VALUES = "schedule.params.h", (1, 2, 4, 8, 16)
+def _lane_against_serial(lane: dict, serial: dict) -> tuple[int, int]:
+    """Hold a batched sweep lane's result to its serial run's under
+    convert.assert_results_match at rtol SWEEP_RTOL, atol 0 (host fields
+    exactly, the trace's device floats and the residual norms relatively),
+    the lane's `vmap_lanes` aside. Returns (bitwise equal trace floats,
+    trace floats)."""
+    from repro_torch.convert import assert_results_match
+
+    lane = dict(lane, extras={k: v for k, v in lane["extras"].items()
+                              if k != "vmap_lanes"})
+    assert_results_match(lane, serial, rtol=SWEEP_RTOL, atol=0.0)
+    pairs = [(lane["trace"][f], serial["trace"][f])
+             for f in ("fvals", "fvals_consensus", "disagreement")]
+    return (sum(a == b for ours, theirs in pairs
+                for a, b in zip(ours, theirs)),
+            sum(len(theirs) for _, theirs in pairs))
+
+
+def phase_sweep() -> dict:
+    """The full-size cell swept over h in SWEEP_VALUES (Fig. 2's axis),
+    uncompressed (K1) and under top-k at keep 1/4 (K2): one batched
+    program of five lanes (`run_sweep(parallel="vmap")`) with the launch
+    counts set to 0 just before and read just after, then the five runs
+    serially; each lane held to its serial run. Then two cells across two
+    processes on the card, held to serial bit for bit. Returns the
+    batched runs' launches by kernel."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.core.schedules import Periodic
+    from repro_torch.kernels import gossip_mix
+
+    launched = {}
+    serial_results = None
+    for compression, kernel in (
+            (None, "gossip_mix"),
+            ({"kind": "topk", "params": {"keep": 0.25}}, "compress_mix")):
+        spec = _dense_cell_spec(compression)
+        masks = np.stack([Periodic(h=h).comm_mask(0, spec.T)
+                          for h in SWEEP_VALUES])
+        # the batch runs its comm body wherever any lane communicates
+        expect = int(masks.any(axis=0).sum())
+        _zero_launch_counts()
+        batched = repro_torch.run_sweep(spec, SWEEP_AXIS, SWEEP_VALUES,
+                                        parallel="vmap", device="cuda")
+        counts = _launch_counts()
+        forms = dict(gossip_mix.FORM_LAUNCHES)
+        if counts[kernel] != expect or sum(counts.values()) != expect:
+            raise AssertionError(f"the {kernel} sweep launched {counts}, "
+                                 f"expected {expect} of {kernel}")
+        if kernel == "gossip_mix" and forms != {"regs": 0, "slab": expect}:
+            raise AssertionError(f"the sweep's K1 launches took the "
+                                 f"kernels {forms}, not the slab kernel")
+        for r in batched:
+            if r.extras.get("vmap_lanes") != len(SWEEP_VALUES) or \
+                    r.metrics.notes != {"loop": "graph"}:
+                raise AssertionError(f"a sweep lane ran {r.extras} "
+                                     f"{r.metrics.notes}, not as one "
+                                     f"captured batch")
+        serial = repro_torch.run_sweep(spec, SWEEP_AXIS, SWEEP_VALUES,
+                                       device="cuda")
+        if any(r.metrics.notes != {"loop": "graph"} for r in serial):
+            raise AssertionError("a serial sweep run was not captured")
+        equal = entries = 0
+        for lane, solo in zip(batched, serial):
+            e, n = _lane_against_serial(lane.to_dict(), solo.to_dict())
+            equal += e
+            entries += n
+        batched_wall = sum(r.wall_s for r in batched)
+        serial_wall = sum(r.wall_s for r in serial)
+        emit("sweep", axis=SWEEP_AXIS, values=list(SWEEP_VALUES),
+             compression=compression, kernel=kernel,
+             launches=counts[kernel], comm_iterations=expect,
+             serial_rounds=[r.trace.comms[-1] for r in serial],
+             rtol=SWEEP_RTOL, bitwise_equal_entries=equal,
+             float_entries=entries, batched_wall_s=batched_wall,
+             batched_compile_s=sum(r.metrics.compile_s for r in batched),
+             serial_wall_s=serial_wall,
+             serial_compile_s=sum(r.metrics.compile_s for r in serial),
+             serial_over_batched=serial_wall / batched_wall,
+             final_f=[r.trace.fvals[-1] for r in batched])
+        launched[kernel] = counts[kernel]
+        if compression is None:
+            serial_results = serial
+
+    # two cells across two spawned processes on the card, bit for bit
+    procs = repro_torch.run_sweep(_dense_cell_spec(), SWEEP_AXIS,
+                                  SWEEP_VALUES[:2], parallel="process",
+                                  processes=2, device="cuda")
+    for proc, solo in zip(procs, serial_results):
+        a, b = proc.to_dict(), solo.to_dict()
+        if a["trace"] != b["trace"] or a["spec"] != b["spec"] or \
+                a["extras"] != b["extras"] or proc.metrics.notes != {
+                    "loop": "graph"}:
+            raise AssertionError("a process sweep cell differs from its "
+                                 "serial run")
+    emit("sweep_process", cells=len(procs), bitwise_equal=True,
+         loops=[r.metrics.notes["loop"] for r in procs])
+    return launched
 
 
 def _hold(label: str, out, expect, tol: dict) -> float:
@@ -1381,6 +1764,9 @@ def main() -> int:
     phase_manifests()
     k1["launches"] = phase_main_path()
     k2["launches"] = phase_main_path_compressed()
+    sweep = phase_sweep()
+    k1["sweep_launches"] = sweep["gossip_mix"]
+    k2["sweep_launches"] = sweep["compress_mix"]
     k3 = phase_kernel_k3()
     k4 = phase_kernel_k4(build_s)
     k5 = phase_kernel_k5()

@@ -16,6 +16,7 @@ _EXPERIMENT_API = (
     "RunResult",
     "run",
     "run_all",
+    "run_sweep",
 )
 
 __all__ = list(_EXPERIMENT_API) + ["resolve_device"]

@@ -75,7 +75,9 @@ def _top_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def _mask_of(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return torch.zeros_like(x).scatter_(-1, idx, 1.0)
+    # out of place: `torch.func.vmap` has a batching rule for `scatter`
+    # (the simulator maps the compressors over sweep lanes), not `scatter_`
+    return torch.zeros_like(x).scatter(-1, idx, 1.0)
 
 
 def topk_indices_flat(x: torch.Tensor, k: int) -> torch.Tensor:

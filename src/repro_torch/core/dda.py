@@ -21,17 +21,35 @@ k-regular graph the consensus round is a hand-written kernel, O(nkd): the
 gossip mix (`kernels.ops.gossip_gather_mix_impl`, K1), uncompressed or with
 a quantized message stack, or the compress-mix (`kernels.ops.
 compress_mix_impl`, K2) under a sparsifier. Otherwise it is the dense
-P @ z matmul. The comm pattern is host data (`CommSchedule.comm_mask`), so
-the reference's `lax.cond` is a Python `if` that never waits for the device,
-and the trace statistics stay on the device until one copy at the end of
-the run. The vmapped `run_batch` is not ported yet.
+P @ z matmul.
+
+The run program (the counterpart of the reference's scanned program and of
+its vmap over sweep lanes, `run_batch`) holds B lanes as a carry of
+(n, B, d) buffers updated in place, and a shared iteration counter t. The
+mix sees the carry as one (n, B*d) state, in which every column mixes on
+its own, so a lane's mixed values are its solo run's bit for bit. The
+problem's closures, the compressors and the trace statistics run per lane
+(`torch.func.vmap` over dim 1). The comm pattern is host data
+(`CommSchedule.comm_mask`): each iteration is the body with communication
+or the one without, picked on the host, and in a batch a lane that does
+not communicate keeps its z and residual (`torch.where` on its flag, read
+on the device), which is what the reference's vmapped `lax.cond` computes.
+
+On a CUDA card the three bodies (an iteration with and without
+communication, and the trace statistics) are captured as CUDA graphs once
+per shape and replayed: the counterpart of the reference's compile per
+shape. A problem whose closures read the device back to the host cannot be
+captured and says so (`DDASimulator(capture=False)`); its runs, and every
+run on the CPU, call the same bodies eagerly. `last_loop` records which.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import math
 import time
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -157,6 +175,9 @@ class DDASimulator:
         r -> r*c. A "none" compressor is the uncompressed run.
       compress_keep: legacy alias, `compress_keep=f` is exactly
         `compression=TopK(keep=f)`. Mutually exclusive with `compression`.
+      capture: whether runs on a CUDA card may be captured as CUDA graphs.
+        False for closures that read the device back to the host (which a
+        capture forbids); those runs call the same bodies eagerly.
     """
 
     def __init__(self, subgrad_fn, eval_fn, graph: CommGraph,
@@ -165,7 +186,7 @@ class DDASimulator:
                  compress_keep: float | None = None,
                  mix: str = "auto",
                  mix_weights: np.ndarray | None = None,
-                 compression=None, *, device=None):
+                 compression=None, *, device=None, capture: bool = True):
         if compress_keep is not None and compression is not None:
             raise ValueError("pass either compression or the legacy "
                              "compress_keep alias, not both")
@@ -214,6 +235,12 @@ class DDASimulator:
         #: loop="segment"
         self.last_timings: dict[str, float] = {
             "compile_s": 0.0, "execute_s": 0.0, "eval_s": 0.0}
+        self.capture = bool(capture)
+        #: how the last run ran: "graph" (replayed CUDA graphs) or "eager"
+        self.last_loop: str | None = None
+        #: run programs by (x0 shape, dtype, lanes), each with its buffers
+        #: and, once captured, its graphs: captured once per shape
+        self._programs: dict[tuple, _LaneProgram] = {}
 
     def wire_ratio(self, d: int) -> float:
         """Bytes-on-wire fraction c for a d-float message under the
@@ -276,13 +303,18 @@ class DDASimulator:
 
     # -- the iteration -------------------------------------------------------
 
-    def _mix(self, z: torch.Tensor, res: torch.Tensor, t: torch.Tensor
+    def _mix(self, z: torch.Tensor, res: torch.Tensor, t: torch.Tensor,
+             lanes: Callable | None = None
              ) -> tuple[torch.Tensor, torch.Tensor]:
         """One consensus round: (mixed z, new residual). Under compression
         the messages are the corrected `z + res`, compressed, and the
         residual keeps what was not sent; `t` is the round's iteration
-        counter, which the randomized compressors fold into their key."""
+        counter, which the randomized compressors fold into their key.
+        `lanes(fn, corrected)` applies a compressor per lane of a (n, B, d)
+        carry (`_LaneProgram.lanes`); None for a one-run (n, d) state."""
         comp = self.compression
+        if lanes is None:
+            lanes = _solo
         if self.mix_mode == "sparse":
             from repro_torch.kernels import ops as _kops
             if comp is None:
@@ -292,22 +324,24 @@ class DDASimulator:
             if comp.is_sparsifier:
                 # the 0/1 support rides K2; the masked stack is formed
                 # only for the residual
-                mask = comp.support_mask_torch(corrected, t)
+                mask = lanes(lambda c: comp.support_mask_torch(c, t),
+                             corrected)
                 mixed = _kops.compress_mix_impl(
                     z, corrected, mask, self._S_in, self._w_self,
                     self._w_edge)
                 sent = corrected * mask
             else:
-                sent = comp.compress_torch(corrected, t)
+                sent = lanes(lambda c: comp.compress_torch(c, t),
+                             corrected)
                 mixed = _kops.gossip_gather_mix_impl(
                     z, self._S_in, self._w_self, self._w_edge, msg=sent)
         else:
             if comp is None:
                 return _cons.mix_dense(z, self._P), res
             corrected = z + res
-            sent = comp.compress_torch(corrected, t)
-            mixed = (self._P_diag[:, None] * z
-                     + _cons.mix_dense(sent, self._P_off))
+            sent = lanes(lambda c: comp.compress_torch(c, t), corrected)
+            diag = self._P_diag.reshape((-1,) + (1,) * (z.dim() - 1))
+            mixed = diag * z + _cons.mix_dense(sent, self._P_off)
         new_res = corrected - sent if comp.error_feedback else res
         return mixed, new_res
 
@@ -333,12 +367,12 @@ class DDASimulator:
             x, t = x_new, t_new
         return z, x, xhat, res, t
 
-    def _trace_stats(self, state: State) -> torch.Tensor:
-        """(Fbar, F(xhat_bar), disagreement, mean residual norm) of a
-        carry, on the device. The last is the mean over nodes of
-        sqrt(sum(res_i ** 2)), the reference's order: the compression
-        block's trajectory (zeros uncompressed)."""
-        z, _, xhat, res, _ = state
+    def _stats(self, z: torch.Tensor, xhat: torch.Tensor,
+               res: torch.Tensor) -> torch.Tensor:
+        """(Fbar, F(xhat_bar), disagreement, mean residual norm) of one
+        run's (n, ...) z, xhat and res, on the device. The last is the mean
+        over nodes of sqrt(sum(res_i ** 2)), the reference's order: the
+        compression block's trajectory (zeros uncompressed)."""
         fv = torch.mean(torch.func.vmap(self.eval_fn)(xhat))
         fvc = self.eval_fn(torch.mean(xhat, dim=0))
         rn = torch.mean(torch.sqrt(torch.sum(
@@ -355,33 +389,98 @@ class DDASimulator:
             seed: int = 0, loop: str = "scan") -> SimTrace:
         """Run T iterations, evaluating every `eval_every`.
 
-        loop="scan" (default) keeps each segment's trace statistics on the
-        device and copies them back once, after the last iteration.
-        loop="segment" copies them back after every segment and charges
-        that readback to `last_timings["eval_s"]`. Both give the same
-        trace, but only loop="scan" keeps `last_res_norms`, as in the
-        reference, whose segment loop does not compute them. `seed` is
-        accepted for the reference's signature; no registered problem
-        draws random numbers.
+        loop="scan" (default) is the run program at one lane (see the
+        module docstring): captured on a CUDA card unless the simulator
+        was built with capture=False, its trace statistics kept on the
+        device and copied back once, after the last iteration.
+        loop="segment" is the eager host loop over `_segment`, which copies
+        the statistics back after every segment and charges that readback
+        to `last_timings["eval_s"]`. Both give the same trace, but only
+        loop="scan" keeps `last_res_norms`, as in the reference, whose
+        segment loop does not compute them. `seed` is accepted for the
+        reference's signature; no registered problem draws random numbers.
         """
+        self._check_x0(x0_stack)
+        if loop not in ("scan", "segment"):
+            raise ValueError(f"loop must be 'scan' or 'segment', got {loop!r}")
+        self._reset_timings()
+        if T == 0:  # an empty trace, as the reference returns
+            return SimTrace([], [], [], [], [])
+        mask_full = np.asarray(self.schedule.comm_mask(0, T), dtype=bool)
+        # compressed messages are cheaper on the wire: the time axis charges
+        # the effective tradeoff r*c
+        r_eff = self.r * self.wire_ratio(int(np.prod(x0_stack.shape[1:])))
+        if loop == "segment":
+            fv, fvc, dis = self._run_segment_loop(x0_stack, T, eval_every,
+                                                  mask_full)
+            return self._assemble_trace(mask_full, T, eval_every, r_eff,
+                                        fv, fvc, dis)
+        fv, fvc, dis, rn = self._run_lanes(x0_stack, T, eval_every,
+                                           mask_full[None])
+        self.last_res_norms = rn[0]
+        return self._assemble_trace(mask_full, T, eval_every, r_eff,
+                                    fv[0], fvc[0], dis[0])
+
+    def run_batch(self, x0_stack: torch.Tensor, T: int, eval_every: int,
+                  masks: np.ndarray, seeds, rs=None) -> list[SimTrace]:
+        """Run B independent lanes of this simulator as ONE program.
+
+        Lanes share the problem closures, graph, stepsize and iteration
+        count but may differ in comm pattern (`masks`, shape (B, T): sweep
+        axes like `schedule.params.h` are data here), seed and time charge
+        (`rs`, host-side only). The executor behind
+        `repro_torch.experiments.run_sweep(parallel="vmap")`: one capture
+        and one replayed program for a whole sweep grid. `seeds` is
+        accepted for the reference's signature; no registered problem draws
+        random numbers. `last_res_norms` becomes (B, S).
+        """
+        self._check_x0(x0_stack)
+        masks = np.asarray(masks, dtype=bool)
+        B = masks.shape[0]
+        if masks.shape != (B, T):
+            raise ValueError(f"masks must be (B, T={T}), got {masks.shape}")
+        if len(seeds) != B:
+            raise ValueError(f"{len(seeds)} seeds for {B} lanes")
+        c = self.wire_ratio(int(np.prod(x0_stack.shape[1:])))
+        rs = ([self.r * c] * B if rs is None
+              else [float(r) * c for r in rs])
+        if len(rs) != B:
+            raise ValueError(f"{len(rs)} rs for {B} lanes")
+        self._reset_timings()
+        if T == 0:  # empty traces, as the reference returns
+            return [SimTrace([], [], [], [], []) for _ in range(B)]
+        fv, fvc, dis, rn = self._run_lanes(x0_stack, T, eval_every, masks)
+        self.last_res_norms = rn
+        return [self._assemble_trace(masks[b], T, eval_every, rs[b],
+                                     fv[b], fvc[b], dis[b])
+                for b in range(B)]
+
+    def _check_x0(self, x0_stack: torch.Tensor) -> None:
         if x0_stack.shape[0] != self.graph.n:
             raise ValueError("x0 must be stacked (n, ...)")
         if x0_stack.device != self.device:
             raise ValueError(f"x0 lies on {x0_stack.device}, the simulator "
                              f"on {self.device}")
-        if loop not in ("scan", "segment"):
-            raise ValueError(f"loop must be 'scan' or 'segment', got {loop!r}")
+
+    def _reset_timings(self) -> None:
         self.last_timings = {"compile_s": 0.0, "execute_s": 0.0,
                              "eval_s": 0.0}
         self.last_res_norms = None
-        if T == 0:  # an empty trace, as the reference returns
-            return SimTrace([], [], [], [], [])
+        self.last_loop = None
+
+    def _load_library(self) -> None:
+        """Build or load the mix kernel's library (the first use's build
+        is charged to `compile_s`)."""
         if self.mix_mode == "sparse" and self.device.type == "cuda":
             t0 = time.perf_counter()
             self._kernel().library()
-            self.last_timings["compile_s"] = time.perf_counter() - t0
-        mask_full = np.asarray(self.schedule.comm_mask(0, T), dtype=bool)
+            self.last_timings["compile_s"] += time.perf_counter() - t0
 
+    def _run_segment_loop(self, x0_stack, T, eval_every, mask_full):
+        """loop="segment": `_segment` a segment at a time, its statistics
+        read back after each. Returns (fv, fvc, dis), each (S,)."""
+        self._load_library()
+        self.last_loop = "eager"
         self._synchronize()
         t0 = time.perf_counter()
         state = (torch.zeros_like(x0_stack), x0_stack, x0_stack,
@@ -393,22 +492,60 @@ class DDASimulator:
             seg = min(eval_every, T - done)
             state = self._segment(*state, mask_full[done:done + seg])
             done += seg
-            if loop == "scan":
-                stats.append(self._trace_stats(state))
-            else:
-                t_eval = time.perf_counter()
-                stats.append(self._trace_stats(state).cpu())
-                self.last_timings["eval_s"] += time.perf_counter() - t_eval
-        fv, fvc, dis, rn = torch.stack(stats).cpu().numpy().T
+            t_eval = time.perf_counter()
+            z, _, xhat, res, _ = state
+            stats.append(self._stats(z, xhat, res).cpu())
+            self.last_timings["eval_s"] += time.perf_counter() - t_eval
+        fv, fvc, dis, _ = torch.stack(stats).numpy().T
         self._synchronize()
         self.last_timings["execute_s"] = time.perf_counter() - t0
-        if loop == "scan":
-            self.last_res_norms = rn
-        # compressed messages are cheaper on the wire: the time axis charges
-        # the effective tradeoff r*c
-        r_eff = self.r * self.wire_ratio(int(np.prod(x0_stack.shape[1:])))
-        return self._assemble_trace(mask_full, T, eval_every, r_eff,
-                                    fv, fvc, dis)
+        return fv, fvc, dis
+
+    def _program(self, x0_stack: torch.Tensor, B: int, T: int
+                 ) -> "_LaneProgram":
+        """The run program for B lanes at x0's shape, built at its first
+        use and on a card captured (unless `capture` is off): the kernel
+        library's load, the warm-up and the capture are charged to
+        `compile_s`, once. A batch program is built anew only when its flag
+        buffer is shorter than T."""
+        key = (tuple(x0_stack.shape), x0_stack.dtype, B)
+        prog = self._programs.get(key)
+        if prog is None or (B > 1 and prog.rows < T):
+            self._load_library()
+            prog = _LaneProgram(self, x0_stack, B, T)
+            if self.capture and self.device.type == "cuda":
+                t0 = time.perf_counter()
+                prog.capture()
+                self.last_timings["compile_s"] += time.perf_counter() - t0
+            self._programs[key] = prog
+        return prog
+
+    def _run_lanes(self, x0_stack, T, eval_every, masks):
+        """Drive the run program over (B, T) comm masks. Returns (fv, fvc,
+        dis, rn), each (B, S)."""
+        B = masks.shape[0]
+        prog = self._program(x0_stack, B, T)
+        self.last_loop = "eager" if prog.graphs is None else "graph"
+        self._synchronize()
+        t0 = time.perf_counter()
+        prog.load(x0_stack, masks)
+        any_comm = masks.any(axis=0)
+        stats = torch.empty((-(-T // eval_every), B, 4), dtype=torch.float32,
+                            device=self.device)
+        done = idx = 0
+        while done < T:
+            seg = min(eval_every, T - done)
+            for comm in any_comm[done:done + seg]:
+                prog.step("comm" if comm else "idle")
+            prog.step("stats")
+            stats[idx].copy_(prog.stat)
+            done += seg
+            idx += 1
+        out = stats.cpu().numpy().transpose(2, 1, 0)  # (4, B, S)
+        prog.count_replays()
+        self._synchronize()
+        self.last_timings["execute_s"] = time.perf_counter() - t0
+        return out
 
     def _kernel(self):
         """The kernel module the sparse mix launches: K2 under a
@@ -444,3 +581,173 @@ class DDASimulator:
             trace.disagreement.append(float(dis[idx]))
             idx += 1
         return trace
+
+
+def _solo(fn, *args):
+    """`_mix`'s per-lane map for a one-run (n, d) state: fn itself."""
+    return fn(*args)
+
+
+# ---------------------------------------------------------------------------
+# the run program
+# ---------------------------------------------------------------------------
+
+
+class _LaneProgram:
+    """A run's carry for B lanes, as (n, B, ...) buffers updated in place
+    (z, x, xhat, res; the shared counter t), and the three bodies that
+    update it: one iteration with communication ("comm"), one without
+    ("idle"), and the trace statistics of every lane ("stats", into the
+    (B, 4) buffer `stat`).
+
+    In a batch the comm body runs at every iteration where any lane
+    communicates; each lane's flag is read on the device from `flags`
+    (the (T, B) masks) at the counter `it`, so no mask is read on the host
+    inside a body. A one-lane program has neither: the host picks the body.
+
+    `capture()` records each body as a CUDA graph; `step` then replays it.
+    The kernel wrappers count their launches in Python, which a replay does
+    not run: so the launches each graph holds are recorded at its capture
+    (every counter of `kernels.counters`), and `count_replays` adds them
+    once for each replay.
+    """
+
+    BODIES = ("comm", "idle", "stats")
+    #: passes over the bodies before the capture (their launches are run
+    #: but not counted)
+    WARMUP = 2
+
+    def __init__(self, sim: DDASimulator, x0_stack: torch.Tensor, B: int,
+                 T: int):
+        # a weak reference: the simulator holds its programs, and a cycle
+        # would leave a dropped simulator's graphs to the garbage
+        # collector, which may run inside a later capture, where freeing a
+        # graph is not allowed
+        self.sim, self.B = weakref.proxy(sim), B
+        n, rest = x0_stack.shape[0], tuple(x0_stack.shape[1:])
+        like = dict(dtype=x0_stack.dtype, device=x0_stack.device)
+        self.z, self.x, self.xhat, self.res = (
+            torch.zeros((n, B) + rest, **like) for _ in range(4))
+        self.t = torch.zeros((), dtype=torch.float32, device=sim.device)
+        self.rows = T if B > 1 else 0
+        self.flags = torch.zeros((self.rows, B), dtype=torch.bool,
+                                 device=sim.device)
+        self.it = torch.zeros((1,), dtype=torch.int64, device=sim.device)
+        self.stat = torch.zeros((B, 4), dtype=torch.float32,
+                                device=sim.device)
+        self.graphs: dict[str, torch.cuda.CUDAGraph] | None = None
+        self._launches: dict[str, dict[tuple, int]] = {}
+        self._replays = dict.fromkeys(self.BODIES, 0)
+
+    def lanes(self, fn, *args, out_dim: int = 1):
+        """fn over each lane (dim 1) of the (n, B, ...) tensors `args`, its
+        per-lane results stacked at `out_dim`. At B = 1 fn gets the lane
+        itself, so a one-lane program issues the solo run's ops."""
+        if self.B == 1:
+            return fn(*(a[:, 0] for a in args)).unsqueeze(out_dim)
+        return torch.func.vmap(fn, in_dims=1, out_dims=out_dim)(*args)
+
+    def load(self, x0_stack: torch.Tensor, masks: np.ndarray) -> None:
+        """Start a run from x0 (every lane) under the (B, T) comm masks."""
+        for buf in (self.z, self.res, self.t, self.it):
+            buf.zero_()
+        for buf in (self.x, self.xhat):
+            buf.copy_(x0_stack.unsqueeze(1).expand_as(buf))
+        if self.B > 1:
+            T = masks.shape[1]
+            self.flags[:T].copy_(torch.as_tensor(masks.T.copy()))
+
+    def _iterate(self, comm: bool) -> None:
+        """One DDA iteration of every lane, in `_segment`'s float order."""
+        sim, z, x, xhat, res, t = (self.sim, self.z, self.x, self.xhat,
+                                   self.res, self.t)
+        g = self.lanes(lambda xl: sim.subgrad_fn(xl, t, None), x)
+        if comm:
+            mixed, new_res = sim._mix(z, res, t, self.lanes)
+            if self.B > 1:  # a lane that does not communicate keeps z, res
+                on = self.flags.index_select(0, self.it).reshape(
+                    (1, self.B) + (1,) * (z.dim() - 2))
+                mixed = torch.where(on, mixed, z)
+                if new_res is not res:
+                    new_res = torch.where(on, new_res, res)
+            if new_res is not res:
+                res.copy_(new_res)
+            torch.add(mixed, g, out=z)
+        else:
+            z.add_(g)
+        t_new = t + 1.0
+        neg_a = -sim.a_fn(t_new)
+        if sim.projection is None:
+            torch.mul(neg_a, z, out=x)
+        else:
+            x.copy_(self.lanes(sim.projection, neg_a * z))
+        torch.div(t * xhat + x, t_new, out=xhat)
+        t.copy_(t_new)
+        if self.B > 1:
+            self.it.add_(1)
+
+    def _stats(self) -> None:
+        self.stat.copy_(self.lanes(self.sim._stats, self.z, self.xhat,
+                                   self.res, out_dim=0))
+
+    def _body(self, name: str):
+        # made at each call, not stored: stored closures over self would
+        # make a cycle that leaves the program's graphs to the collector
+        return {"comm": lambda: self._iterate(True),
+                "idle": lambda: self._iterate(False),
+                "stats": self._stats}[name]
+
+    def capture(self) -> None:
+        """Warm every body up on the buffers (before any run has loaded
+        them, so on no run's state; the warm-up's launches are not
+        counted), then capture each as a CUDA graph, into one memory pool,
+        recording the launches it holds."""
+        from repro_torch.kernels import counters
+
+        before = counters.snapshot()
+        current = torch.cuda.current_stream(self.sim.device)
+        side = torch.cuda.Stream(self.sim.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            for _ in range(self.WARMUP):
+                for name in self.BODIES:
+                    self._body(name)()
+                    self.it.zero_()
+        current.wait_stream(side)
+        counters.restore(before)
+        pool = torch.cuda.graph_pool_handle()
+        graphs = {}
+        # no collection inside a capture: it may free another graph there
+        gc_was_on = gc.isenabled()
+        gc.disable()
+        try:
+            for name in self.BODIES:
+                graphs[name] = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graphs[name], pool=pool):
+                    self._body(name)()
+                self._launches[name] = counters.delta(before,
+                                                      counters.snapshot())
+                counters.restore(before)
+        finally:
+            if gc_was_on:
+                gc.enable()
+        self.graphs = graphs
+
+    def step(self, name: str) -> None:
+        """Run one body: replay its graph, or call it eagerly."""
+        if self.graphs is None:
+            self._body(name)()
+        else:
+            self.graphs[name].replay()
+            self._replays[name] += 1
+
+    def count_replays(self) -> None:
+        """Add each graph's launches once for each replay since the last
+        call to the wrappers' counters."""
+        if self.graphs is None:
+            return
+        from repro_torch.kernels import counters
+
+        for name, k in self._replays.items():
+            counters.add(self._launches[name], k)
+        self._replays = dict.fromkeys(self.BODIES, 0)

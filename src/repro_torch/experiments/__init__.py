@@ -9,7 +9,11 @@
     result = repro_torch.run(spec)                 # on the CUDA card
     result = repro_torch.run(spec, device="cpu")   # only when asked
 
-Only the dense backend is ported so far, uncompressed and compressed.
+    results = repro_torch.run_sweep(spec, "schedule.params.h",
+                                    [1, 2, 4, 8, 16], parallel="vmap")
+
+Only the dense backend is ported so far, uncompressed and compressed,
+with its sweeps.
 """
 
 from repro_torch.experiments.components import (Problem, problems,
@@ -17,7 +21,8 @@ from repro_torch.experiments.components import (Problem, problems,
                                                 topologies)
 from repro_torch.experiments.registry import Registry
 from repro_torch.experiments.result import RunResult
-from repro_torch.experiments.runner import backends, run, run_all
+from repro_torch.experiments.runner import (backends, run, run_all,
+                                           run_sweep)
 from repro_torch.experiments.spec import ComponentSpec, ExperimentSpec
 
 
@@ -43,6 +48,7 @@ __all__ = [
     "problems",
     "run",
     "run_all",
+    "run_sweep",
     "schedules",
     "stepsizes",
     "topologies",

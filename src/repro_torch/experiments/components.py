@@ -68,6 +68,10 @@ class Problem:
       arrays:        the data tensors those closures read, under the names
                      the reference's closures give them (`convert.
                      problem_arrays` exposes them as numpy).
+      capturable:    False when a closure reads the device back to the
+                     host, which a CUDA graph capture forbids: the
+                     simulator then runs it eagerly (`DDASimulator(capture=
+                     False)`).
     """
 
     name: str
@@ -80,6 +84,7 @@ class Problem:
     projection: Callable | None = None
     fstar_fn: Callable[[], float] | None = None
     arrays: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    capturable: bool = True
     _fstar: float | None = dataclasses.field(default=None, repr=False)
 
     @property
@@ -264,7 +269,8 @@ def _metric_learning_problem(n: int, m_pairs: int = 2000, d_feat: int = 8,
     Proj onto {A PSD, b >= 1}. The state dimension is d_feat^2 + 1. No
     closed-form F*. The PSD projection's `torch.linalg.eigh` may return
     other eigenvector signs than the reference's; the projected matrix is
-    what agrees."""
+    what agrees. On a card eigh checks cuSOLVER's info flag on the host,
+    so the problem cannot be captured as a CUDA graph."""
     u_np, v_np, s_np = _metric_pairs_cached(m_pairs, d_feat, seed)
     dim = d_feat * d_feat + 1
     base = m_pairs // n
@@ -329,7 +335,8 @@ def _metric_learning_problem(n: int, m_pairs: int = 2000, d_feat: int = 8,
                    eval_fn=eval_fn, subgrad_stack=subgrad_stack,
                    objective=objective, projection=projection,
                    arrays={"u_j": u_j, "v_j": v_j, "s_j": s_j,
-                           "us": us, "vs": vs, "ss": ss})
+                           "us": us, "vs": vs, "ss": ss},
+                   capturable=False)
 
 
 @problems.register("lm")

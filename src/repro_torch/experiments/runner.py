@@ -4,17 +4,20 @@
 The dense backend builds the problem, graph, schedule, stepsize and
 compressor from the spec, runs `core.dda.DDASimulator` on the requested
 device (the CUDA card unless the caller asks for the CPU) and returns the
-reference's `RunResult`. The netsim and launch backends, the dense closed
-loop ("dense_adaptive") and the sweep executors are not ported yet: asking
-for them raises `NotImplementedError`.
+reference's `RunResult`. `run_sweep` runs a grid of cells serially, as one
+batched program (`DDASimulator.run_batch`, parallel="vmap") or across
+processes, as the reference's. The netsim and launch backends and the dense
+closed loop ("dense_adaptive") are not ported yet: asking for them raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import time
-from typing import Any
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -32,7 +35,8 @@ from repro_torch.obs import RunMetrics, Tracer, profile_ctx
 #: bytes per scalar in a dense gossip payload (float32)
 _DENSE_SCALAR_BYTES = 4
 
-__all__ = ["backends", "run", "run_all"]
+__all__ = ["backends", "batch_compat_report", "run", "run_all",
+           "run_sweep"]
 
 backends = Registry("backend")
 
@@ -199,14 +203,16 @@ def _dense_parts(spec: ExperimentSpec, backend: ComponentSpec,
 
 def _dense_sim(spec: ExperimentSpec, parts: dict[str, Any],
                device: torch.device) -> DDASimulator:
-    """Fresh DDASimulator from `_dense_parts` output."""
+    """Fresh DDASimulator from `_dense_parts` output; it captures its runs
+    on a card unless the problem declares it cannot be captured."""
     problem = parts["problem"]
     return DDASimulator(problem.subgrad_stack, problem.objective,
                         parts["graph"], parts["schedule"],
                         a_fn=parts["a_fn"], r=spec.r,
                         compress_keep=parts["compress_keep"],
                         compression=parts["compression"], mix=parts["mix"],
-                        projection=problem.projection, device=device)
+                        projection=problem.projection, device=device,
+                        capture=problem.capturable)
 
 
 @backends.register("dense")
@@ -230,7 +236,9 @@ def _run_dense(spec: ExperimentSpec, backend: ComponentSpec,
     tr.add_host_span("compile", tr.now() - wall, compile_s)
     tr.add_host_span("execute", tr.now() - wall + compile_s,
                      wall - compile_s)
-    metrics_fields: dict[str, Any] = {}
+    # how the run ran ("graph" or "eager"); not in extras, which the parity
+    # check compares with the reference's exactly
+    metrics_fields: dict[str, Any] = {"notes": {"loop": sim.last_loop}}
     if sim.last_timings["eval_s"]:
         metrics_fields.update(eval_s=sim.last_timings["eval_s"])
     tr.count("device_execute_s", sim.last_timings["execute_s"])
@@ -316,3 +324,240 @@ def run(spec: ExperimentSpec,
 def run_all(spec: ExperimentSpec, *, device=None) -> list[RunResult]:
     """Run a spec on EVERY backend it declares, in declaration order."""
     return [run(spec, b, device=device) for b in spec.backends]
+
+
+def run_sweep(spec: ExperimentSpec, axis: str, values: Sequence[Any],
+              backend: int | str | ComponentSpec | None = None,
+              parallel: str | None = None,
+              processes: int | None = None, *,
+              device=None) -> list[RunResult]:
+    """One run per value of a dotted-path axis -- the paper's grids as one
+    call: `run_sweep(spec, "schedule.params.h", [1, 2, 4, 8, 16])`,
+    `run_sweep(spec, "problem.params.n", [4, 8, 16])`,
+    `run_sweep(spec, "r", [0.001, 0.01, 0.1])`.
+
+    `parallel` picks the executor (results are index-aligned with `values`
+    and cell-for-cell identical to the serial path up to float reduction
+    order):
+
+      * None / "serial" -- one `run()` per cell, in order (the baseline).
+      * "vmap" -- dense-backend grids whose cells differ only along
+        data-batchable axes (seed / r / the whole schedule component /
+        eps_frac / name) run as ONE batched program
+        (`DDASimulator.run_batch`): one capture and one replayed program
+        for the grid instead of one per cell. Grids that are not batchable
+        fall back to the serial path, each result carrying the reason.
+        The batch gains where launches set the pace (narrow cells). Where
+        the device does (full-width cells), a lane's work is unchanged
+        and the gain is small; under a sorting compressor (top-k) the
+        batch is slower than serial, since its comm body sorts every
+        lane whenever any lane communicates (PERF.md section 5).
+      * "process" -- fan cells out across OS processes (spawn context: a
+        fork after CUDA has started breaks CUDA). Results merge back in
+        order, bit-identical to serial. `processes` caps the pool
+        (default: cell count capped by CPU count).
+
+    `device` is where every cell runs (None: the CUDA card).
+    """
+    cells = [spec.with_value(axis, v) for v in values]
+    if parallel in (None, "serial"):
+        return [run(c, backend=backend, device=device) for c in cells]
+    if parallel == "vmap":
+        out, reason = _run_sweep_vmap(cells, backend, device)
+        if out is not None:
+            return out
+        # fall back to serial, with the reason the grid did not pack on
+        # every result (metrics.notes and extras), as the reference does
+        results = [run(c, backend=backend, device=device) for c in cells]
+        for r in results:
+            if r.metrics is not None:
+                r.metrics = dataclasses.replace(
+                    r.metrics,
+                    notes={**r.metrics.notes, "vmap_fallback": reason})
+            r.extras["vmap_fallback"] = reason
+        return results
+    if parallel == "process":
+        return _run_sweep_process(cells, backend, processes, device)
+    raise ValueError(f"parallel must be None/'serial'/'vmap'/'process', "
+                     f"got {parallel!r}")
+
+
+# ---------------------------------------------------------------------------
+# sweep executors
+# ---------------------------------------------------------------------------
+
+
+#: spec fields a batched sweep may vary per lane: everything else must be
+#: identical across cells so one program (one problem, topology, stepsize
+#: and shape) serves every lane. The schedule varies because the program
+#: consumes it as a precomputed comm MASK (data); seed is the PRNG fold; r
+#: only shapes the host-side time axis; eps_frac/name are host-side
+#: bookkeeping.
+_VMAP_LANE_FIELDS = ("name", "seed", "r", "schedule", "eps_frac")
+
+
+def _vmap_signature(spec: ExperimentSpec, backend: ComponentSpec) -> str:
+    d = spec.to_dict()
+    for f in _VMAP_LANE_FIELDS:
+        d.pop(f)
+    d.pop("backends")
+    return json.dumps([d, backend.to_dict()], sort_keys=True)
+
+
+def batch_compat_report(spec: ExperimentSpec, backend: ComponentSpec, *,
+                        device=None) -> str | None:
+    """Why this (spec, backend) cannot ride a `run_batch` lane -- None
+    when it can. The reasons are the reference's word for word. Builds at
+    most the (cached) problem, on `device` (None: the CUDA card), and the
+    topology."""
+    if backend.kind != "dense":
+        return (f"backend {backend.kind!r} is not dense (vmap lanes are the "
+                f"dense scanned program; netsim/launch runs are host loops)")
+    if spec.controller is not None:
+        return ("a controller run drives its own wall-clock chunk loop and "
+                "retunes its schedule online; lanes share one comm mask")
+    if spec.time_limit is not None:
+        return "time_limit is event-clock only (netsim backends)"
+    if spec.profile_dir is not None:
+        return "profiling wants one run per capture"
+    if spec.faults is not None:
+        return "fault injection is event-driven (netsim backends only)"
+    params = dict(backend.params)
+    params.pop("compress_keep", None)
+    params.pop("mix", None)
+    if params.pop("loop", "scan") != "scan":
+        return "loop='segment' is the host-loop baseline (one lane per run)"
+    if params:
+        return f"dense backend has unknown params {sorted(params)}"
+    if spec.stepsize.kind == "inv_sqrt":
+        return 'stepsize "inv_sqrt" is host-only; lanes need the jnp path'
+    problem = _build_problem(spec, resolve_device(device))
+    if not isinstance(problem, C.Problem) or problem.subgrad_stack is None:
+        return (f"problem kind {spec.problem.kind!r} has no stacked jax "
+                f"subgradient")
+    graph = _build_topology(spec, problem.n)
+    if not isinstance(graph, CommGraph):
+        return ("topology is a time-varying sequence (netsim-only); lanes "
+                "need one fixed CommGraph")
+    return None
+
+
+def _vmap_pool_report(cells: Sequence[ExperimentSpec],
+                      resolved: Sequence[ComponentSpec],
+                      device=None) -> str | None:
+    """Why this POOL of cells cannot batch into one program -- None when
+    it can: every cell individually batchable, plus pairwise shape
+    compatibility (identical outside the per-lane fields)."""
+    for c, b in zip(cells, resolved):
+        reason = batch_compat_report(c, b, device=device)
+        if reason is not None:
+            return f"cell {c.name!r}: {reason}"
+    sigs = {_vmap_signature(c, b) for c, b in zip(cells, resolved)}
+    if len(sigs) != 1:
+        return (f"cells differ outside the batchable lane fields "
+                f"{_VMAP_LANE_FIELDS} ({len(sigs)} distinct shape "
+                f"signatures; every lane must share one compiled program)")
+    return None
+
+
+def _dense_batch_results(cells: Sequence[ExperimentSpec],
+                         resolved: Sequence[ComponentSpec],
+                         sim: DDASimulator, problem, graph,
+                         schedules: Sequence[Any],
+                         traces: Sequence[SimTrace], wall: float,
+                         lane_counter: str = "vmap_lanes"
+                         ) -> list[RunResult]:
+    """Per-lane RunResults for one `run_batch` call: the wall split
+    amortized over the lanes, closed-form message counts and per-lane
+    predictions, as the reference assembles them."""
+    B = len(cells)
+    lam2 = graph.lambda2()
+    lane_wall = wall / B
+    # one capture serves every lane: amortize it evenly so per-lane
+    # compile_s + execute_s == wall_s holds just like the serial path
+    lane_compile = min(sim.last_timings["compile_s"] / B, lane_wall)
+    ratio = sim.wire_ratio(problem.d)
+    rn_all = sim.last_res_norms  # (B, S) from run_batch, or None
+    results = []
+    for i, (c, bk, sched, trc) in enumerate(zip(cells, resolved,
+                                                schedules, traces)):
+        eps_value, tta = _target_fields(trc, _eps_value(c, problem))
+        predictions = _dense_predictions(graph, c.r, sched, lam2, c=ratio)
+        counts = _dense_message_counts(trc, problem.n, graph.degree,
+                                       problem.d, ratio=ratio)
+        extras = {"mix_mode": sim.mix_mode, lane_counter: B}
+        comp_block = None
+        if sim.compression is not None:
+            comp_block = _compression_block(
+                sim.compression.kind, ratio,
+                full_bytes=float(counts["msgs"] * problem.d
+                                 * _DENSE_SCALAR_BYTES),
+                wire_bytes=counts["bytes_on_wire"],
+                residual_norms=None if rn_all is None else rn_all[i])
+            extras["compression"] = comp_block
+        metrics = RunMetrics(
+            compile_s=lane_compile,
+            execute_s=max(lane_wall - lane_compile, 0.0),
+            counters={lane_counter: float(B)},
+            compression=comp_block,
+            notes={"loop": sim.last_loop},
+            **counts)
+        results.append(RunResult(
+            spec=c, backend=bk, trace=trc, wall_s=lane_wall,
+            eps_value=eps_value, time_to_target=tta,
+            predictions=predictions,
+            extras=extras,
+            metrics=metrics))
+    return results
+
+
+def _run_sweep_vmap(cells: Sequence[ExperimentSpec], backend, device=None
+                    ) -> tuple[list[RunResult] | None, str | None]:
+    """Batched executor for shape-compatible dense cells. Returns
+    (results, None) when the pool batched, (None, reason) when it did not
+    (the caller falls back to serial, which also raises any real
+    validation error with the serial path's message)."""
+    device = resolve_device(device)
+    resolved = [_resolve_backend(c, backend) for c in cells]
+    reason = _vmap_pool_report(cells, resolved, device)
+    if reason is not None:
+        return None, reason
+    spec0 = cells[0]
+    parts = _dense_parts(spec0, resolved[0], device)
+    problem, graph = parts["problem"], parts["graph"]
+    sim = _dense_sim(spec0, parts, device)
+    schedules = [_build_schedule(c) for c in cells]
+    masks = np.stack([s.comm_mask(0, spec0.T) for s in schedules])
+    x0 = torch.zeros((problem.n, problem.d), dtype=torch.float32,
+                     device=device)
+    t0 = time.perf_counter()
+    traces = sim.run_batch(x0, spec0.T, spec0.eval_every, masks,
+                           seeds=[c.seed for c in cells],
+                           rs=[c.r for c in cells])
+    wall = time.perf_counter() - t0
+    return _dense_batch_results(cells, resolved, sim, problem, graph,
+                                schedules, traces, wall), None
+
+
+def _process_cell(payload) -> RunResult:
+    """Top-level worker (picklable) for `parallel="process"`."""
+    spec_json, backend_ser, device = payload
+    spec = ExperimentSpec.from_json(spec_json)
+    backend = (ComponentSpec.from_dict(backend_ser)
+               if isinstance(backend_ser, dict) else backend_ser)
+    return run(spec, backend=backend, device=device)
+
+
+def _run_sweep_process(cells: Sequence[ExperimentSpec], backend,
+                       processes: int | None, device=None
+                       ) -> list[RunResult]:
+    import multiprocessing as mp
+    import os
+    backend_ser = (backend.to_dict() if isinstance(backend, ComponentSpec)
+                   else backend)
+    device = str(resolve_device(device))
+    payloads = [(c.to_json(indent=None), backend_ser, device) for c in cells]
+    n_proc = max(1, min(len(cells), processes or os.cpu_count() or 1))
+    ctx = mp.get_context("spawn")  # a fork after CUDA init breaks CUDA
+    with ctx.Pool(n_proc) as pool:
+        return pool.map(_process_cell, payloads, chunksize=1)

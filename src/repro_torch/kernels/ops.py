@@ -164,7 +164,9 @@ def gossip_gather_mix_impl(z: torch.Tensor, S_in: torch.Tensor, w_self,
     `W @ z.reshape(n, -1)` for the mixing matrix W with diag(W) = w_self
     and W[i, S_in[i, j]] summing w_edge[i, j] over slots. `msg` (same shape
     as z) substitutes the transmitted stack for the neighbor gathers and
-    defaults to z itself.
+    defaults to z itself. A batch's (n, B, d) carry is one (n, B*d) state
+    here (a view of a contiguous carry), each column mixed on its own in
+    the same order, so a lane mixes as its solo run does.
     """
     if z.device.type == "cpu":
         return ref.gossip_gather_mix_ref(z, S_in, w_self, w_edge, msg=msg)
