@@ -59,9 +59,10 @@ non-zero and the last line is not printed. The phases:
             communication round (149, counted from the graphs' replays
             through repro_torch.kernels.counters), and agree with its
             mix="dense" twin; torch.profiler watches that run, and the K1
-            kernels it names must be those 149 slab kernels and the
-            capture's warm-up's 2; the sha256 of its fvals and
-            disagreement as float32 must equal MAIN_PATH_DIGEST, and so
+            kernels it names must be those 149 slab kernels, the
+            capture's warm-up's 2 and its first replay's 1; the sha256 of
+            its fvals and disagreement as float32 must equal
+            MAIN_PATH_DIGEST, and so
             must an unprofiled captured run's and the eager
             loop="segment" run's; prints the wall per iteration of the
             unprofiled captured run, of the eager run (eager_ratio) and of
@@ -89,6 +90,41 @@ non-zero and the last line is not printed. The phases:
             prints the batched wall beside the serial walls' sum; then two
             cells with parallel="process" on the card, equal to serial bit
             for bit
+  adaptive  the full-size cell under the paper's adaptive schedule
+            (h0 = 1) and the "dense_adaptive" controller, uncompressed (K1)
+            and under top-k at keep 1/4 (K2). First under an injected clock
+            that charges each chunk eq. 9's cost at ADAPTIVE_R_TRUE (the
+            closed loop's seam DDASimulator.run_chunk), on the card and
+            on the CPU: the retunes, h_final and r_hat must be equal
+            exactly (h must rise), the traces within FP32_TOL (top-k:
+            TWIN_TOL), and the card's kernel must launch once a round.
+            Then under the real clock on the card through repro_torch.run,
+            every launch count set to 0 just before: captured (loop
+            "graph"), K1 on its slab kernel (or K2) launched once for each
+            round the loop chose; the controller's one plain sample (its
+            first timed chunk, one idle iteration; the median of
+            PLAIN_SAMPLE_RUNS runs) within PLAIN_SAMPLE_CAP of
+            one-iteration idle chunks on a loaded program, and r_hat
+            above 0 under top-k; prints r_hat, the plain samples, the
+            captured run of the cell at h = 1 (periodic, no controller),
+            the retunes, compile_s, the median iteration wall and the wall per
+            iteration (a chunk is a run of iterations of one kind in a
+            segment and ends in a device synchronize: at h = 1 one plain
+            and one comm chunk in the first segment, one comm chunk in
+            each other, and a statistics readback at each segment's end)
+  netsim    every netsim backend of the six manifests that declare one
+            through repro_torch.run (event loops in host numpy; the
+            problem built on the card): finite traces, messages sent,
+            drops where the scenario loses messages, retunes under the
+            adaptive controller (adaptive_adversarial), a faults block
+            under the churn plan (churn_adversarial), and the object and
+            vectorized engines' traces equal bit for bit; prints each
+            run's host wall and its trace's sha256 (not asserted: the CPU
+            tests hold the bits against the reference). Then
+            expander_periodic's cell on the vectorized engine with its
+            gradients through netsim.torch_batch_grad on the card, beside
+            the numpy gradients' run: the largest fvals difference
+            (float32 against float64; relative 1e-4 at most)
   kernel_k3 K3 (the flat per-node mix, `kernels.ops.gossip_mix`) against
             its plain version over M in {1, 3, 130, 4099, 8192, 65537,
             2^20} (and a misaligned view), k in {1, 4, 8}, fp32 and bf16
@@ -154,6 +190,7 @@ limit as nvidia-smi prints them, and the result line
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import pathlib
@@ -964,14 +1001,17 @@ def phase_main_path() -> int:
         raise AssertionError(f"the uncompressed cell's K1 launches took "
                              f"the kernels {forms}, not the slab kernel")
     # the counts are derived from the graphs' replays: hold them to the
-    # kernels the card ran, which are those and the capture's warm-up (one
-    # comm body, so one K1 launch, a pass)
+    # kernels the card ran, which are those, the capture's warm-up (one
+    # comm body, so one K1 launch, a pass) and the comm graph's first
+    # replay at the capture (one K1 launch)
     profiled = {form: _profiled_kernels(prof, f"gossip_mix_{form}")
                 for form in ("regs", "slab")}
-    if profiled != {"regs": 0, "slab": launches + _LaneProgram.WARMUP}:
+    if profiled != {"regs": 0,
+                    "slab": launches + _LaneProgram.WARMUP + 1}:
         raise AssertionError(f"the profiler saw the K1 kernels {profiled}, "
-                             f"not {launches} replayed and "
-                             f"{_LaneProgram.WARMUP} warming up")
+                             f"not {launches} replayed, "
+                             f"{_LaneProgram.WARMUP} warming up and 1 "
+                             f"first replay at the capture")
     d = result.to_dict()
     trace = d["trace"]
     rounds = trace["comms"][-1]
@@ -1312,6 +1352,364 @@ def phase_sweep() -> dict:
     emit("sweep_process", cells=len(procs), bitwise_equal=True,
          loops=[r.metrics.notes["loop"] for r in procs])
     return launched
+
+
+#: the stated tradeoff the injected clock charges in the adaptive phase:
+#: a comm iteration costs 1/n + k * ADAPTIVE_R_TRUE, a plain one 1/n. At
+#: n=256, k=4 on the expander (lambda2 0.967) eq. 21 then asks for h about
+#: 3.7 (2.6 under top-k's wire ratio 1/2): the schedule must splice h up
+ADAPTIVE_R_TRUE = 10.0
+#: the most the closed loop's plain sample (its first timed chunk, one
+#: idle iteration) may cost, as a multiple of the p50 of one-iteration
+#: idle chunks timed the same way on a loaded program. On an H100
+#: (scripts/profile_torch_closed_loop.py, two runs) a first chunk that
+#: follows the load's kernels with no replay between costs 1.33 to 2.28
+#: times that p50; one after the chunk driver's priming replay 1.07 to 1.46
+PLAIN_SAMPLE_CAP = 1.5
+#: closed-loop runs whose plain samples' median is held to the cap
+PLAIN_SAMPLE_RUNS = 5
+
+
+def _adaptive_cell_spec(compression=None):
+    """The full-size cell under the paper's adaptive schedule, closed loop
+    ("dense_adaptive" controller, h0 = 1)."""
+    import repro_torch
+
+    d = _dense_cell_spec(compression).to_dict()
+    d.update(name="dense_adaptive_full",
+             schedule={"kind": "adaptive", "params": {"h0": 1}},
+             controller={"kind": "dense_adaptive",
+                         "params": {"warmup_comm": 2, "warmup_plain": 1}})
+    return repro_torch.ExperimentSpec.from_dict(d)
+
+
+def _charged_closed_loop(spec, device: str):
+    """The closed loop (`runner._dense_adaptive_run`) on `device` under an
+    injected clock that charges each chunk eq. 9's cost at
+    ADAPTIVE_R_TRUE, through the loop's seam `DDASimulator.run_chunk`.
+    Returns (trace, schedule, controller, simulator, clock reading)."""
+    import torch
+
+    from repro_torch.adaptive import DenseController
+    from repro_torch.experiments import runner
+
+    dev = torch.device(device)
+    parts = runner._dense_parts(spec, spec.backends[0], dev)
+    sim = runner._dense_sim(spec, parts, dev)
+    problem, graph = parts["problem"], parts["graph"]
+    n, k = graph.n, graph.degree
+    clock = {"t": 0.0}
+    real = sim.run_chunk
+
+    def charged(comm, chunk):
+        clock["t"] += (1.0 / n + (k * ADAPTIVE_R_TRUE if comm else 0.0)) \
+            * chunk
+        return real(comm, chunk)
+
+    sim.run_chunk = charged
+    params = dict(spec.controller.params)
+    if sim.compression is not None:
+        params.setdefault("wire_ratio", sim.wire_ratio(problem.d))
+    ctrl = DenseController(parts["schedule"], **params)
+    x0 = torch.zeros((problem.n, problem.d), device=dev)
+    trace = runner._dense_adaptive_run(sim, ctrl, x0, spec.T,
+                                       spec.eval_every, spec.seed,
+                                       timer=lambda: clock["t"])
+    return trace, parts["schedule"], ctrl, sim, clock["t"]
+
+
+def _spied_run(spec):
+    """`repro_torch.run(spec)` on the card, each chunk of its closed loop
+    also timed by a spy around the loop's seam. Returns the result and the
+    chunks as (comm, iterations, wall in s)."""
+    import repro_torch
+    from repro_torch.core.dda import DDASimulator
+
+    chunks = []
+    run_chunk = DDASimulator.run_chunk
+
+    def spied(self, comm, chunk):
+        t0 = time.perf_counter()
+        run_chunk(self, comm, chunk)
+        chunks.append((comm, chunk, time.perf_counter() - t0))
+
+    DDASimulator.run_chunk = spied
+    try:
+        result = repro_torch.run(spec, device="cuda")
+    finally:
+        DDASimulator.run_chunk = run_chunk
+    return result, chunks
+
+
+def _one_iteration_chunks(spec, reps: int = 100) -> dict:
+    """The p50 walls (us) of one-iteration chunks of the idle and the comm
+    body, alternating, each timed as the closed loop times a chunk, on a
+    loaded program of `spec` on the card (its launches not counted)."""
+    import torch
+
+    from repro_torch.experiments import runner
+    from repro_torch.kernels import counters
+
+    dev = torch.device("cuda")
+    parts = runner._dense_parts(spec, spec.backends[0], dev)
+    sim = runner._dense_sim(spec, parts, dev)
+    problem = parts["problem"]
+    before = counters.snapshot()
+    sim.start_closed_loop(torch.zeros((problem.n, problem.d), device=dev),
+                          spec.T)
+    walls = {"idle": [], "comm": []}
+    for _ in range(reps):
+        for body in walls:
+            t0 = time.perf_counter()
+            sim.run_chunk(body == "comm", 1)
+            walls[body].append((time.perf_counter() - t0) * 1e6)
+    sim.end_closed_loop()
+    counters.restore(before)
+    return {body: statistics.median(us) for body, us in walls.items()}
+
+
+def phase_adaptive() -> dict:
+    """The full-size cell under `dense_adaptive`, uncompressed (K1) and
+    under top-k at keep 1/4 (K2): first under the injected clock on the
+    card and on the CPU (the same retunes, h_final and r_hat exactly; the
+    traces within the default tolerances, top-k within TWIN_TOL), then
+    under the real clock on the card through repro_torch.run, with every
+    launch count set to 0 just before: the run is captured, and its
+    kernel launches once for each communication round the closed loop
+    chose. Returns those launches by kernel."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.kernels import gossip_mix
+
+    launched = {}
+    for compression, kernel in (
+            (None, "gossip_mix"),
+            ({"kind": "topk", "params": {"keep": 0.25}}, "compress_mix")):
+        spec = _adaptive_cell_spec(compression)
+        _zero_launch_counts()
+        card, sched, ctrl, sim, charged = _charged_closed_loop(spec, "cuda")
+        counts = _launch_counts()
+        cpu, cpu_sched, cpu_ctrl, cpu_sim, _ = _charged_closed_loop(spec,
+                                                                    "cpu")
+        retunes = [dataclasses.astuple(rt) for rt in sched.retunes]
+        if retunes != [dataclasses.astuple(rt) for rt in cpu_sched.retunes] \
+                or sched.h_current != cpu_sched.h_current \
+                or ctrl.tracker.r_hat != cpu_ctrl.tracker.r_hat:
+            raise AssertionError(f"{kernel}: the charged closed loop retuned "
+                                 f"{retunes} on the card, "
+                                 f"{cpu_sched.retunes} on the CPU")
+        if not retunes or sched.h_current <= 1:
+            raise AssertionError(f"{kernel}: r_true {ADAPTIVE_R_TRUE} must "
+                                 f"raise h, got {sched.h_current}")
+        if sim.last_loop != "graph":
+            raise AssertionError(f"{kernel}: the closed loop ran "
+                                 f"{sim.last_loop} on the card")
+        rounds = card.comms[-1]
+        if counts[kernel] != rounds or sum(counts.values()) != rounds:
+            raise AssertionError(f"{kernel}: the charged loop launched "
+                                 f"{counts} for {rounds} rounds")
+        for f in ("iters", "sim_time", "comms"):
+            if getattr(card, f) != getattr(cpu, f):
+                raise AssertionError(f"{kernel}: trace.{f} differs card "
+                                     f"against CPU")
+        tol = (FP32_TOL["rtol"], FP32_TOL["rtol"]) if compression is None \
+            else (TWIN_TOL["topk"]["fvals"], TWIN_TOL["topk"]["state"])
+        errors = {}
+        for f, rtol in (("fvals", tol[0]), ("fvals_consensus", tol[0]),
+                        ("disagreement", tol[1])):
+            errors[f] = _max_rel_err(getattr(card, f), getattr(cpu, f))
+            if not _allclose(getattr(card, f), getattr(cpu, f), rtol):
+                raise AssertionError(f"{kernel}: trace.{f} card against CPU "
+                                     f"outside rtol={rtol} (max rel err "
+                                     f"{errors[f]})")
+        if compression is not None:
+            errors["residual_norms"] = _max_rel_err(sim.last_res_norms,
+                                                    cpu_sim.last_res_norms)
+            if not _allclose(sim.last_res_norms, cpu_sim.last_res_norms,
+                             tol[1]):
+                raise AssertionError(f"{kernel}: residual norms card "
+                                     f"against CPU {errors}")
+        emit("adaptive_charged", kernel=kernel, compression=compression,
+             r_true=ADAPTIVE_R_TRUE, r_hat=ctrl.tracker.r_hat,
+             retunes=[(rt.from_t, rt.h) for rt in sched.retunes],
+             h_final=sched.h_current, rounds=rounds, launches=counts[kernel],
+             charged_clock=charged, card_cpu_max_rel_err=errors,
+             rtol={"fvals": tol[0], "state": tol[1]})
+
+        # the real clock, on the card, through the entry point
+        _zero_launch_counts()
+        result, chunks = _spied_run(spec)
+        counts = _launch_counts()
+        forms = dict(gossip_mix.FORM_LAUNCHES)
+        trace = result.trace
+        rounds = trace.comms[-1]
+        m = result.metrics
+        if m.notes != {"loop": "graph"}:
+            raise AssertionError(f"{kernel}: the closed loop ran {m.notes}")
+        if counts[kernel] != rounds or sum(counts.values()) != rounds:
+            raise AssertionError(f"{kernel}: the closed loop launched "
+                                 f"{counts} for {rounds} rounds")
+        if kernel == "gossip_mix" and forms != {"regs": 0, "slab": rounds}:
+            raise AssertionError(f"the closed loop's K1 launches took the "
+                                 f"kernels {forms}, not the slab kernel")
+        if len(trace.fvals) != spec.T // spec.eval_every or not all(
+                np.isfinite(trace.fvals)):
+            raise AssertionError(f"{kernel}: closed loop trace "
+                                 f"{trace.fvals}")
+        if any(t >= spec.T for t, _ in result.extras["retunes"]):
+            raise AssertionError(f"{kernel}: a retune at the frontier T")
+        # at h0 = 1 the controller's one plain sample is the first timed
+        # chunk (t = 1, one idle iteration): it must cost what such a
+        # chunk costs once the program runs, not the run's set-up. One
+        # sample is noisy: the median of PLAIN_SAMPLE_RUNS runs' is held
+        plains = []
+        for i in range(PLAIN_SAMPLE_RUNS):
+            if i:
+                chunks = _spied_run(spec)[1]
+            if chunks[0][:2] != (False, 1):
+                raise AssertionError(f"{kernel}: the first chunk was "
+                                     f"{chunks[0]}, not one plain "
+                                     f"iteration")
+            plains.append(chunks[0][2] * 1e6)
+        steady = _one_iteration_chunks(spec)
+        # the captured run of the same cell communicating at every
+        # iteration, the work of the closed loop at h = 1 without its
+        # chunks' syncs and controller
+        every = _dense_cell_spec(compression).to_dict()
+        every.update(name="dense_h1_full",
+                     schedule={"kind": "periodic", "params": {"h": 1}})
+        captured = repro_torch.run(
+            repro_torch.ExperimentSpec.from_dict(every), device="cuda")
+        if statistics.median(plains) > PLAIN_SAMPLE_CAP * steady["idle"]:
+            raise AssertionError(f"{kernel}: the plain samples took "
+                                 f"{plains} us, their median more than "
+                                 f"{PLAIN_SAMPLE_CAP} x a one-iteration "
+                                 f"idle chunk's {steady['idle']} us")
+        # under top-k a comm iteration costs more than twice a plain one,
+        # so an uncharged plain sample leaves r_hat above 0 (uncompressed
+        # a one-iteration chunk's launch and sync, which a comm chunk of
+        # 24 iterations spreads, can outweigh the mix: r_hat may read 0)
+        if compression is not None and not result.extras["r_hat"] > 0.0:
+            raise AssertionError(f"{kernel}: r_hat {result.extras['r_hat']}"
+                                 f" with a plain sample of {plains[0]} us")
+        emit("adaptive", kernel=kernel, compression=compression,
+             launches=counts[kernel], rounds=rounds, loop=m.notes["loop"],
+             r_hat=result.extras["r_hat"],
+             plain_samples_us=plains,
+             one_iteration_chunk_us=steady,
+             captured_h1_us_per_iter=(captured.metrics.execute_s / spec.T
+                                      * 1e6),
+             chunks=len(chunks),
+             retunes=result.extras["retunes"],
+             h_final=result.extras["h_final"],
+             compile_s=m.compile_s, execute_s=m.execute_s,
+             wall_s=result.wall_s,
+             us_per_iter=m.execute_s / spec.T * 1e6,
+             median_iter_wall_us=m.step_time_quantiles["p50"] * 1e6,
+             step_time_quantiles=m.step_time_quantiles,
+             final_f=trace.fvals[-1])
+        launched[kernel] = counts[kernel]
+    return launched
+
+
+#: the six manifests that declare a netsim backend
+NETSIM_MANIFESTS = ("adaptive_adversarial", "churn_adversarial",
+                    "complete_every", "compressed_expander",
+                    "expander_periodic", "expander_sparse")
+
+
+def _trace_digest(trace) -> str:
+    """sha256 of a netsim trace's JSON (every field, host float64)."""
+    return hashlib.sha256(json.dumps(dataclasses.asdict(trace),
+                                     sort_keys=True).encode()).hexdigest()
+
+
+def phase_netsim() -> None:
+    """Every netsim backend of the six manifests that declare one, through
+    repro_torch.run on the card's device (the event loops are host numpy):
+    finite traces, messages sent, drops where the scenario loses messages,
+    retunes under the adaptive controller, a faults block under the churn
+    plan; the object and vectorized engines of a manifest give equal traces
+    bit for bit. Prints each run's host wall and its trace's sha256 (not
+    asserted: the bits against the reference are the CPU tests' to hold).
+    Then one quadratic-consensus cell with its gradient through
+    `torch_batch_grad` on the card, beside the numpy gradient's run."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.experiments import components as C
+    from repro_torch.experiments import runner
+    from repro_torch.netsim import NetSimulator, torch_batch_grad
+
+    for name in NETSIM_MANIFESTS:
+        spec = repro_torch.ExperimentSpec.from_file(
+            ROOT / "benchmarks" / "manifests" / f"{name}.json")
+        traces = {}
+        for i, b in enumerate(spec.backends):
+            if b.kind != "netsim":
+                continue
+            result = repro_torch.run(spec, i, device="cuda")
+            ex, trace = result.extras, result.trace
+            lossy = b.params.get("loss", 0.0) > 0.0
+            if not trace.fvals or not all(np.isfinite(trace.fvals)):
+                raise AssertionError(f"{name}: trace {trace.fvals}")
+            if ex["sent"] <= 0 or (lossy and ex["drops"] <= 0):
+                raise AssertionError(f"{name}: sent {ex['sent']}, drops "
+                                     f"{ex['drops']}")
+            if spec.controller is not None and not ex["retunes"]:
+                raise AssertionError(f"{name}: the controller never retuned")
+            if spec.faults is not None and not ex["faults"]["crashes"]:
+                raise AssertionError(f"{name}: no faults block {ex}")
+            traces[ex["engine"]] = trace
+            emit("netsim", manifest=name, backend=i, engine=ex["engine"],
+                 scenario=ex["scenario"], host_wall_s=result.wall_s,
+                 T=spec.T, sent=ex["sent"], drops=ex["drops"],
+                 retunes=ex.get("retunes"), h_final=ex.get("h_final"),
+                 faults=ex.get("faults"), final_f=trace.fvals[-1],
+                 time_to_target=result.time_to_target,
+                 trace_sha256=_trace_digest(trace))
+        if len(traces) == 2 and traces["object"] != traces["vectorized"]:
+            raise AssertionError(f"{name}: the engines' traces differ")
+
+    # one cell's gradients through torch.func.vmap on the card
+    spec = repro_torch.ExperimentSpec.from_file(
+        ROOT / "benchmarks" / "manifests" / "expander_periodic.json")
+    problem = C.build_component(C.problems, spec.problem.kind,
+                                spec.problem.params, device="cuda")
+    centers = problem.arrays["centers_j"]
+    graph = runner._build_topology(spec, problem.n)
+    from repro_torch.netsim.scenarios import DEFAULT_MESSAGE_BYTES
+    batch_grad = torch_batch_grad(lambda i, x, t: 2.0 * (x - centers[i]),
+                                  device="cuda")
+    runs = {}
+    for label, batch in (("numpy", None), ("torch_batch_grad", batch_grad)):
+        scenario = runner._build_scenario("homogeneous", problem.n, spec.r,
+                                          graph, DEFAULT_MESSAGE_BYTES, {})
+        sim = NetSimulator(scenario, problem.grad_fn, problem.eval_fn,
+                           a_fn=runner._build_stepsize(spec),
+                           schedule=runner._build_schedule(spec),
+                           seed=spec.seed, engine="vectorized",
+                           batch_grad_fn=batch)
+        t0 = time.perf_counter()
+        runs[label] = sim.run(np.zeros((problem.n, problem.d)), spec.T,
+                              eval_every=spec.eval_every)
+        runs[label + "_wall_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    a, b = runs["numpy"], runs["torch_batch_grad"]
+    if a.iters != b.iters or not all(np.isfinite(b.fvals)):
+        raise AssertionError(f"torch_batch_grad run: {b}")
+    diff = float(np.max(np.abs(np.subtract(a.fvals, b.fvals))))
+    rel = float(np.max(np.abs(np.subtract(a.fvals, b.fvals))
+                       / np.abs(a.fvals)))
+    # float32 gradients against float64 ones: the traces stay close
+    if rel > 1e-4:
+        raise AssertionError(f"torch_batch_grad run drifted: rel {rel}")
+    emit("netsim_batch_grad", manifest="expander_periodic",
+         engine="vectorized", device="cuda", max_abs_fvals_diff=diff,
+         max_rel_fvals_diff=rel, numpy_wall_s=runs["numpy_wall_s"],
+         torch_batch_grad_wall_s=runs["torch_batch_grad_wall_s"])
 
 
 def _hold(label: str, out, expect, tol: dict) -> float:
@@ -1767,6 +2165,10 @@ def main() -> int:
     sweep = phase_sweep()
     k1["sweep_launches"] = sweep["gossip_mix"]
     k2["sweep_launches"] = sweep["compress_mix"]
+    adaptive = phase_adaptive()
+    k1["adaptive_launches"] = adaptive["gossip_mix"]
+    k2["adaptive_launches"] = adaptive["compress_mix"]
+    phase_netsim()
     k3 = phase_kernel_k3()
     k4 = phase_kernel_k4(build_s)
     k5 = phase_kernel_k5()

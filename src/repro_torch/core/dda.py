@@ -50,7 +50,7 @@ import gc
 import math
 import time
 import weakref
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -62,6 +62,7 @@ from repro_torch.core.schedules import CommSchedule, EveryIteration
 
 __all__ = [
     "DDASimulator",
+    "SegmentStats",
     "SimTrace",
     "TRACE_FIELDS",
     "json_sanitize",
@@ -72,6 +73,17 @@ __all__ = [
 #: the carry of one run: (z, x, xhat, res, t), as the reference's scan carry
 State = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor]
+
+
+class SegmentStats(NamedTuple):
+    """One trace point of a run, on the host: the mean local objective,
+    the objective at the mean, the disagreement and the mean per-node
+    residual norm (zero uncompressed)."""
+
+    fval: float
+    fval_consensus: float
+    disagreement: float
+    res_norm: float
 
 
 def stepsize_sqrt(A: float, q: float = 0.5) -> Callable:
@@ -241,6 +253,8 @@ class DDASimulator:
         #: run programs by (x0 shape, dtype, lanes), each with its buffers
         #: and, once captured, its graphs: captured once per shape
         self._programs: dict[tuple, _LaneProgram] = {}
+        #: the one-lane program a closed loop drives (`start_closed_loop`)
+        self._loop_prog: _LaneProgram | None = None
 
     def wire_ratio(self, d: int) -> float:
         """Bytes-on-wire fraction c for a d-float message under the
@@ -350,22 +364,15 @@ class DDASimulator:
         t); t is the float32 0-d count of iterations already done. The
         counterpart of the reference's jitted `_segment`, minus its RNG keys
         (no registered problem reads them; the compressors derive theirs
-        from t)."""
+        from t). A thin wrapper over the one-lane program run eagerly: it
+        loads the carry, steps the program's bodies and hands back a copy
+        of the carry, so there is one DDA iteration,
+        `_LaneProgram._iterate`."""
+        prog = self._program(z, 1, len(comm_mask), eager=True)
+        prog.resume((z, x, xhat, res, t))
         for comm in comm_mask:
-            g = self.subgrad_fn(x, t, None)
-            if comm:
-                z_mixed, res = self._mix(z, res, t)
-            else:
-                z_mixed = z
-            z = z_mixed + g
-            t_new = t + 1.0
-            a_t = self.a_fn(t_new)
-            x_new = -a_t * z
-            if self.projection is not None:
-                x_new = self.projection(x_new)
-            xhat = (t * xhat + x_new) / t_new
-            x, t = x_new, t_new
-        return z, x, xhat, res, t
+            prog.step("comm" if comm else "idle")
+        return prog.carry()
 
     def _stats(self, z: torch.Tensor, xhat: torch.Tensor,
                res: torch.Tensor) -> torch.Tensor:
@@ -393,10 +400,10 @@ class DDASimulator:
         module docstring): captured on a CUDA card unless the simulator
         was built with capture=False, its trace statistics kept on the
         device and copied back once, after the last iteration.
-        loop="segment" is the eager host loop over `_segment`, which copies
-        the statistics back after every segment and charges that readback
-        to `last_timings["eval_s"]`. Both give the same trace, but only
-        loop="scan" keeps `last_res_norms`, as in the reference, whose
+        loop="segment" steps the same one-lane program eagerly (no graphs)
+        and copies the statistics back after every segment, charging that
+        readback to `last_timings["eval_s"]`. Both give the same trace, but
+        only loop="scan" keeps `last_res_norms`, as in the reference, whose
         segment loop does not compute them. `seed` is accepted for the
         reference's signature; no registered problem draws random numbers.
         """
@@ -477,43 +484,45 @@ class DDASimulator:
             self.last_timings["compile_s"] += time.perf_counter() - t0
 
     def _run_segment_loop(self, x0_stack, T, eval_every, mask_full):
-        """loop="segment": `_segment` a segment at a time, its statistics
-        read back after each. Returns (fv, fvc, dis), each (S,)."""
-        self._load_library()
+        """loop="segment": the one-lane program run eagerly, its statistics
+        read back after each segment. Returns (fv, fvc, dis), each (S,)."""
+        prog = self._program(x0_stack, 1, T, eager=True)
         self.last_loop = "eager"
         self._synchronize()
         t0 = time.perf_counter()
-        state = (torch.zeros_like(x0_stack), x0_stack, x0_stack,
-                 torch.zeros_like(x0_stack),
-                 torch.zeros((), dtype=torch.float32, device=self.device))
+        prog.load(x0_stack, mask_full[None])
         stats = []
         done = 0
         while done < T:
             seg = min(eval_every, T - done)
-            state = self._segment(*state, mask_full[done:done + seg])
+            for comm in mask_full[done:done + seg]:
+                prog.step("comm" if comm else "idle")
             done += seg
             t_eval = time.perf_counter()
-            z, _, xhat, res, _ = state
-            stats.append(self._stats(z, xhat, res).cpu())
+            prog.step("stats")
+            stats.append(prog.stat[0].to("cpu", copy=True))
             self.last_timings["eval_s"] += time.perf_counter() - t_eval
         fv, fvc, dis, _ = torch.stack(stats).numpy().T
         self._synchronize()
         self.last_timings["execute_s"] = time.perf_counter() - t0
         return fv, fvc, dis
 
-    def _program(self, x0_stack: torch.Tensor, B: int, T: int
-                 ) -> "_LaneProgram":
+    def _program(self, x0_stack: torch.Tensor, B: int, T: int,
+                 eager: bool = False) -> "_LaneProgram":
         """The run program for B lanes at x0's shape, built at its first
-        use and on a card captured (unless `capture` is off): the kernel
-        library's load, the warm-up and the capture are charged to
-        `compile_s`, once. A batch program is built anew only when its flag
-        buffer is shorter than T."""
-        key = (tuple(x0_stack.shape), x0_stack.dtype, B)
+        use and on a card captured (unless `capture` is off, or `eager`
+        asks for the program that `_segment` and loop="segment" step
+        without graphs): the kernel library's load, the warm-up and the
+        capture are charged to `compile_s`, once. A batch program is built
+        anew only when its flag buffer is shorter than T."""
+        key = (tuple(x0_stack.shape), x0_stack.dtype, B) + (
+            ("eager",) if eager else ())
         prog = self._programs.get(key)
         if prog is None or (B > 1 and prog.rows < T):
             self._load_library()
             prog = _LaneProgram(self, x0_stack, B, T)
-            if self.capture and self.device.type == "cuda":
+            if (not eager and self.capture
+                    and self.device.type == "cuda"):
                 t0 = time.perf_counter()
                 prog.capture()
                 self.last_timings["compile_s"] += time.perf_counter() - t0
@@ -546,6 +555,55 @@ class DDASimulator:
         self._synchronize()
         self.last_timings["execute_s"] = time.perf_counter() - t0
         return out
+
+    # -- the closed loop's chunk driver --------------------------------------
+
+    def start_closed_loop(self, x0_stack: torch.Tensor, T: int) -> None:
+        """Ready a one-lane run of T iterations from x0 for a driver that
+        picks each chunk's body as it goes (the closed loop,
+        `experiments.runner._dense_adaptive_run`): the run program built
+        at its first use (captured on a card unless `capture` is off; its
+        build charged to `last_timings["compile_s"]`), loaded, and the
+        device synchronized, so the first timed chunk (at h0 = 1 the
+        controller's only plain sample) carries no set-up: neither the
+        load, nor a graph's first replay (`_LaneProgram.capture` replays
+        each graph once), nor the first replay after the load's kernels,
+        which is slower than any later one (on an H100,
+        `scripts/profile_torch_closed_loop.py`) and is made here with the
+        statistics body, which writes only `stat`."""
+        self._check_x0(x0_stack)
+        self._reset_timings()
+        prog = self._program(x0_stack, 1, T)
+        self.last_loop = "eager" if prog.graphs is None else "graph"
+        prog.load(x0_stack)
+        if prog.graphs is not None:
+            prog.graphs["stats"].replay()
+        self._synchronize()
+        self._loop_prog = prog
+
+    def run_chunk(self, comm: bool, chunk: int) -> None:
+        """`chunk` iterations of the closed loop's run, all with or all
+        without communication, then a device synchronize: what the closed
+        loop times as one chunk, and the seam a test wraps to charge a
+        fake clock."""
+        body = "comm" if comm else "idle"
+        for _ in range(chunk):
+            self._loop_prog.step(body)
+        self._synchronize()
+
+    def segment_stats(self) -> SegmentStats:
+        """The closed loop's trace statistics at this point of its run,
+        read back to the host."""
+        prog = self._loop_prog
+        prog.step("stats")
+        return SegmentStats(*prog.stat[0].tolist())
+
+    def end_closed_loop(self) -> None:
+        """Count the closed loop's launches from its replays
+        (`_LaneProgram.count_replays`, as `run` does) and let go of its
+        program."""
+        self._loop_prog.count_replays()
+        self._loop_prog = None
 
     def _kernel(self):
         """The kernel module the sparse mix launches: K2 under a
@@ -647,8 +705,10 @@ class _LaneProgram:
             return fn(*(a[:, 0] for a in args)).unsqueeze(out_dim)
         return torch.func.vmap(fn, in_dims=1, out_dims=out_dim)(*args)
 
-    def load(self, x0_stack: torch.Tensor, masks: np.ndarray) -> None:
-        """Start a run from x0 (every lane) under the (B, T) comm masks."""
+    def load(self, x0_stack: torch.Tensor,
+             masks: np.ndarray | None = None) -> None:
+        """Start a run from x0 (every lane) under the (B, T) comm masks (a
+        one-lane program reads none: the host picks its bodies)."""
         for buf in (self.z, self.res, self.t, self.it):
             buf.zero_()
         for buf in (self.x, self.xhat):
@@ -657,8 +717,23 @@ class _LaneProgram:
             T = masks.shape[1]
             self.flags[:T].copy_(torch.as_tensor(masks.T.copy()))
 
+    def resume(self, carry: State) -> None:
+        """Continue a one-lane run from its carry (z, x, xhat, res, t),
+        each (n, ...) but t, the 0-d count of iterations done."""
+        if self.B != 1:
+            raise ValueError("resume takes the carry of a one-lane run")
+        for buf, v in zip((self.z, self.x, self.xhat, self.res), carry[:4]):
+            buf.copy_(v.unsqueeze(1))
+        self.t.copy_(carry[4])
+
+    def carry(self) -> State:
+        """A copy of a one-lane run's carry (z, x, xhat, res, t)."""
+        return tuple(b[:, 0].clone() for b in (
+            self.z, self.x, self.xhat, self.res)) + (self.t.clone(),)
+
     def _iterate(self, comm: bool) -> None:
-        """One DDA iteration of every lane, in `_segment`'s float order."""
+        """One DDA iteration of every lane: the only one in the module,
+        behind `run`, `run_batch`, `_segment` and the closed loop."""
         sim, z, x, xhat, res, t = (self.sim, self.z, self.x, self.xhat,
                                    self.res, self.t)
         g = self.lanes(lambda xl: sim.subgrad_fn(xl, t, None), x)
@@ -701,7 +776,7 @@ class _LaneProgram:
         """Warm every body up on the buffers (before any run has loaded
         them, so on no run's state; the warm-up's launches are not
         counted), then capture each as a CUDA graph, into one memory pool,
-        recording the launches it holds."""
+        recording the launches it holds, and replay each graph once."""
         from repro_torch.kernels import counters
 
         before = counters.snapshot()
@@ -731,6 +806,11 @@ class _LaneProgram:
         finally:
             if gc_was_on:
                 gc.enable()
+        # a graph's first replay also uploads it to the card: made here,
+        # on no run's state and not counted, so no run times it
+        for name in self.BODIES:
+            graphs[name].replay()
+        torch.cuda.synchronize(self.sim.device)
         self.graphs = graphs
 
     def step(self, name: str) -> None:

@@ -412,8 +412,8 @@ def _piecewise(h: int = 1) -> _sched.CommSchedule:
 
 @schedules.register("adaptive")
 def _adaptive(h0: int = 1, p: float = 0.0, h_max: int = 512):
-    _not_ported("schedule kind 'adaptive' (closed-loop retuning)",
-                "dense adaptive")
+    from repro_torch.adaptive.schedule import AdaptiveSchedule
+    return AdaptiveSchedule(h0=h0, p=p, h_max=h_max)
 
 
 # ---------------------------------------------------------------------------

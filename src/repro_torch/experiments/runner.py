@@ -1,14 +1,24 @@
-"""`run(spec) -> RunResult` on the port: the dense backend of
-`repro.experiments.runner`, in PyTorch.
+"""`run(spec) -> RunResult` on the port: `repro.experiments.runner` in
+PyTorch.
 
-The dense backend builds the problem, graph, schedule, stepsize and
-compressor from the spec, runs `core.dda.DDASimulator` on the requested
-device (the CUDA card unless the caller asks for the CPU) and returns the
-reference's `RunResult`. `run_sweep` runs a grid of cells serially, as one
-batched program (`DDASimulator.run_batch`, parallel="vmap") or across
-processes, as the reference's. The netsim and launch backends and the dense
-closed loop ("dense_adaptive") are not ported yet: asking for them raises
-`NotImplementedError`.
+Backends (the `backends` registry):
+
+  * "dense"  -- `core.dda.DDASimulator` on the requested device (the CUDA
+    card unless the caller asks for the CPU). With a "dense_adaptive"
+    controller the closed loop is driven here (`_dense_adaptive_run`): the
+    one-lane run program replayed a uniform-comm chunk at a time, each
+    chunk timed on the host clock and fed to `adaptive.DenseController`,
+    which retunes h at segment boundaries.
+  * "netsim" -- `netsim.NetSimulator` on a scenario preset (params pick the
+    preset and its knobs, plus engine / algorithm / adaptive controller),
+    with fault plans and checkpoints. Its event loops are host numpy on
+    either device, bit for bit the reference's.
+  * "launch" -- not ported yet: asking for it raises
+    `NotImplementedError`.
+
+Each returns the reference's `RunResult`. `run_sweep` runs a grid of cells
+serially, as one batched program (`DDASimulator.run_batch`,
+parallel="vmap") or across processes, as the reference's.
 """
 
 from __future__ import annotations
@@ -17,7 +27,7 @@ import dataclasses
 import json
 import math
 import time
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -25,12 +35,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import tradeoff as _tradeoff
 from repro_torch.core.dda import DDASimulator, SimTrace, trace_time_to_reach
-from repro_torch.core.graphs import CommGraph
+from repro_torch.core.graphs import CommGraph, GraphSequence
 from repro_torch.experiments import components as C
 from repro_torch.experiments.registry import Registry
 from repro_torch.experiments.result import RunResult
 from repro_torch.experiments.spec import ComponentSpec, ExperimentSpec
-from repro_torch.obs import RunMetrics, Tracer, profile_ctx
+from repro_torch.obs import RunMetrics, Tracer, profile_ctx, sample_quantiles
 
 #: bytes per scalar in a dense gossip payload (float32)
 _DENSE_SCALAR_BYTES = 4
@@ -176,10 +186,6 @@ def _dense_parts(spec: ExperimentSpec, backend: ComponentSpec,
         from repro_torch.compress import build_compressor
         compression = build_compressor(spec.compression.kind,
                                        dict(spec.compression.params))
-    if spec.controller is not None:
-        raise NotImplementedError(
-            f"controller {spec.controller.kind!r} is not ported yet "
-            f"(slice: dense adaptive)")
     problem = _build_problem(spec, device)
     _require(isinstance(problem, C.Problem),
              f"dense backend cannot run problem kind "
@@ -224,35 +230,77 @@ def _run_dense(spec: ExperimentSpec, backend: ComponentSpec,
     with tr.span("build"):
         parts = _dense_parts(spec, backend, device)
         problem, graph = parts["problem"], parts["graph"]
+        schedule = parts["schedule"]
         sim = _dense_sim(spec, parts, device)
         x0 = torch.zeros((problem.n, problem.d), dtype=torch.float32,
                          device=device)
-    t0 = time.perf_counter()
-    with profile_ctx(spec.profile_dir):
-        trace = sim.run(x0, spec.T, eval_every=spec.eval_every,
-                        seed=spec.seed, loop=parts["loop"])
-    wall = time.perf_counter() - t0
-    compile_s = sim.last_timings["compile_s"]
-    tr.add_host_span("compile", tr.now() - wall, compile_s)
-    tr.add_host_span("execute", tr.now() - wall + compile_s,
-                     wall - compile_s)
+    extras: dict[str, Any] = {"mix_mode": sim.mix_mode}
+    metrics_fields: dict[str, Any] = {}
+    if spec.controller is not None:
+        _require(parts["loop"] == "scan",
+                 "a dense_adaptive run drives its own wall-clock chunked "
+                 "segment loop; leave the 'loop' param unset")
+        _require(spec.controller.kind == "dense_adaptive",
+                 f"dense backend needs a 'dense_adaptive' controller, got "
+                 f"{spec.controller.kind!r}")
+        from repro_torch.adaptive import AdaptiveSchedule, DenseController
+        _require(isinstance(schedule, AdaptiveSchedule),
+                 "a controller run needs schedule kind 'adaptive'")
+        ctrl_params = dict(spec.controller.params)
+        if sim.compression is not None:
+            # the dense tracker's r_hat comes from wall-clock timings that
+            # do NOT shrink with compression; tell the controller the wire
+            # ratio so its retunes target the effective tradeoff r*c
+            ctrl_params.setdefault("wire_ratio",
+                                   sim.wire_ratio(problem.d))
+        ctrl = DenseController(schedule, **ctrl_params)
+        ctrl.attach_tracer(tr)
+        timings: dict[str, Any] = {"compile_s": 0.0, "iter_walls": []}
+        t0 = time.perf_counter()
+        with tr.span("execute"), profile_ctx(spec.profile_dir):
+            trace = _dense_adaptive_run(sim, ctrl, x0, spec.T,
+                                        spec.eval_every, spec.seed,
+                                        timings=timings)
+        wall = time.perf_counter() - t0
+        extras["retunes"] = [(rt.from_t, rt.h) for rt in schedule.retunes]
+        extras["h_final"] = schedule.h_current
+        extras["r_hat"] = ctrl.tracker.r_hat
+        metrics_fields.update(
+            compile_s=timings["compile_s"],
+            retunes=len(schedule.retunes),
+            retune_history=schedule.retunes,
+            r_hat=ctrl.tracker.r_hat,
+            r_hat_trajectory=ctrl.r_hat_history,
+            step_time_quantiles=sample_quantiles(timings["iter_walls"],
+                                                 "host"))
+    else:
+        t0 = time.perf_counter()
+        with profile_ctx(spec.profile_dir):
+            trace = sim.run(x0, spec.T, eval_every=spec.eval_every,
+                            seed=spec.seed, loop=parts["loop"])
+        wall = time.perf_counter() - t0
+        compile_s = sim.last_timings["compile_s"]
+        tr.add_host_span("compile", tr.now() - wall, compile_s)
+        tr.add_host_span("execute", tr.now() - wall + compile_s,
+                         wall - compile_s)
+        metrics_fields["compile_s"] = compile_s
+        if sim.last_timings["eval_s"]:
+            metrics_fields.update(eval_s=sim.last_timings["eval_s"])
+        tr.count("device_execute_s", sim.last_timings["execute_s"])
     # how the run ran ("graph" or "eager"); not in extras, which the parity
     # check compares with the reference's exactly
-    metrics_fields: dict[str, Any] = {"notes": {"loop": sim.last_loop}}
-    if sim.last_timings["eval_s"]:
-        metrics_fields.update(eval_s=sim.last_timings["eval_s"])
-    tr.count("device_execute_s", sim.last_timings["execute_s"])
+    metrics_fields["notes"] = {"loop": sim.last_loop}
     # execute_s is the non-compile remainder of the backend wall, so
     # compile_s + execute_s == wall_s exactly, as in the reference
+    compile_s = float(metrics_fields["compile_s"])
     metrics_fields["execute_s"] = max(wall - compile_s, 0.0)
     metrics_fields["compile_s"] = min(compile_s, wall)
     eps_value, tta = _target_fields(trace, _eps_value(spec, problem))
     ratio = sim.wire_ratio(problem.d)
-    predictions = _dense_predictions(graph, spec.r, parts["schedule"],
+    predictions = _dense_predictions(graph, spec.r, schedule,
                                      graph.lambda2(), c=ratio)
     counts = _dense_message_counts(trace, problem.n, graph.degree,
                                    problem.d, ratio=ratio)
-    extras: dict[str, Any] = {"mix_mode": sim.mix_mode}
     if sim.compression is not None:
         comp_block = _compression_block(
             sim.compression.kind, ratio,
@@ -269,10 +317,262 @@ def _run_dense(spec: ExperimentSpec, backend: ComponentSpec,
                      metrics=metrics)
 
 
+def _dense_adaptive_run(sim: DDASimulator, ctrl, x0: torch.Tensor, T: int,
+                        eval_every: int, seed: int,
+                        timer: Callable[[], float] = time.perf_counter,
+                        timings: dict[str, Any] | None = None
+                        ) -> SimTrace:
+    """`DDASimulator.run` with the measure->predict->act loop on the wall
+    clock, the counterpart of the reference's `_dense_adaptive_run`.
+
+    The simulator's chunk driver holds the run: `start_closed_loop` builds
+    its one-lane run program once (captured on a card unless the problem
+    cannot be; the build is charged to `timings["compile_s"]`, outside any
+    timed chunk), loads it and synchronizes, and the carry stays in the
+    program's buffers from chunk to chunk. Each evaluation segment splits
+    into uniform-comm chunks, read live from `sched.is_comm_step` (the
+    controller splices h at segment boundaries, so no mask is built
+    ahead). A chunk is `sim.run_chunk(comm, chunk)`: `chunk` replays of
+    the comm or idle body, then a device synchronize; `timer()` is read
+    around that call, which is the seam a test wraps to charge a fake
+    clock. Each chunk's per-iteration wall feeds `DenseController.observe`;
+    at each segment end `sim.segment_stats()` gives the trace point (and,
+    under compression, the residual norm), and the controller may splice a
+    re-solved h at the frontier `done` (never at T: that would shape no
+    iteration).
+
+    `timings` (optional dict) receives `compile_s` and, per iteration, the
+    measured wall in `iter_walls`. Launch counts come from the replays, as
+    in `run` (`sim.end_closed_loop`).
+    """
+    n, k = sim.graph.n, sim.graph.degree
+    r_eff = sim.r * sim.wire_ratio(int(np.prod(x0.shape[1:])))
+    ctrl.bind(n, k, sim.graph.lambda2())
+    sched = sim.schedule
+    trace = SimTrace([], [], [], [], [])
+    res_norms: list[float] = []
+    sim_time = 0.0
+    comm_total = 0
+    if T > 0:
+        sim.start_closed_loop(x0, T)
+        if timings is not None:
+            timings["compile_s"] += sim.last_timings["compile_s"]
+
+    done = 0
+    while done < T:
+        seg_end = min(done + eval_every, T)
+        while done < seg_end:
+            comm = sched.is_comm_step(done + 1)
+            chunk = 1
+            while (done + chunk < seg_end
+                   and sched.is_comm_step(done + chunk + 1) == comm):
+                chunk += 1
+            t0 = timer()
+            sim.run_chunk(comm, chunk)
+            per_iter = max(timer() - t0, 0.0) / chunk
+            if timings is not None:
+                timings["iter_walls"].extend([per_iter] * chunk)
+            for _ in range(chunk):
+                ctrl.observe(per_iter, comm)
+            done += chunk
+            if comm:
+                comm_total += chunk
+                sim_time += chunk * (1.0 / n + k * r_eff)
+            else:
+                sim_time += chunk * (1.0 / n)
+        stats = sim.segment_stats()
+        trace.iters.append(done)
+        trace.sim_time.append(sim_time)
+        trace.fvals.append(stats.fval)
+        trace.fvals_consensus.append(stats.fval_consensus)
+        trace.comms.append(comm_total)
+        trace.disagreement.append(stats.disagreement)
+        if sim.compression is not None:
+            res_norms.append(stats.res_norm)
+        if done < T:  # a splice at the frontier T would shape zero
+            ctrl.maybe_retune(done)  # iterations: don't record phantoms
+    if T > 0:
+        sim.end_closed_loop()
+    sim.last_res_norms = (np.asarray(res_norms)
+                          if sim.compression is not None else None)
+    return trace
+
+
+# ---------------------------------------------------------------------------
+# netsim backend
+# ---------------------------------------------------------------------------
+
+_SCENARIO_KNOBS = {
+    "homogeneous": (),
+    "lossy": ("loss", "jitter", "retries", "retry_timeout"),
+    "straggler": ("slow_factor", "n_slow"),
+    "adversarial": ("loss", "slow_factor", "n_slow", "rewire_every",
+                    "retries", "retry_timeout"),
+    "time_varying": ("rewire_every", "loss"),
+}
+
+
+def _build_scenario(kind: str, n: int, r: float, topology,
+                    message_bytes: float, knobs: dict[str, Any]):
+    from repro_torch.netsim import scenarios as S
+    allowed = _SCENARIO_KNOBS.get(kind)
+    if allowed is None:
+        raise KeyError(f"unknown scenario {kind!r}; have "
+                       f"{sorted(_SCENARIO_KNOBS)}")
+    unknown = set(knobs) - set(allowed)
+    if unknown:
+        raise ValueError(f"scenario {kind!r} has unknown knobs "
+                         f"{sorted(unknown)} (allowed: {list(allowed)})")
+    builder = {"homogeneous": S.homogeneous, "lossy": S.lossy,
+               "straggler": S.straggler, "adversarial": S.adversarial,
+               "time_varying": S.time_varying_expander}[kind]
+    if kind == "time_varying" and "rewire_every" not in knobs:
+        raise ValueError("time_varying scenario needs rewire_every")
+    return builder(n, r, message_bytes=message_bytes, graph=topology,
+                   **knobs)
+
+
 @backends.register("netsim")
-def _run_netsim(spec, backend, tracer=None, *, device=None):
-    raise NotImplementedError("the netsim backend is not ported yet "
-                              "(slice: netsim)")
+def _run_netsim(spec: ExperimentSpec, backend: ComponentSpec,
+                tracer: Tracer | None = None, *, device=None) -> RunResult:
+    """Netsim backend. The event loops are host numpy on either device;
+    the problem's torch halves are built on `device` (None: the CUDA
+    card), as every entry point of the port."""
+    from repro_torch.netsim import NetSimulator
+
+    device = resolve_device(device)
+    tr = tracer if tracer is not None else Tracer()
+    _require(spec.profile_dir is None,
+             "profile_dir wraps the dense scanned program; the netsim "
+             "event loops are host numpy (nothing for torch.profiler to "
+             "see)")
+    params = dict(backend.params)
+    scenario_kind = params.pop("scenario", "homogeneous")
+    engine = params.pop("engine", "auto")
+    algorithm = params.pop("algorithm", "dda")
+    message_bytes = params.pop("message_bytes", None)
+    pushsum_w_floor = params.pop("pushsum_w_floor", 0.5)
+    pushsum_inject = params.pop("pushsum_inject", "plain")
+    knobs = {k: params.pop(k)
+             for k in list(params)
+             if k in {"loss", "jitter", "slow_factor", "n_slow",
+                      "rewire_every", "retries", "retry_timeout"}}
+    _require(not params,
+             f"netsim backend has unknown params {sorted(params)}")
+
+    with tr.span("build"):
+        problem = _build_problem(spec, device)
+        _require(isinstance(problem, C.Problem),
+                 f"netsim backend cannot run problem kind "
+                 f"{spec.problem.kind!r}")
+        topology = _build_topology(spec, problem.n)
+        if scenario_kind == "time_varying" or knobs.get("rewire_every"):
+            _require(isinstance(topology, GraphSequence),
+                     "a rewiring scenario needs an 'expander_sequence' "
+                     "topology")
+
+        if message_bytes is None:
+            from repro_torch.netsim.scenarios import DEFAULT_MESSAGE_BYTES
+            message_bytes = DEFAULT_MESSAGE_BYTES
+        scenario = _build_scenario(scenario_kind, problem.n, spec.r,
+                                   topology, message_bytes, knobs)
+        a_fn = _build_stepsize(spec)
+        schedule = _build_schedule(spec)
+
+        ctrl = None
+        if spec.controller is not None:
+            _require(spec.controller.kind == "adaptive",
+                     f"netsim backend needs an 'adaptive' controller, got "
+                     f"{spec.controller.kind!r}")
+            from repro_torch.adaptive import (AdaptiveController,
+                                              AdaptiveSchedule)
+            _require(isinstance(schedule, AdaptiveSchedule),
+                     "a controller run needs schedule kind 'adaptive'")
+            ctrl = AdaptiveController(schedule, **spec.controller.params)
+
+        plan = None
+        if spec.faults is not None:
+            from repro_torch.faults import faultplans
+            plan = C.build_component(faultplans, spec.faults.kind,
+                                     spec.faults.params, n=problem.n)
+
+        compression = None
+        if spec.compression is not None:
+            from repro_torch.compress import build_compressor
+            compression = build_compressor(spec.compression.kind,
+                                           dict(spec.compression.params))
+
+        sim = NetSimulator(scenario, problem.grad_fn, problem.eval_fn,
+                           a_fn=a_fn,
+                           schedule=None if ctrl is not None else schedule,
+                           algorithm=algorithm, seed=spec.seed,
+                           pushsum_w_floor=pushsum_w_floor,
+                           pushsum_inject=pushsum_inject,
+                           engine=engine, controller=ctrl, tracer=tr,
+                           faults=plan, compression=compression)
+    x0 = np.zeros((problem.n, problem.d))
+    time_limit = math.inf if spec.time_limit is None else spec.time_limit
+    t0 = time.perf_counter()
+    with tr.span("execute"):
+        trace = sim.run(x0, spec.T, eval_every=spec.eval_every,
+                        time_limit=time_limit)
+    wall = time.perf_counter() - t0
+
+    eps_value, tta = _target_fields(trace, _eps_value(spec, problem))
+    measurement = None
+    predictions = None
+    if sim.msg_flights and sim.compute_times:
+        predictions = sim.predict(eps=PREDICT_EPS)
+        measurement = predictions.pop("measurement")
+    extras: dict[str, Any] = {
+        "engine": sim._engine_inst.name,
+        "scenario": scenario.name,
+        "sent": sim.sent, "drops": sim.drops, "rewires": sim.rewires,
+    }
+    metrics_fields: dict[str, Any] = dict(
+        compile_s=0.0,  # event loops are host numpy: nothing compiles
+        execute_s=wall,
+        msgs=sim.sent,
+        # wire_bytes is message_bytes scaled by the compressor's ratio
+        # (identical when uncompressed): bytes that actually crossed links
+        bytes_on_wire=float(sim.sent * sim.net.wire_bytes),
+        drops=sim.drops,
+        gossip_rounds=int(trace.comms[-1]) if trace.comms else 0,
+        step_time_quantiles=sample_quantiles(sim.compute_times, "sim"))
+    if sim.compression is not None:
+        comp_block = _compression_block(
+            sim.compression.kind,
+            sim.net.wire_bytes / sim.net.message_bytes,
+            full_bytes=float(sim.sent * sim.net.message_bytes),
+            wire_bytes=float(sim.sent * sim.net.wire_bytes),
+            residual_norms=sim.comp_res_norms)
+        extras["compression"] = comp_block
+        metrics_fields["compression"] = comp_block
+    if plan is not None:
+        faults_block = {**(sim.fault_stats or {}),
+                        "retransmits": sim.retransmits}
+        extras["faults"] = faults_block
+        metrics_fields["faults"] = faults_block
+    elif sim.retransmits:
+        metrics_fields["faults"] = {"retransmits": sim.retransmits}
+    if ctrl is not None:
+        extras["retunes"] = [(rt.from_t, rt.h)
+                             for rt in ctrl.schedule.retunes]
+        extras["h_final"] = ctrl.schedule.h_current
+        extras["h_opt_hat"] = ctrl.schedule.h_opt_hat
+        extras["r_hat"] = ctrl.tracker.r_hat
+        if ctrl.reweighter is not None:
+            extras["lam2_eff"] = ctrl.reweighter.last_lam2
+        extras["reweight_gossip"] = ctrl.reweight_gossip
+        metrics_fields.update(retunes=len(ctrl.schedule.retunes),
+                              retune_history=ctrl.schedule.retunes,
+                              r_hat=ctrl.tracker.r_hat,
+                              r_hat_trajectory=ctrl.r_hat_history)
+    metrics = RunMetrics.from_tracer(tr, **metrics_fields)
+    return RunResult(spec=spec, backend=backend, trace=trace, wall_s=wall,
+                     eps_value=eps_value, time_to_target=tta,
+                     r_measurement=measurement, predictions=predictions,
+                     extras=extras, metrics=metrics)
 
 
 @backends.register("launch")

@@ -168,17 +168,27 @@ def _program_state(sim, B):
 
 @pytest.mark.parametrize("compression", COMPRESSED, ids=COMPRESSED_IDS)
 def test_one_lane_program_is_segment_bit_for_bit(compression):
-    """run(loop="scan") is the program at B = 1, whose bodies issue
-    `_segment`'s ops: the final carry is the same bits."""
+    """loop="scan" (the program at B = 1) and loop="segment" (the same
+    program's bodies stepped eagerly, the statistics read after each
+    segment) give the same trace and the same final carry, bit for bit;
+    `_segment` from the start gives that carry too."""
     _, port = _pair(compression=compression)
     port.schedule = port_sched.Periodic(h=3)
-    port.run(torch.zeros((N, D)), T, eval_every=EVERY)
+    scan = port.run(torch.zeros((N, D)), T, eval_every=EVERY)
+    got = _program_state(port, 1)
+    segment = port.run(torch.zeros((N, D)), T, eval_every=EVERY,
+                       loop="segment")
+    assert segment == scan
+    stepped = port._programs[((N, D), torch.float32, 1, "eager")]
+    assert stepped is not port._programs[((N, D), torch.float32, 1)]
     z0 = torch.zeros((N, D))
     expect = port._segment(z0, z0, z0, z0, torch.tensor(0.0),
                            np.asarray(port.schedule.comm_mask(0, T), bool))
-    got = _program_state(port, 1)
-    for name, a, b in zip(("z", "x", "xhat", "res"), got, expect):
+    for name, a, b, c in zip(("z", "x", "xhat", "res"), got, expect,
+                             (stepped.z, stepped.x, stepped.xhat,
+                              stepped.res)):
         assert torch.equal(a[:, 0], b), name
+        assert torch.equal(c[:, 0], b), name
     assert float(got[4]) == float(expect[4]) == T
 
 

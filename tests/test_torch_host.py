@@ -96,8 +96,24 @@ def test_schedules_bitwise(kind, params):
 
 
 def test_adaptive_schedule_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_C.build_component(port_C.schedules, "adaptive", {"h0": 2})
+    """Named for the refusal it used to pin: the adaptive schedule is now
+    ported, and built from the registry it equals the reference's bit for
+    bit, before and after the same retunes (eq. 21 re-solved and spliced
+    in)."""
+    params = {"h0": 2, "p": 0.1, "h_max": 16}
+    ref = ref_C.build_component(ref_C.schedules, "adaptive", params)
+    port = port_C.build_component(port_C.schedules, "adaptive", params)
+    assert type(port).__name__ == type(ref).__name__ == "AdaptiveSchedule"
+    assert (_schedule_record(ref, ref_tradeoff)
+            == _schedule_record(port, port_tradeoff))
+    for s in (ref, port):
+        assert s.retune(30, 16, 4, 40.0, 0.6)
+        s.retune(70, 16, 4, 0.01, 0.6)
+    assert [(r.from_t, r.h, r.h_opt_raw) for r in port.retunes] == \
+        [(r.from_t, r.h, r.h_opt_raw) for r in ref.retunes]
+    assert port.h_current == ref.h_current
+    assert (_schedule_record(ref, ref_tradeoff)
+            == _schedule_record(port, port_tradeoff))
 
 
 def test_tradeoff_functions_bitwise():

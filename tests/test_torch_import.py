@@ -17,7 +17,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 MANIFEST = ROOT / "benchmarks" / "manifests" / "expander_periodic.json"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "repro")
 
 
 def test_import_leaves_jax_and_repro_out():
@@ -27,8 +27,10 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
         "import repro_torch.compress, repro_torch.kernels.compress_mix\n"
         "import repro_torch.experiments.__main__\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "import repro_torch.netsim, repro_torch.adaptive, repro_torch.faults\n"
+        "import repro_torch.checkpoint, repro_torch.runtime\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

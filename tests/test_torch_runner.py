@@ -1,8 +1,9 @@
 """`repro_torch.run(spec, device="cpu")` against `repro.run(spec)` on the
 dense backend of every dense manifest, compressed and uncompressed, under
 the port's parity check (`convert.assert_results_match`: host fields exact,
-trace floats and residual norms rtol 1e-5, atol 1e-6), plus the CLI and the
-refusals of what is not ported yet."""
+trace floats and residual norms rtol 1e-5, atol 1e-6), plus the CLI, the
+refusal of what is not ported yet (the launch backend) and the paths that
+were refused before (netsim manifests, the dense closed loop)."""
 
 import copy
 import os
@@ -167,12 +168,32 @@ def test_parity_check_compares_the_compression_block():
 
 
 @pytest.mark.parametrize("name,backend", [
-    ("expander_periodic", "netsim"),
     ("launch_dryrun", "launch"),
-    ("churn_adversarial", "netsim"),
-    ("adaptive_adversarial", "dense"),
 ])
 def test_unported_paths_raise(name, backend):
     spec = repro_torch.ExperimentSpec.from_file(MANIFESTS / f"{name}.json")
     with pytest.raises(NotImplementedError, match="not ported yet"):
         repro_torch.run(spec, backend, device="cpu")
+
+
+@pytest.mark.parametrize("name,backend", [
+    ("expander_periodic", "netsim"),
+    ("churn_adversarial", "netsim"),
+    ("adaptive_adversarial", "dense"),
+])
+def test_formerly_refused_paths_match_reference(name, backend):
+    """The paths the port refused before the netsim backend and the dense
+    closed loop: each now gives the reference's result, or its error."""
+    path = MANIFESTS / f"{name}.json"
+    spec = repro_torch.ExperimentSpec.from_file(path)
+    ref_spec = repro.ExperimentSpec.from_file(path)
+    try:
+        theirs = repro.run(ref_spec, backend)
+    except ValueError as err:
+        with pytest.raises(ValueError) as ours:
+            repro_torch.run(spec, backend, device="cpu")
+        assert str(ours.value) == str(err)
+        return
+    ours = repro_torch.run(spec, backend, device="cpu").to_dict()
+    assert ours["trace"] == theirs.to_dict()["trace"]
+    assert_results_match(ours, theirs.to_dict())

@@ -142,8 +142,9 @@ def test_vmap_sweep_falls_back_on_the_n_axis():
 
 def test_netsim_pool_gets_the_reference_reason():
     """A netsim spec is refused before anything is built, with the
-    reference's reason; its serial fallback then meets the unported
-    netsim backend, which raises rather than run anything else."""
+    reference's reason; its serial fallback then runs the netsim backend,
+    each cell the reference's fallback's bit for bit, carrying the
+    reason."""
     ours_spec = repro_torch.ExperimentSpec(**_netsim_kw())
     ref_spec = repro.ExperimentSpec(**_netsim_kw())
     cells = [ours_spec.with_value("seed", s) for s in (0, 1)]
@@ -153,9 +154,15 @@ def test_netsim_pool_gets_the_reference_reason():
     assert out is None and ref_out is None
     assert reason == ref_reason
     assert "not dense" in reason
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        repro_torch.run_sweep(ours_spec, "seed", [0, 1], parallel="vmap",
-                              device="cpu")
+    ours = repro_torch.run_sweep(ours_spec, "seed", [0, 1],
+                                 parallel="vmap", device="cpu")
+    theirs = repro.run_sweep(ref_spec, "seed", [0, 1], parallel="vmap")
+    assert [r.spec.seed for r in ours] == [0, 1]
+    for a, b in zip(ours, theirs):
+        assert a.extras["vmap_fallback"] == b.extras["vmap_fallback"] == \
+            a.metrics.notes["vmap_fallback"] == reason
+        assert a.to_dict()["trace"] == b.to_dict()["trace"]
+        assert_results_match(a.to_dict(), b.to_dict())
 
 
 #: spec and backend changes that make a cell unbatchable, one reason each
