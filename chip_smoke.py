@@ -125,6 +125,24 @@ non-zero and the last line is not printed. The phases:
             gradients through netsim.torch_batch_grad on the card, beside
             the numpy gradients' run: the largest fvals difference
             (float32 against float64; relative 1e-4 at most)
+  serve     the full-size cell served through repro_torch.serve, each
+            served result held to a solo repro_torch.run of its spec
+            exactly (comparable_result_dict), each request with every
+            launch count set to 0 just before and read just after. In
+            process (ExperimentServer, two threads): cold, then warm (a
+            cache hit that captures nothing, compile_s under 1 ms); a
+            packed lane of three requests (h 2, 4, 8; r 0.01, 0.02,
+            0.04; seeds 0, 1, 2) at lane_width 3, K1 launched once for
+            each iteration at which any lane communicates; the cell under
+            top-k at keep 1/4 (K2); a netsim manifest run solo with its
+            reason; a new signature captured beside a replay of the warm
+            cell; one request over TCP through Client, its trace the solo
+            run's. The in-process runs' launches must be their rounds
+            (serve_launches). Then two worker processes, a ChaosPlan
+            killing the first job's worker mid-run: every result exact,
+            the job re-enqueued, no request executed twice. Prints cold
+            and warm walls with compile_s, the packed wall beside the
+            solo walls' sum, and the pool's first-job and warm-job walls
   kernel_k3 K3 (the flat per-node mix, `kernels.ops.gossip_mix`) against
             its plain version over M in {1, 3, 130, 4099, 8192, 65537,
             2^20} (and a misaligned view), k in {1, 4, 8}, fp32 and bf16
@@ -248,9 +266,10 @@ K1_DIGEST = "268a95744011ca0ff7df2cce4d3ffd801ae69a0ad4069e5aa15e0faf75cb974a"
 MAIN_PATH_DIGEST = ("5f506e54118168c58972cac6e3be08280cfc1bf33a76ab994d99009f"
                     "03e75c49")
 #: the relative error a sweep lane's device floats may show against its
-#: serial run, as tests/test_sweeps.py holds the reference's lanes: the
+#: serial run, as tests/test_sweeps.py holds the reference's lanes; the
 #: lanes' states are the solo runs' bit for bit (the mix sees them as
-#: columns), their statistics reduce per lane in another order
+#: columns), and so are their statistics, which the batch reduces lane by
+#: lane on contiguous copies (the sweep phase counts the equal entries)
 SWEEP_RTOL = 1e-6
 
 
@@ -1712,6 +1731,193 @@ def phase_netsim() -> None:
          torch_batch_grad_wall_s=runs["torch_batch_grad_wall_s"])
 
 
+#: the packed lane of the serve phase: (h, r, seed) for each request
+SERVE_LANE = ((2, 0.01, 0), (4, 0.02, 1), (8, 0.04, 2))
+
+
+def _served(counts: dict, call):
+    """`call()` with every launch count set to 0 just before and read just
+    after, added into `counts` by kernel. Returns what it returned."""
+    _zero_launch_counts()
+    out = call()
+    for kernel, n in _launch_counts().items():
+        counts[kernel] = counts.get(kernel, 0) + n
+    return out
+
+
+def _exact(label: str, served, solo) -> None:
+    from repro_torch.serve import comparable_result_dict
+
+    if comparable_result_dict(served) != comparable_result_dict(solo):
+        raise AssertionError(f"serve: {label} differs from its solo run")
+
+
+def phase_serve() -> dict:
+    """The full-size cell served through `repro_torch.serve`: in process
+    (two threads), through two spawned worker processes one of which a
+    ChaosPlan kills mid-run, and over TCP. Every served result must equal
+    a solo `repro_torch.run` of its spec exactly (`comparable_result_dict`).
+    Returns the in-process runs' launches by kernel, each request's counts
+    set to 0 just before it and read just after."""
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.core.dda import _LaneProgram
+    from repro_torch.core.schedules import Periodic
+    from repro_torch.serve import ChaosPlan, Client, ExperimentServer
+
+    cell = _dense_cell_spec()
+    lane = [cell.with_value("schedule.params.h", h).with_value(
+        "r", r).with_value("seed", seed).with_value("name", f"lane_h{h}")
+        for h, r, seed in SERVE_LANE]
+    topk = _dense_cell_spec({"kind": "topk", "params": {"keep": 0.25}}
+                            ).with_value("name", "dense_full_topk")
+    other = cell.with_value("T", 250).with_value("name", "dense_T250")
+    net = repro_torch.ExperimentSpec.from_file(
+        ROOT / "benchmarks" / "manifests" / "expander_periodic.json")
+    pool_specs = [cell.with_value("seed", seed).with_value(
+        "name", f"pool_s{seed}") for seed in range(3)]
+    solo = {s.name: repro_torch.run(s, device="cuda")
+            for s in [cell, *lane, topk, other, *pool_specs]}
+    solo["net"] = repro_torch.run(net, "netsim", device="cuda")
+
+    captures = []
+    real_capture = _LaneProgram.capture
+
+    def counted_capture(self):
+        captures.append(self.B)
+        return real_capture(self)
+
+    counts: dict = {}
+    _LaneProgram.capture = counted_capture
+    try:
+        with ExperimentServer(workers=2, max_width=len(SERVE_LANE),
+                              max_wait_s=0.2) as srv:
+            cold = _served(counts, lambda: srv.submit(cell).result(600))
+            n_captured = len(captures)
+            warm = _served(counts, lambda: srv.submit(cell).result(600))
+            new_captures = len(captures) - n_captured
+            if new_captures or \
+                    warm.metrics.counters.get("cache_hit") != 1.0 or \
+                    warm.metrics.compile_s >= 1e-3:
+                raise AssertionError(
+                    f"serve: the warm run captured {new_captures} "
+                    f"programs, counters {warm.metrics.counters}, "
+                    f"compile_s {warm.metrics.compile_s}")
+            _exact("the cold run", cold, solo[cell.name])
+            _exact("the warm run", warm, solo[cell.name])
+
+            before = dict(counts)
+            packed = _served(counts, lambda: [
+                f.result(600) for f in [srv.submit(s) for s in lane]])
+            masks = np.stack([Periodic(h=h).comm_mask(0, cell.T)
+                              for h, _, _ in SERVE_LANE])
+            lane_k1 = counts["gossip_mix"] - before.get("gossip_mix", 0)
+            if lane_k1 != int(masks.any(axis=0).sum()):
+                raise AssertionError(f"serve: the packed lane launched K1 "
+                                     f"{lane_k1} times, not once for each "
+                                     f"of its {int(masks.any(axis=0).sum())}"
+                                     f" communicating iterations")
+            for spec, result in zip(lane, packed):
+                if result.extras.get("lane_width") != len(SERVE_LANE):
+                    raise AssertionError(f"serve: {spec.name} ran at "
+                                         f"{result.extras}, not packed")
+                _exact(f"packed lane {spec.name}", result, solo[spec.name])
+
+            served_topk = _served(counts,
+                                  lambda: srv.submit(topk).result(600))
+            _exact("the top-k run", served_topk, solo[topk.name])
+            served_net = _served(counts, lambda: srv.submit(
+                net, backend="netsim").result(600))
+            _exact("the netsim run", served_net, solo["net"])
+            if "not dense" not in served_net.metrics.notes["solo_reason"]:
+                raise AssertionError(f"serve: netsim solo_reason "
+                                     f"{served_net.metrics.notes}")
+
+            # one thread captures a new signature while the other replays
+            # the warm cell
+            n_captured = len(captures)
+            side = _served(counts, lambda: [
+                f.result(600) for f in [srv.submit(other),
+                                        srv.submit(cell)]])
+            if len(captures) != n_captured + 1:
+                raise AssertionError(f"serve: side by side captured "
+                                     f"{len(captures) - n_captured} "
+                                     f"programs, not 1")
+            _exact("the new signature beside a replay", side[0],
+                   solo[other.name])
+            _exact("the replay beside a capture", side[1], solo[cell.name])
+
+            host, port = srv.start()
+            with Client(host, port, timeout=600.0) as client:
+                over_tcp = _served(counts, lambda: client.run(cell))
+            if over_tcp.to_dict()["trace"] != \
+                    solo[cell.name].to_dict()["trace"]:
+                raise AssertionError("serve: the TCP result's trace "
+                                     "differs from the solo run's")
+            _exact("the TCP run", over_tcp, solo[cell.name])
+            stats = srv.stats()
+    finally:
+        _LaneProgram.capture = real_capture
+
+    k1_runs = [cold, warm, side[0], side[1], over_tcp]
+    expect = {"gossip_mix": sum(r.trace.comms[-1] for r in k1_runs)
+              + int(masks.any(axis=0).sum()),
+              "compress_mix": served_topk.trace.comms[-1]}
+    if {k: n for k, n in counts.items() if n} != expect:
+        raise AssertionError(f"serve: the in-process runs launched {counts}"
+                             f", expected {expect}")
+    emit("serve", kernels_launched=expect, captures=len(captures),
+         cold_wall_s=cold.wall_s, cold_compile_s=cold.metrics.compile_s,
+         warm_wall_s=warm.wall_s, warm_compile_s=warm.metrics.compile_s,
+         warm_us_per_iter=warm.metrics.execute_s / cell.T * 1e6,
+         packed_lane_width=len(SERVE_LANE),
+         packed_wall_s=sum(r.wall_s for r in packed),
+         packed_compile_s=sum(r.metrics.compile_s for r in packed),
+         solo_walls_s=sum(solo[s.name].wall_s for s in lane),
+         solo_compile_s=sum(solo[s.name].metrics.compile_s for s in lane),
+         topk_wall_s=served_topk.wall_s, netsim_wall_s=served_net.wall_s,
+         side_by_side_wall_s=[r.wall_s for r in side],
+         tcp_wall_s=over_tcp.wall_s, cache=stats["cache"],
+         packer=stats["packer"])
+
+    # two worker processes, the first job's worker killed mid-run
+    plan = ChaosPlan(seed=7, kill_at_dispatch=(1,), kill_delay_s=(0.05, 0.2))
+    jobs = {"first": [], "warm": []}
+    with ExperimentServer(processes=2, packing=False, chaos=plan,
+                          pool_kwargs={"backoff_base_s": 0.05}) as pool:
+        for phase in ("first", "warm"):
+            for spec in pool_specs:
+                t0 = time.perf_counter()
+                result = pool.submit(
+                    spec, idempotency_key=f"{phase}-{spec.name}").result(600)
+                c = result.metrics.counters
+                # round trip; waiting for a ready worker (its spawn); the
+                # run's own wall and its capture, in the worker
+                jobs[phase].append({
+                    "round_trip_s": time.perf_counter() - t0,
+                    "queue_wait_s": c["queue_wait_s"],
+                    "cache_hit": c.get("cache_hit", 0.0) == 1.0,
+                    "wall_s": result.wall_s,
+                    "compile_s": result.metrics.compile_s,
+                    "reenqueues": c.get("reenqueues", 0.0)})
+                _exact(f"the pooled {phase} run {spec.name}", result,
+                       solo[spec.name])
+        stats = pool.stats()
+    if stats["dedup"]["max_executions_per_key"] > 1 or \
+            stats["robustness"]["reenqueues"] < 1 or \
+            stats["robustness"]["worker_restarts"] < 1 or \
+            stats["chaos"]["kills_delivered"] < 1:
+        raise AssertionError(f"serve: the pool's chaos run {stats}")
+    emit("serve_pool", processes=2, first_jobs=jobs["first"],
+         warm_jobs=jobs["warm"],
+         reenqueues=stats["robustness"]["reenqueues"],
+         worker_restarts=stats["robustness"]["worker_restarts"],
+         kills_delivered=stats["chaos"]["kills_delivered"],
+         max_executions_per_key=stats["dedup"]["max_executions_per_key"])
+    return counts
+
+
 def _hold(label: str, out, expect, tol: dict) -> float:
     """A front door's `out` against its plain version's `expect` on the same
     inputs: the same dtype and shape, finite, within `tol`. Returns the
@@ -2169,6 +2375,9 @@ def main() -> int:
     k1["adaptive_launches"] = adaptive["gossip_mix"]
     k2["adaptive_launches"] = adaptive["compress_mix"]
     phase_netsim()
+    serve = phase_serve()
+    k1["serve_launches"] = serve["gossip_mix"]
+    k2["serve_launches"] = serve["compress_mix"]
     k3 = phase_kernel_k3()
     k4 = phase_kernel_k4(build_s)
     k5 = phase_kernel_k5()

@@ -41,13 +41,17 @@ per shape and replayed: the counterpart of the reference's compile per
 shape. A problem whose closures read the device back to the host cannot be
 captured and says so (`DDASimulator(capture=False)`); its runs, and every
 run on the CPU, call the same bodies eagerly. `last_loop` records which.
+A capture runs alone on the card (`DEVICE_LOCK`), so threads that share
+the process (the experiment server's) may run and capture side by side.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import math
+import threading
 import time
 import weakref
 from typing import Callable, NamedTuple
@@ -61,6 +65,7 @@ from repro_torch.core.graphs import CommGraph, mix_weight_slots
 from repro_torch.core.schedules import CommSchedule, EveryIteration
 
 __all__ = [
+    "DEVICE_LOCK",
     "DDASimulator",
     "SegmentStats",
     "SimTrace",
@@ -73,6 +78,94 @@ __all__ = [
 #: the carry of one run: (z, x, xhat, res, t), as the reference's scan carry
 State = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
               torch.Tensor]
+
+
+class _DeviceLock:
+    """The process-wide rule that keeps a CUDA graph capture alone on the
+    card. In the default ("global") capture mode another thread's
+    potentially unsafe CUDA call (an allocation, a synchronize, a copy to
+    the host) breaks a capture, and a graph freed during a capture
+    invalidates it. So a capture, and the release of captured graphs, hold
+    this lock exclusively; the port's entry points hold it shared around
+    the rest of their device work (a run's build, its replays or eager
+    bodies, its readbacks), so runs of different simulators still replay
+    side by side.
+
+    Reentrant in each thread: a shared hold inside a shared or exclusive
+    one adds nothing, and a thread that asks for the exclusive hold while
+    it holds a shared one (a capture starts inside a run) gives the shared
+    one up while it waits and takes it back after. A waiting exclusive
+    hold keeps new shared ones out. A thread holding this lock shared must
+    not wait on another lock whose holder may ask for it exclusively.
+    """
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0      # threads holding it shared
+        self._writer = None    # the thread holding it exclusively
+        self._waiting = 0      # threads waiting to hold it exclusively
+        self._local = threading.local()
+
+    def _depth(self):
+        held = self._local
+        if not hasattr(held, "shared"):
+            held.shared = held.exclusive = 0
+        return held
+
+    @contextlib.contextmanager
+    def shared(self):
+        held = self._depth()
+        outer = not (held.shared or held.exclusive)
+        if outer:
+            with self._cond:
+                while self._writer is not None or self._waiting:
+                    self._cond.wait()
+                self._readers += 1
+        held.shared += 1
+        try:
+            yield
+        finally:
+            held.shared -= 1
+            if outer:
+                with self._cond:
+                    self._readers -= 1
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        held = self._depth()
+        if held.exclusive:
+            held.exclusive += 1
+            try:
+                yield
+            finally:
+                held.exclusive -= 1
+            return
+        with self._cond:
+            if held.shared:
+                self._readers -= 1
+                self._cond.notify_all()
+            self._waiting += 1
+            try:
+                while self._writer is not None or self._readers:
+                    self._cond.wait()
+            finally:
+                self._waiting -= 1
+            self._writer = threading.get_ident()
+        held.exclusive = 1
+        try:
+            yield
+        finally:
+            held.exclusive = 0
+            with self._cond:
+                self._writer = None
+                if held.shared:
+                    self._readers += 1
+                self._cond.notify_all()
+
+
+#: the one `_DeviceLock` of the process
+DEVICE_LOCK = _DeviceLock()
 
 
 class SegmentStats(NamedTuple):
@@ -524,10 +617,26 @@ class DDASimulator:
             if (not eager and self.capture
                     and self.device.type == "cuda"):
                 t0 = time.perf_counter()
-                prog.capture()
+                # alone on the card: the capture, and the free of the
+                # program it replaces
+                with DEVICE_LOCK.exclusive():
+                    prog.capture()
+                    self._programs[key] = prog
                 self.last_timings["compile_s"] += time.perf_counter() - t0
-            self._programs[key] = prog
+            else:
+                self._programs[key] = prog
         return prog
+
+    def release(self) -> None:
+        """Free the run programs and their captured graphs, holding
+        `DEVICE_LOCK` exclusively, so no capture of another thread sees a
+        graph freed. The simulator stays usable: its next run builds (and
+        captures) its programs anew. A caller that drops a simulator which
+        ran on a card while another thread may capture releases it first;
+        the experiments runner and the serving cache do."""
+        with DEVICE_LOCK.exclusive():
+            self._programs.clear()
+            self._loop_prog = None
 
     def _run_lanes(self, x0_stack, T, eval_every, masks):
         """Drive the run program over (B, T) comm masks. Returns (fv, fvc,
@@ -697,13 +806,13 @@ class _LaneProgram:
         self._launches: dict[str, dict[tuple, int]] = {}
         self._replays = dict.fromkeys(self.BODIES, 0)
 
-    def lanes(self, fn, *args, out_dim: int = 1):
+    def lanes(self, fn, *args):
         """fn over each lane (dim 1) of the (n, B, ...) tensors `args`, its
-        per-lane results stacked at `out_dim`. At B = 1 fn gets the lane
+        per-lane results stacked at dim 1. At B = 1 fn gets the lane
         itself, so a one-lane program issues the solo run's ops."""
         if self.B == 1:
-            return fn(*(a[:, 0] for a in args)).unsqueeze(out_dim)
-        return torch.func.vmap(fn, in_dims=1, out_dims=out_dim)(*args)
+            return fn(*(a[:, 0] for a in args)).unsqueeze(1)
+        return torch.func.vmap(fn, in_dims=1, out_dims=1)(*args)
 
     def load(self, x0_stack: torch.Tensor,
              masks: np.ndarray | None = None) -> None:
@@ -762,8 +871,14 @@ class _LaneProgram:
             self.it.add_(1)
 
     def _stats(self) -> None:
-        self.stat.copy_(self.lanes(self.sim._stats, self.z, self.xhat,
-                                   self.res, out_dim=0))
+        # lane by lane, each on a contiguous (n, ...) copy, as a one-lane
+        # program reduces its run: a reduction over a strided lane of the
+        # carry may add in another order on the card, and a lane's
+        # statistics are its solo run's bit for bit only this way
+        for b in range(self.B):
+            self.stat[b].copy_(self.sim._stats(
+                *(a[:, b].contiguous() for a in (self.z, self.xhat,
+                                                 self.res))))
 
     def _body(self, name: str):
         # made at each call, not stored: stored closures over self would
@@ -779,33 +894,38 @@ class _LaneProgram:
         recording the launches it holds, and replay each graph once."""
         from repro_torch.kernels import counters
 
-        before = counters.snapshot()
-        current = torch.cuda.current_stream(self.sim.device)
-        side = torch.cuda.Stream(self.sim.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            for _ in range(self.WARMUP):
+        # the caller holds DEVICE_LOCK exclusively; the counters' lock,
+        # held throughout, keeps the launches between a snapshot and its
+        # restore this capture's own
+        with counters.LOCK:
+            before = counters.snapshot()
+            current = torch.cuda.current_stream(self.sim.device)
+            side = torch.cuda.Stream(self.sim.device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):
+                    for name in self.BODIES:
+                        self._body(name)()
+                        self.it.zero_()
+            current.wait_stream(side)
+            counters.restore(before)
+            pool = torch.cuda.graph_pool_handle()
+            graphs = {}
+            # no collection inside a capture: it may free another graph
+            # there
+            gc_was_on = gc.isenabled()
+            gc.disable()
+            try:
                 for name in self.BODIES:
-                    self._body(name)()
-                    self.it.zero_()
-        current.wait_stream(side)
-        counters.restore(before)
-        pool = torch.cuda.graph_pool_handle()
-        graphs = {}
-        # no collection inside a capture: it may free another graph there
-        gc_was_on = gc.isenabled()
-        gc.disable()
-        try:
-            for name in self.BODIES:
-                graphs[name] = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graphs[name], pool=pool):
-                    self._body(name)()
-                self._launches[name] = counters.delta(before,
-                                                      counters.snapshot())
-                counters.restore(before)
-        finally:
-            if gc_was_on:
-                gc.enable()
+                    graphs[name] = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graphs[name], pool=pool):
+                        self._body(name)()
+                    self._launches[name] = counters.delta(
+                        before, counters.snapshot())
+                    counters.restore(before)
+            finally:
+                if gc_was_on:
+                    gc.enable()
         # a graph's first replay also uploads it to the card: made here,
         # on no run's state and not counted, so no run times it
         for name in self.BODIES:

@@ -23,9 +23,11 @@ parallel="vmap") or across processes, as the reference's.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import threading
 import time
 from typing import Any, Callable, Sequence
 
@@ -34,7 +36,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import tradeoff as _tradeoff
-from repro_torch.core.dda import DDASimulator, SimTrace, trace_time_to_reach
+from repro_torch.core.dda import (DEVICE_LOCK, DDASimulator, SimTrace,
+                                  trace_time_to_reach)
 from repro_torch.core.graphs import CommGraph, GraphSequence
 from repro_torch.experiments import components as C
 from repro_torch.experiments.registry import Registry
@@ -67,18 +70,24 @@ PREDICT_EPS = 0.1
 #: 800-iteration centralized subgradient descent). Bounded FIFO.
 _PROBLEM_CACHE: dict[str, Any] = {}
 _PROBLEM_CACHE_MAX = 32
+#: threads share the cache (the experiment server's dispatcher and runs)
+_PROBLEM_LOCK = threading.Lock()
 
 
 def _build_problem(spec: ExperimentSpec, device: torch.device):
     key = json.dumps([spec.problem.kind,
                       sorted(spec.problem.params.items()), str(device)])
-    hit = _PROBLEM_CACHE.get(key)
+    with _PROBLEM_LOCK:
+        hit = _PROBLEM_CACHE.get(key)
     if hit is None:
-        hit = C.build_component(C.problems, spec.problem.kind,
-                                spec.problem.params, device=device)
-        if len(_PROBLEM_CACHE) >= _PROBLEM_CACHE_MAX:
-            _PROBLEM_CACHE.pop(next(iter(_PROBLEM_CACHE)))
-        _PROBLEM_CACHE[key] = hit
+        # its tensors are made on the device
+        with DEVICE_LOCK.shared():
+            hit = C.build_component(C.problems, spec.problem.kind,
+                                    spec.problem.params, device=device)
+        with _PROBLEM_LOCK:
+            if len(_PROBLEM_CACHE) >= _PROBLEM_CACHE_MAX:
+                _PROBLEM_CACHE.pop(next(iter(_PROBLEM_CACHE)))
+            _PROBLEM_CACHE[key] = hit
     return hit
 
 
@@ -210,30 +219,72 @@ def _dense_parts(spec: ExperimentSpec, backend: ComponentSpec,
 def _dense_sim(spec: ExperimentSpec, parts: dict[str, Any],
                device: torch.device) -> DDASimulator:
     """Fresh DDASimulator from `_dense_parts` output; it captures its runs
-    on a card unless the problem declares it cannot be captured."""
+    on a card unless the problem declares it cannot be captured.
+    Everything that shapes its run programs (problem closures, graph,
+    stepsize, mix and compression) comes from fields the serving layer's
+    `cache_signature` pins, which is what makes it reusable across
+    requests: the per-request knobs (schedule, r) are rebound by the
+    caller before each run."""
     problem = parts["problem"]
-    return DDASimulator(problem.subgrad_stack, problem.objective,
-                        parts["graph"], parts["schedule"],
-                        a_fn=parts["a_fn"], r=spec.r,
-                        compress_keep=parts["compress_keep"],
-                        compression=parts["compression"], mix=parts["mix"],
-                        projection=problem.projection, device=device,
-                        capture=problem.capturable)
+    with DEVICE_LOCK.shared():  # its weights are made on the device
+        return DDASimulator(problem.subgrad_stack, problem.objective,
+                            parts["graph"], parts["schedule"],
+                            a_fn=parts["a_fn"], r=spec.r,
+                            compress_keep=parts["compress_keep"],
+                            compression=parts["compression"],
+                            mix=parts["mix"], projection=problem.projection,
+                            device=device, capture=problem.capturable)
 
 
 @backends.register("dense")
 def _run_dense(spec: ExperimentSpec, backend: ComponentSpec,
-               tracer: Tracer | None = None, *, device=None) -> RunResult:
-    """Dense backend on `device` (None: the CUDA card)."""
+               tracer: Tracer | None = None, sim_cache=None, *,
+               device=None) -> RunResult:
+    """Dense backend on `device` (None: the CUDA card).
+
+    `sim_cache` (optional, a `repro_torch.serve.CompileCache` or anything
+    with its `lease(spec, backend, factory)` contract) keeps the simulator,
+    and with it its run programs and their captured graphs, across calls:
+    repeat traffic with the same cache signature captures nothing. The
+    lease holds a per-entry lock for the run, and the per-request knobs
+    outside the signature (schedule, r) are rebound under it. Without a
+    cache the run's own simulator is released at its end (its graphs freed
+    alone on the card, `DDASimulator.release`)."""
     device = resolve_device(device)
     tr = tracer if tracer is not None else Tracer()
     with tr.span("build"):
         parts = _dense_parts(spec, backend, device)
-        problem, graph = parts["problem"], parts["graph"]
-        schedule = parts["schedule"]
-        sim = _dense_sim(spec, parts, device)
-        x0 = torch.zeros((problem.n, problem.d), dtype=torch.float32,
-                         device=device)
+        if sim_cache is None:
+            lease = contextlib.nullcontext(
+                (_dense_sim(spec, parts, device), False))
+        else:
+            lease = sim_cache.lease(spec, backend,
+                                    lambda: _dense_sim(spec, parts, device))
+    # the lease is waited for outside DEVICE_LOCK: its holder may capture
+    with lease as (sim, cache_hit):
+        if sim_cache is not None:
+            # a cached simulator may have been built for another request
+            # of the same signature: rebind the knobs it leaves free
+            sim.schedule = parts["schedule"]
+            sim.r = spec.r
+            tr.count("cache_hit" if cache_hit else "cache_miss")
+        try:
+            with DEVICE_LOCK.shared():
+                return _run_dense_leased(spec, backend, tr, sim, parts)
+        finally:
+            if sim_cache is None:
+                sim.release()
+
+
+def _run_dense_leased(spec: ExperimentSpec, backend: ComponentSpec,
+                      tr: Tracer, sim: DDASimulator,
+                      parts: dict[str, Any]) -> RunResult:
+    """The dense run from x0 = 0 on a simulator the caller holds (built
+    for this run or leased from a cache)."""
+    problem, graph = parts["problem"], parts["graph"]
+    schedule = parts["schedule"]
+    x0 = torch.zeros((problem.n, problem.d), dtype=torch.float32,
+                     device=sim.device)
     extras: dict[str, Any] = {"mix_mode": sim.mix_mode}
     metrics_fields: dict[str, Any] = {}
     if spec.controller is not None:
@@ -822,21 +873,36 @@ def _run_sweep_vmap(cells: Sequence[ExperimentSpec], backend, device=None
     reason = _vmap_pool_report(cells, resolved, device)
     if reason is not None:
         return None, reason
+    parts = _dense_parts(cells[0], resolved[0], device)
+    sim = _dense_sim(cells[0], parts, device)
+    try:
+        return _dense_lanes(cells, resolved, sim, parts), None
+    finally:
+        sim.release()
+
+
+def _dense_lanes(cells: Sequence[ExperimentSpec],
+                 resolved: Sequence[ComponentSpec], sim: DDASimulator,
+                 parts: dict[str, Any], lane_counter: str = "vmap_lanes"
+                 ) -> list[RunResult]:
+    """`cells` as the lanes of one `run_batch` from x0 = 0 on a simulator
+    the caller holds (built from `parts` of the first cell, or leased),
+    and their per-lane results (`_dense_batch_results`)."""
+    problem = parts["problem"]
     spec0 = cells[0]
-    parts = _dense_parts(spec0, resolved[0], device)
-    problem, graph = parts["problem"], parts["graph"]
-    sim = _dense_sim(spec0, parts, device)
     schedules = [_build_schedule(c) for c in cells]
     masks = np.stack([s.comm_mask(0, spec0.T) for s in schedules])
-    x0 = torch.zeros((problem.n, problem.d), dtype=torch.float32,
-                     device=device)
-    t0 = time.perf_counter()
-    traces = sim.run_batch(x0, spec0.T, spec0.eval_every, masks,
-                           seeds=[c.seed for c in cells],
-                           rs=[c.r for c in cells])
-    wall = time.perf_counter() - t0
-    return _dense_batch_results(cells, resolved, sim, problem, graph,
-                                schedules, traces, wall), None
+    with DEVICE_LOCK.shared():
+        x0 = torch.zeros((problem.n, problem.d), dtype=torch.float32,
+                         device=sim.device)
+        t0 = time.perf_counter()
+        traces = sim.run_batch(x0, spec0.T, spec0.eval_every, masks,
+                               seeds=[c.seed for c in cells],
+                               rs=[c.r for c in cells])
+        wall = time.perf_counter() - t0
+        return _dense_batch_results(cells, resolved, sim, problem,
+                                    parts["graph"], schedules, traces, wall,
+                                    lane_counter=lane_counter)
 
 
 def _process_cell(payload) -> RunResult:

@@ -24,6 +24,7 @@ import pathlib
 import re
 import shutil
 import subprocess
+import threading
 import time
 
 __all__ = ["SOURCES", "BUILD_DIR", "build", "library_path", "load"]
@@ -39,6 +40,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+#: one first load at a time in a process: two threads that built the same
+#: library at once would write the same temporary file
+_LOAD_LOCK = threading.Lock()
 _INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
 
 
@@ -120,9 +124,12 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of source `name`, building it first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build((name,))
-        lib = ctypes.CDLL(str(path))
-        _LOADED[name] = lib
+        with _LOAD_LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                path = library_path(name)
+                if not path.exists():
+                    build((name,))
+                lib = ctypes.CDLL(str(path))
+                _LOADED[name] = lib
     return lib

@@ -25,7 +25,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 from repro_torch.kernels.gossip_mix import check_mix_operands, check_operand
 
 __all__ = ["LAUNCHES", "compress_mix_weighted", "library"]
@@ -80,5 +80,6 @@ def compress_mix_weighted(z: torch.Tensor, msg: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"compress_mix kernel launch failed with CUDA "
                            f"error {err}")
-    LAUNCHES += 1
+    with counters.LOCK:
+        LAUNCHES += 1
     return out

@@ -10,13 +10,25 @@ Both read `COUNTERS`, so a kernel counted there is counted on replay too.
 
 A snapshot is flat: {(module, attribute): n} for an integer counter and
 {(module, attribute, key): n} for each key of a dict counter.
+
+Threads share the counters (the experiment server runs requests side by
+side), so every update goes under `LOCK`: the wrappers' increments, and
+each of the functions here, whose read-modify-writes would otherwise lose
+another thread's launches. A capture holds it from its snapshot to its
+restore.
 """
 
 from __future__ import annotations
 
 import importlib
+import threading
 
-__all__ = ["COUNTERS", "add", "delta", "restore", "snapshot", "zero"]
+__all__ = ["COUNTERS", "LOCK", "add", "delta", "restore", "snapshot",
+           "zero"]
+
+#: held around every read-modify-write of a counter (reentrant: a capture
+#: holds it while the wrappers it runs count)
+LOCK = threading.RLock()
 
 #: (module of repro_torch.kernels, attribute): every launch counter
 COUNTERS = (("gossip_mix", "LAUNCHES"),
@@ -39,29 +51,32 @@ def _module(name: str):
 def snapshot() -> dict[tuple, int]:
     """Every counter's value now, flat."""
     counts = {}
-    for mod, attr in COUNTERS:
-        value = getattr(_module(mod), attr)
-        if isinstance(value, dict):
-            for key, n in value.items():
-                counts[(mod, attr, key)] = n
-        else:
-            counts[(mod, attr)] = value
+    with LOCK:
+        for mod, attr in COUNTERS:
+            value = getattr(_module(mod), attr)
+            if isinstance(value, dict):
+                for key, n in value.items():
+                    counts[(mod, attr, key)] = n
+            else:
+                counts[(mod, attr)] = value
     return counts
 
 
 def restore(counts: dict[tuple, int]) -> None:
     """Set the counters named in `counts` to its values."""
-    for key, n in counts.items():
-        module = _module(key[0])
-        if len(key) == 2:
-            setattr(module, key[1], n)
-        else:
-            getattr(module, key[1])[key[2]] = n
+    with LOCK:
+        for key, n in counts.items():
+            module = _module(key[0])
+            if len(key) == 2:
+                setattr(module, key[1], n)
+            else:
+                getattr(module, key[1])[key[2]] = n
 
 
 def zero() -> None:
     """Set every counter to 0."""
-    restore(dict.fromkeys(snapshot(), 0))
+    with LOCK:
+        restore(dict.fromkeys(snapshot(), 0))
 
 
 def delta(before: dict[tuple, int], after: dict[tuple, int]
@@ -72,5 +87,6 @@ def delta(before: dict[tuple, int], after: dict[tuple, int]
 
 def add(counts: dict[tuple, int], times: int = 1) -> None:
     """Add `counts` (a `delta`) `times` times to the counters."""
-    now = snapshot()
-    restore({key: now[key] + times * n for key, n in counts.items()})
+    with LOCK:
+        now = snapshot()
+        restore({key: now[key] + times * n for key, n in counts.items()})

@@ -41,7 +41,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 from repro_torch.kernels.gossip_mix import check_on_card, check_operand
 
 __all__ = ["LAUNCHES", "MAX_D", "ROUTES", "SM90_LAUNCHES",
@@ -143,11 +143,12 @@ def _launch(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"{stem} kernel launch failed with CUDA error "
                            f"{err}")
-    LAUNCHES += 1
-    if name == "sm90":
-        SM90_LAUNCHES += 1
-    else:
-        TF32X3_LAUNCHES += 1
+    with counters.LOCK:
+        LAUNCHES += 1
+        if name == "sm90":
+            SM90_LAUNCHES += 1
+        else:
+            TF32X3_LAUNCHES += 1
     return out
 
 

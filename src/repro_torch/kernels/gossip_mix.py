@@ -38,7 +38,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 
 __all__ = ["FLAT_LAUNCHES", "FORM_LAUNCHES", "LAUNCHES",
            "check_mix_operands", "check_on_card", "check_operand",
@@ -169,8 +169,9 @@ def gossip_mix_weighted(z: torch.Tensor, S_in: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"gossip_mix kernel launch failed with CUDA "
                            f"error {err}")
-    LAUNCHES += 1
-    FORM_LAUNCHES[_FORM_NAMES[form.value]] += 1
+    with counters.LOCK:
+        LAUNCHES += 1
+        FORM_LAUNCHES[_FORM_NAMES[form.value]] += 1
     return out
 
 
@@ -216,5 +217,6 @@ def gossip_mix(self_buf: torch.Tensor, neighbor_bufs: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"gossip_mix (K3) kernel launch failed with CUDA "
                            f"error {err}")
-    FLAT_LAUNCHES += 1
+    with counters.LOCK:
+        FLAT_LAUNCHES += 1
     return out

@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 from repro_torch.kernels.gossip_mix import check_on_card, check_operand
 
 __all__ = ["KERNELS", "LAST_PLAN", "LAUNCHES", "MAX_N", "lanes", "library",
@@ -138,10 +138,12 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             C.data_ptr(), D_skip.data_ptr(), y.data_ptr(), state.data_ptr(),
             decay.data_ptr(), Bt, S, d, N, how["lanes"], how["piece"],
             stream, ctypes.byref(launched))
-    KERNELS += launched.value
+    with counters.LOCK:
+        KERNELS += launched.value
     if err != 0:
         raise RuntimeError(f"selective_scan kernel launch failed with CUDA "
                            f"error {err}")
-    LAUNCHES += 1
+    with counters.LOCK:
+        LAUNCHES += 1
     LAST_PLAN = dict(how, workspace_bytes=allocated)
     return y

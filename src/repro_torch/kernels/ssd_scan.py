@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counters
 from repro_torch.kernels.gossip_mix import check_on_card, check_operand
 
 __all__ = ["KERNELS", "KERNELS_PER_CALL", "LAST_PLAN", "LAUNCHES", "MAX_N",
@@ -130,10 +130,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                ws.data_ptr(), decay.data_ptr(), Bt, S, H, P,
                                N, how["chunk"], how["heads_per_block"],
                                stream, ctypes.byref(launched))
-    KERNELS += launched.value
+    with counters.LOCK:
+        KERNELS += launched.value
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed with CUDA error "
                            f"{err}")
-    LAUNCHES += 1
+    with counters.LOCK:
+        LAUNCHES += 1
     LAST_PLAN = dict(how, workspace_bytes=ws.nbytes + decay.nbytes)
     return y

@@ -29,8 +29,27 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.experiments.__main__\n"
         "import repro_torch.netsim, repro_torch.adaptive, repro_torch.faults\n"
         "import repro_torch.checkpoint, repro_torch.runtime\n"
+        "import repro_torch.serve, repro_torch.serve.__main__\n"
+        "from repro_torch.serve import ExperimentServer, Client, WorkerPool\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_a_spawned_toy_worker_loads_no_torch():
+    """A pool worker's spawn imports the module of its target alone:
+    `repro_torch.serve.pool` (and the lazy package above it) must load
+    neither torch nor jax, so toy workers start in milliseconds."""
+    code = (
+        "import sys\n"
+        "from repro_torch.serve.pool import _toy_worker_main\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('torch', 'jax', 'numpy', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
