@@ -20,9 +20,11 @@ non-zero and the last line is not printed. The phases:
             (none, its own tensor, a view not 16-byte aligned) and dtypes
             (fp32: rtol 1e-5, atol 1e-6; bf16: rtol 2e-2, atol 1e-5), each
             case on the kernel the library must pick (the slab kernel for
-            16-byte packets and k <= 8, else the register kernel), as it
-            reports it (gossip_mix.FORM_LAUNCHES); then at the sweep's
-            call (n=256, M=5 x 4096, k=4, fp32, the five lanes' carry as
+            16-byte packets, k <= 8 and n (k + 1) >= slab_min_reads(),
+            else the register kernel), as it reports it
+            (gossip_mix.FORM_LAUNCHES); then at
+            the sweep's call (n=256, M=5 x 4096, k=4, fp32, the five
+            lanes' carry as
             one state), on the slab kernel, each lane's columns equal to
             a one-lane call's bit for bit; then at the main path's
             call (n=256, M=4096, k=4, fp32, z seeded from numpy), which
@@ -143,6 +145,30 @@ non-zero and the last line is not printed. The phases:
             the job re-enqueued, no request executed twice. Prints cold
             and warm walls with compile_s, the packed wall beside the
             solo walls' sum, and the pool's first-job and warm-job walls
+  lm        the launch backend (consensus LM training). First K1 at the
+            LM launcher's call: the embed leaf of two full-width pods
+            (bf16, n=2, k=1, M = 128256 x 4096) against its plain version
+            bit for bit, timed beside it and torch.matmul with the 2 x 2
+            mixing matrix, its bound from bytes read once and written
+            once. Then `_sdpa_causal` at the cell's attention shapes (bf16,
+            S = 4096: the streamed form) against the whole score-matrix
+            form, output and gradients within ATTN_STREAM_RTOL. Then
+            llama3-8b at full width (d_model 4096, 32 heads, 8 kv, d_ff
+            14336, vocab 128256, bf16) with its 32 superblocks cut to
+            LM_N_SUPER = 4, two pods stacked, S = 4096, T = 6, complete
+            graph, periodic h=2, adamw, through repro_torch.run with every
+            launch count set to 0 just before and read just after: losses
+            finite, the pods bitwise equal after each mix, K1 launched 12
+            times a comm step (24), the host fields' closed form,
+            param_bytes 3,846,324,224, peak memory under LM_PEAK_CAP_GIB;
+            prints K1's bound over a comm step's leaves (from the run's
+            param_bytes), the step walls, the second fused step's device time by
+            kind under torch.profiler, AdamW's by CUDA events, and
+            attention and the loss timed alone at the cell's shapes. Then
+            the smoke width at mesh (4, 1, 1), expander k=2, on the card
+            and the CPU (host fields exact, losses within LM_TRACE_RTOL,
+            the loss decreasing, K1 12 times a round) and the dry-run
+            manifest, card against CPU
   kernel_k3 K3 (the flat per-node mix, `kernels.ops.gossip_mix`) against
             its plain version over M in {1, 3, 130, 4099, 8192, 65537,
             2^20} (and a misaligned view), k in {1, 4, 8}, fp32 and bf16
@@ -640,6 +666,7 @@ def phase_kernel() -> dict:
     worst = {"float32": 0.0, "bfloat16": 0.0}
     checked = 0
     forms = {"regs": 0, "slab": 0}
+    min_reads = gossip_mix.slab_min_reads()
     for n in (7, 12, 256, 1024):
         for M in (1, 130, 257, 4096, 65536):
             # k <= 8 takes a kernel built for its k, k = 9 the generic one
@@ -680,11 +707,14 @@ def phase_kernel() -> dict:
                                 out.float(), expect.float(), **tol,
                                 msg=lambda m: f"K1 disagrees at {where}: {m}")
                             # the slab kernel takes 16-byte packets (M a
-                            # multiple of 16 bytes, every operand aligned)
-                            # and k <= 8; its shared memory holds n = 1024
+                            # multiple of 16 bytes, every operand aligned),
+                            # k <= 8 and n (k + 1) row reads a column from
+                            # slab_min_reads(); its shared memory holds
+                            # n = 1024
                             packets = M * out.element_size() % 16 == 0 \
                                 and with_msg != "offset"
                             expect_form = ("slab" if packets and k <= 8
+                                           and n * (k + 1) >= min_reads
                                            else "regs")
                             if form != expect_form:
                                 raise AssertionError(
@@ -1989,6 +2019,386 @@ def _randn(gen, shape, dtype=None, scale: float = 1.0):
     return x if dtype is None else x.to(dtype)
 
 
+#: the full-width LM cell's depth: llama3-8b's 32 superblocks cut to 4 so
+#: that two pods' parameters, gradients and AdamW moments fit the card
+LM_N_SUPER = 4
+#: the peak the full-width LM cell may allocate before its depth is cut to
+#: 2 (PERF.md states the cut if it happens)
+LM_PEAK_CAP_GIB = 72
+#: the relative error a smoke-width LM run's losses may show on the card
+#: against the CPU (bf16 matmuls accumulate in another order on each)
+LM_TRACE_RTOL = 1e-3
+#: leaves of a llama3 ("attn") parameter tree, each mixed by one K1 launch
+LM_LEAVES = 12
+#: the streamed attention against the whole score-matrix form at the cell's
+#: bf16 shapes, relative to the largest magnitude of each of the output and
+#: the three gradients: about two bf16 roundings of a softmax weight
+#: (observed below; a dropped rescale or a mask one key off is 0.08-1.1)
+ATTN_STREAM_RTOL = 1.2e-2
+
+
+def _lm_spec(name: str, variant: str, mesh, topology: dict, T: int,
+             batch_per_node: int, seq_len: int):
+    import repro_torch
+
+    return repro_torch.ExperimentSpec(
+        name=name, T=T, eval_every=1, r=0.05, seed=0,
+        problem={"kind": "lm", "params": {
+            "arch": "llama3-8b", "variant": variant,
+            "batch_per_node": batch_per_node, "seq_len": seq_len}},
+        topology=topology,
+        schedule={"kind": "periodic", "params": {"h": 2}},
+        backends=[{"kind": "launch", "params": {"mesh": list(mesh)}}])
+
+
+def _lm_host_fields(result, n: int, k: int, r: float) -> None:
+    """The closed form of a launch run's host fields (eq. 9/19)."""
+    import math
+
+    from repro_torch.core.schedules import Periodic
+
+    d = result.to_dict()
+    T = d["spec"]["T"]
+    sched = Periodic(h=2)
+    comm = [sched.is_comm_step(t) for t in range(1, T + 1)]
+    rounds = sum(comm)
+    want = {
+        "iters": list(range(1, T + 1)),
+        "comms": [sched.H(t) for t in range(1, T + 1)],
+        "sim_time": [t * (1.0 / n) + sched.H(t) * k * r
+                     for t in range(1, T + 1)],
+    }
+    for key, value in want.items():
+        if d["trace"][key] != value:
+            raise AssertionError(f"lm trace.{key} {d['trace'][key]} is not "
+                                 f"the closed form {value}")
+    ex, m = d["extras"], d["metrics"]
+    units = sum(1.0 / n + (k * r if c else 0.0) for c in comm)
+    if (ex["comm_rounds"], ex["step_comm"]) != (rounds, comm) or \
+            not math.isclose(ex["sim_time_units"], units, rel_tol=1e-12):
+        raise AssertionError(f"lm extras {ex} against {rounds} rounds, "
+                             f"{comm}, {units} units")
+    msgs = rounds * n * k
+    if (m["msgs"], m["gossip_rounds"], m["bytes_on_wire"]) != (
+            msgs, rounds, float(msgs * ex["param_bytes"])):
+        raise AssertionError(f"lm metrics {m} against {msgs} messages")
+    if not all(math.isfinite(v) for v in d["trace"]["fvals"]):
+        raise AssertionError(f"lm losses not finite: {d['trace']['fvals']}")
+
+
+def _lm_k1_call() -> dict:
+    """K1 at the LM call: the embed leaf of two full-width pods (bf16,
+    n = 2, k = 1, M = 128256 x 4096), against its plain version bit for
+    bit, timed beside it and torch.matmul with the 2 x 2 mixing matrix."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+
+    M = 128256 * 4096
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    z = torch.empty((2, M), dtype=torch.bfloat16, device="cuda")
+    for i in range(2):
+        z[i] = torch.randn((M,), generator=gen, device="cuda")
+    S_in = torch.tensor([[1], [0]], dtype=torch.int64, device="cuda")
+    out = ops.gossip_gather_mix_impl(z, S_in, 0.5, 0.5)
+    expect = ref.gossip_gather_mix_ref(z, S_in, 0.5, 0.5)
+    torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int16), expect.view(torch.int16)):
+        raise AssertionError("K1 at the LM call differs from its plain "
+                             "version")
+    err = _max_err(out, expect)
+    del out, expect
+    P = torch.full((2, 2), 0.5, dtype=torch.bfloat16, device="cuda")
+    kernel_t = time_ms(lambda: ops.gossip_gather_mix_impl(z, S_in, 0.5, 0.5),
+                       reps=7, inner=3)
+    plain_t = time_ms(lambda: ref.gossip_gather_mix_ref(z, S_in, 0.5, 0.5),
+                      reps=5, inner=2)
+    library_t = time_ms(lambda: torch.matmul(P, z), reps=7, inner=3)
+    nbytes = 2 * z.numel() * z.element_size()  # z read once, out written
+    del z
+    torch.cuda.empty_cache()
+    return {"ms": kernel_t["device"], "eager_ms": kernel_t["eager"],
+            "plain_ms": plain_t["device"], "library_ms": library_t["device"],
+            "max_abs_err": err, "bytes": nbytes, **_bound(nbytes, 0.0)}
+
+
+def _lm_attention_check() -> dict:
+    """`_sdpa_causal` at the full-width cell's shapes (B=1, S=4096, H=32,
+    KH=8, D=128, bf16), where it takes the streamed form (online softmax
+    over 1024-key chunks), against the whole score-matrix form on the same
+    inputs: the output and the gradients of q, k and v, each within
+    `ATTN_STREAM_RTOL` of the whole form's largest magnitude."""
+    import torch
+
+    from repro_torch.models import attention
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q = _randn(gen, (1, 4096, 32, 128), torch.bfloat16).requires_grad_()
+    k = _randn(gen, (1, 4096, 8, 128), torch.bfloat16).requires_grad_()
+    v = _randn(gen, (1, 4096, 8, 128), torch.bfloat16).requires_grad_()
+    g = _randn(gen, (1, 4096, 32, 128), torch.bfloat16)
+    if not 4096 > attention._KV_CHUNK:
+        raise AssertionError("the cell's attention is not streamed")
+    errs = {}
+    for form in (attention._sdpa_causal, attention._sdpa_causal_whole):
+        out = form(q, k, v)
+        errs[form.__name__] = [out.detach()] + list(
+            torch.autograd.grad(out, (q, k, v), g))
+        del out
+    got = errs.pop("_sdpa_causal")
+    want = errs.pop("_sdpa_causal_whole")
+    rel = {}
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        rel[name] = float((a.float() - b.float()).abs().max()
+                          / b.float().abs().max())
+    del q, k, v, g, got, want
+    torch.cuda.empty_cache()
+    if not max(rel.values()) <= ATTN_STREAM_RTOL:
+        raise AssertionError(f"the streamed attention is {rel} off the whole "
+                             f"score-matrix form (rtol {ATTN_STREAM_RTOL})")
+    return {"rel_err": rel, "rtol": ATTN_STREAM_RTOL}
+
+
+def _lm_profile_split(prof) -> dict:
+    """Device time (ms) of one profiled fused step by kind, from the
+    profiler's kernel events: K1, AdamW (kernels inside the GPU side of
+    the "lm:adamw" ranges), the matmuls (cuBLAS/CUTLASS kernels, forward
+    and backward) and the rest (attention's softmax and masks, norms,
+    rope, loss, embedding, gradient sums, copies)."""
+    from torch.autograd import DeviceType
+
+    kernels, windows = [], []
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        span = (evt.time_range.start, evt.time_range.end)
+        if evt.name.startswith("lm:"):
+            windows.append(span)
+        else:
+            kernels.append((evt.name.lower(), span))
+    split = {"k1": 0.0, "adamw": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, (t0, t1) in kernels:
+        if "gossip_mix" in name:
+            kind = "k1"
+        elif any(w0 <= t0 < w1 for w0, w1 in windows):
+            kind = "adamw"
+        elif any(s in name for s in ("gemm", "xmma", "cutlass", "nvjet",
+                                     "cublas")):
+            kind = "matmul"
+        else:
+            kind = "other"
+        split[kind] += (t1 - t0) / 1e3
+    split["total"] = sum(split.values())
+    split["kernels"] = len(kernels)
+    split["adamw_windows"] = len(windows)
+    return split
+
+
+def _lm_isolated_ms() -> dict:
+    """Attention and the loss at the full-width cell's shapes, each timed
+    alone (CUDA events, eager): `_sdpa_causal` forward, and forward with
+    backward, at one layer's (B=1, S=4096, H=32, KH=8, D=128, bf16); the
+    loss forward with backward at the logits' (1, 4096, 128256) bf16. A
+    step runs attention's forward twice a layer (the checkpoint's
+    recompute) and its backward once, for each pod and layer."""
+    import torch
+
+    from repro_torch.models import attention, common
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = _randn(gen, (1, 4096, 32, 128), torch.bfloat16).requires_grad_()
+    k = _randn(gen, (1, 4096, 8, 128), torch.bfloat16).requires_grad_()
+    v = _randn(gen, (1, 4096, 8, 128), torch.bfloat16).requires_grad_()
+    g = _randn(gen, (1, 4096, 32, 128), torch.bfloat16)
+
+    def attn_fwd():
+        with torch.no_grad():
+            attention._sdpa_causal(q, k, v)
+
+    def attn_fwd_bwd():
+        torch.autograd.grad(attention._sdpa_causal(q, k, v), (q, k, v), g)
+
+    fwd = time_ms(attn_fwd, reps=5, inner=2, graph=False)["device"]
+    fwd_bwd = time_ms(attn_fwd_bwd, reps=5, inner=2, graph=False)["device"]
+    del q, k, v, g
+    logits = _randn(gen, (1, 4096, 128256), torch.bfloat16).requires_grad_()
+    labels = torch.randint(0, 128256, (1, 4096), generator=gen,
+                           device="cuda")
+    loss = time_ms(lambda: torch.autograd.grad(
+        common.cross_entropy_loss(logits, labels), logits),
+        reps=5, inner=2, graph=False)["device"]
+    del logits
+    torch.cuda.empty_cache()
+    return {"attention_fwd_ms": fwd, "attention_fwd_bwd_ms": fwd_bwd,
+            "attention_step_ms": 2 * LM_N_SUPER * (fwd + fwd_bwd),
+            "loss_fwd_bwd_ms": loss, "loss_step_ms": 2 * loss}
+
+
+def phase_lm() -> dict:
+    """The launch backend on the card: llama3-8b at full width, two pods
+    stacked, through repro_torch.run (every launch count set to 0 just
+    before and read just after); K1 at its LM call; a smoke-width run on
+    the card against the CPU; the dry-run manifest. Returns K1's launches
+    in the full-width run and its numbers at the LM call."""
+    import dataclasses
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import repro_torch
+    from repro_torch.convert import assert_results_match
+    from repro_torch.kernels import gossip_mix
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import registry
+    import repro_torch.optim as optim_mod
+
+    torch.cuda.empty_cache()
+    k1_call = _lm_k1_call()
+    emit("lm_k1_call", **k1_call)
+    emit("lm_attention", **_lm_attention_check())
+
+    full = dataclasses.replace(registry.get_config("llama3-8b", "full"),
+                               n_super=LM_N_SUPER)
+    real_get_config = registry.get_config
+    real_steps = train_mod.make_consensus_steps
+    real_adamw = optim_mod.adamw
+    seen = {"mixes": 0, "profile": None}
+
+    def cut_config(arch, variant="full"):
+        if (arch, variant) == ("llama3-8b", "full"):
+            return full
+        return real_get_config(arch, variant)
+
+    adamw_events = []
+
+    def labelled_adamw(*a, **kw):
+        opt = real_adamw(*a, **kw)
+
+        def update_(grads, state, params):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            with record_function("lm:adamw"):
+                out = opt.update_(grads, state, params)
+            end.record()
+            adamw_events.append((start, end))
+            return out
+        return dataclasses.replace(opt, update_=update_)
+
+    def watched_steps(*a, **kw):
+        local, mix, fused = real_steps(*a, **kw)
+
+        def checked_fused(params, opt_state, batch):
+            seen["mixes"] += 1
+            if seen["mixes"] == 2:  # the second comm step, profiled
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    out = fused(params, opt_state, batch)
+                    torch.cuda.synchronize()
+                seen["profile"] = _lm_profile_split(prof)
+            else:
+                out = fused(params, opt_state, batch)
+            for leaf in torch.utils._pytree.tree_leaves(out[0]):
+                if not torch.equal(leaf[0], leaf[1]):
+                    raise AssertionError("the two pods differ after the "
+                                         "mix (complete graph, n = 2)")
+            return out
+        return local, mix, checked_fused
+
+    spec = _lm_spec("lm_full", "full", (2, 1, 1),
+                    {"kind": "complete", "params": {}}, T=6,
+                    batch_per_node=1, seq_len=4096)
+    registry.get_config = cut_config
+    train_mod.make_consensus_steps = watched_steps
+    optim_mod.adamw = labelled_adamw
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts()
+        result = repro_torch.run(spec, device="cuda")
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        forms = dict(gossip_mix.FORM_LAUNCHES)
+    finally:
+        registry.get_config = real_get_config
+        train_mod.make_consensus_steps = real_steps
+        optim_mod.adamw = real_adamw
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    rounds = result.extras["comm_rounds"]
+    if counts["gossip_mix"] != LM_LEAVES * rounds or rounds != 2 or \
+            sum(counts.values()) != counts["gossip_mix"]:
+        raise AssertionError(f"the full-width LM run launched {counts} for "
+                             f"{rounds} comm steps of {LM_LEAVES} leaves")
+    if seen["mixes"] != rounds:
+        raise AssertionError(f"{seen['mixes']} fused steps for {rounds} "
+                             f"rounds")
+    _lm_host_fields(result, n=2, k=1, r=0.05)
+    if result.extras["param_bytes"] != 3846324224.0:
+        raise AssertionError(f"param_bytes {result.extras['param_bytes']}")
+    if peak > LM_PEAK_CAP_GIB * 2 ** 30:
+        raise AssertionError(f"peak {peak} bytes above {LM_PEAK_CAP_GIB} "
+                             f"GiB at n_super={LM_N_SUPER}")
+    walls = result.extras["step_walls"]
+    comm = result.extras["step_comm"]
+    # AdamW's device time a step (two pods, one update each), by events
+    adamw_ms = [sum(s.elapsed_time(e) for s, e in adamw_events[i:i + 2])
+                for i in range(0, len(adamw_events), 2)]
+    isolated = _lm_isolated_ms()
+    # K1 over a comm step's leaves: each pod's parameters read once and
+    # written once, from the run's own parameter bytes
+    step_bytes = 2 * 2 * result.extras["param_bytes"]
+    emit("lm_full", n_super=LM_N_SUPER, seq_len=4096, n_pods=2,
+         losses=result.trace.fvals, k1_launches=counts["gossip_mix"],
+         k1_forms_launched=forms, param_bytes=result.extras["param_bytes"],
+         k1_comm_step_bound_ms=_bound(step_bytes, 0.0)["bound_ms"],
+         peak_allocated_gib=peak / 2 ** 30, wall_s=result.wall_s,
+         step_walls_s=walls, step_comm=comm,
+         local_step_s=[w for w, c in zip(walls[1:], comm[1:]) if not c],
+         fused_step_s_unprofiled=walls[2],
+         fused_step_profiled_split_ms=seen["profile"],
+         adamw_step_ms=adamw_ms, isolated_ms=isolated)
+
+    # card against CPU at the smoke width: mesh (4, 1, 1), expander k = 2
+    small = _lm_spec("lm_smoke", "smoke", (4, 1, 1),
+                     {"kind": "expander", "params": {"k": 2, "seed": 0}},
+                     T=6, batch_per_node=2, seq_len=64)
+    _zero_launch_counts()
+    card = repro_torch.run(small, device="cuda")
+    torch.cuda.synchronize()
+    small_k1 = _launch_counts()["gossip_mix"]
+    cpu = repro_torch.run(small, device="cpu")
+    ours, theirs = card.to_dict(), cpu.to_dict()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(ours["trace"]["fvals"],
+                                                  theirs["trace"]["fvals"]))
+    if not rel <= LM_TRACE_RTOL:
+        raise AssertionError(f"the smoke LM run's losses on the card are "
+                             f"{rel} off the CPU's (rtol {LM_TRACE_RTOL})")
+    for side in (ours, theirs):
+        side["trace"]["fvals"] = theirs["trace"]["fvals"]
+        side["trace"]["fvals_consensus"] = theirs["trace"]["fvals_consensus"]
+    assert_results_match(ours, theirs)
+    _lm_host_fields(card, n=4, k=2, r=0.05)
+    if not card.trace.fvals[-1] < card.trace.fvals[0]:
+        raise AssertionError(f"the smoke LM run's loss did not decrease: "
+                             f"{card.trace.fvals}")
+    if small_k1 != LM_LEAVES * card.extras["comm_rounds"]:
+        raise AssertionError(f"the smoke LM run launched K1 {small_k1} "
+                             f"times")
+
+    dry = repro_torch.ExperimentSpec.from_file(
+        ROOT / "benchmarks" / "manifests" / "launch_dryrun.json")
+    dry_card = repro_torch.run(dry, device="cuda").to_dict()
+    assert_results_match(dry_card, repro_torch.run(dry, device="cpu")
+                         .to_dict())
+    emit("lm_smoke", card_cpu_max_rel=rel, rtol=LM_TRACE_RTOL,
+         losses=card.trace.fvals, k1_launches=small_k1,
+         dryrun_extras=dry_card["extras"])
+    if not all(math.isfinite(v) for v in card.trace.fvals):
+        raise AssertionError("smoke LM losses not finite")
+    return {"launches": counts["gossip_mix"], "call": k1_call}
+
+
 def phase_kernel_k3() -> dict:
     """K3 (the flat per-node mix) against its plain version on the card,
     then its front door at full width, then its times."""
@@ -2378,6 +2788,9 @@ def main() -> int:
     serve = phase_serve()
     k1["serve_launches"] = serve["gossip_mix"]
     k2["serve_launches"] = serve["compress_mix"]
+    lm = phase_lm()
+    k1["lm_launches"] = lm["launches"]
+    k1["lm_call"] = lm["call"]
     k3 = phase_kernel_k3()
     k4 = phase_kernel_k4(build_s)
     k5 = phase_kernel_k5()

@@ -13,8 +13,13 @@ jax 0.9.0 with `jax_threefry_partitionable` on (its default) and the
                          (`prng.threefry_fold_in`)
   * `random_bits(key, shape)`  32-bit `jax.random.bits`
                          (`prng._threefry_random_bits_partitionable`)
-  * `uniform(key, shape)`      float32 `jax.random.uniform` in [0, 1)
-                         (`random._uniform`)
+  * `uniform(key, shape, minval, maxval)`  float32 `jax.random.uniform`
+                         (`random._uniform`), in [0, 1) by default
+  * `split(key, num)`    `jax.random.split` (`prng._threefry_split_foldlike`)
+  * `truncated_normal(key, lower, upper, shape)`  float32
+                         `jax.random.truncated_normal`
+                         (`random._truncated_normal`), with XLA's float32
+                         `ErfInv` polynomial (`erf_inv`)
 
 A key is a pair of 0-d int64 tensors holding the two uint32 words. torch
 has little uint32 arithmetic, so every word is held in int64 and each add,
@@ -29,7 +34,8 @@ import math
 
 import torch
 
-__all__ = ["fold_in", "key", "random_bits", "threefry2x32", "uniform"]
+__all__ = ["erf_inv", "fold_in", "key", "random_bits", "split",
+           "threefry2x32", "truncated_normal", "uniform"]
 
 _MASK32 = 0xFFFFFFFF
 #: the rotation schedule and key-parity constant of Threefry-2x32
@@ -73,12 +79,34 @@ def key(seed: int, device=None) -> Key:
             torch.full((), seed & _MASK32, dtype=torch.int64, device=device))
 
 
-def fold_in(k: Key, t: torch.Tensor) -> Key:
+def fold_in(k: Key, t) -> Key:
     """`jax.random.fold_in(k, t.astype(jnp.int32))` for a 0-d tensor `t`
-    (the simulator's float32 iteration counter): the data becomes the
-    counter pair (0, uint32(int32(t))), hashed under `k`."""
-    data = t.to(torch.int32).to(torch.int64) & _MASK32
+    (the simulator's float32 iteration counter) or a Python int (the model
+    init's layer index): the data becomes the counter pair
+    (0, uint32(int32(t))), hashed under `k`."""
+    if isinstance(t, torch.Tensor):
+        data = t.to(torch.int32).to(torch.int64) & _MASK32
+    else:
+        data = torch.full((), int(t) & _MASK32, dtype=torch.int64,
+                          device=k[0].device)
     return threefry2x32(k[0], k[1], torch.zeros_like(data), data)
+
+
+def split(k: Key, num: int = 2) -> list[Key]:
+    """`jax.random.split(k, num)` under threefry-partitionable: key i is
+    the hash of the counter pair (0, i), both output words kept."""
+    idx = torch.arange(num, dtype=torch.int64, device=k[0].device)
+    w1, w2 = threefry2x32(k[0], k[1], idx >> 32, idx & _MASK32)
+    return [(w1[i], w2[i]) for i in range(num)]
+
+
+def _bits(k: Key, start: int, count: int) -> torch.Tensor:
+    """The 32-bit draws of elements start .. start + count - 1 of a
+    row-major draw (int64 values in [0, 2**32))."""
+    idx = torch.arange(start, start + count, dtype=torch.int64,
+                       device=k[0].device)
+    b1, b2 = threefry2x32(k[0], k[1], idx >> 32, idx & _MASK32)
+    return b1 ^ b2
 
 
 def random_bits(k: Key, shape: tuple[int, ...]) -> torch.Tensor:
@@ -86,17 +114,107 @@ def random_bits(k: Key, shape: tuple[int, ...]) -> torch.Tensor:
     row-major order) hashes the counter pair (i >> 32, i & 0xFFFFFFFF), and
     its bits are the xor of the two output words. Returns int64 values in
     [0, 2**32)."""
-    idx = torch.arange(math.prod(shape), dtype=torch.int64,
-                       device=k[0].device).reshape(shape)
-    b1, b2 = threefry2x32(k[0], k[1], idx >> 32, idx & _MASK32)
-    return b1 ^ b2
+    return _bits(k, 0, math.prod(shape)).reshape(shape)
 
 
-def uniform(k: Key, shape: tuple[int, ...]) -> torch.Tensor:
-    """float32 `jax.random.uniform(k, shape)` in [0, 1): the top 23 bits
-    become the mantissa of a float in [1, 2), from which 1 is taken."""
-    bits = random_bits(k, shape)
+def _unit_floats(bits: torch.Tensor) -> torch.Tensor:
+    """The top 23 bits become the mantissa of a float in [1, 2), from which
+    1 is taken: float32 in [0, 1)."""
     one = 0x3F800000  # float32 1.0
     floats = ((bits >> 9) | one).to(torch.int32).view(torch.float32)
     return floats - 1.0
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 `a * b + c` rounded once, as XLA's CPU backend fuses it into
+    a fused multiply-add: the float32 product is exact in float64, so the
+    float64 sum rounded to float32 is the fused result (bar a double
+    rounding, which a 53-bit sum of these operands does not meet)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _scaled(floats: torch.Tensor, minval: float, maxval: float
+            ) -> torch.Tensor:
+    """`max(minval, floats * (maxval - minval) + minval)` in float32, as
+    `random._uniform` ends (the multiply-add fused)."""
+    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    return torch.maximum(lo, _fma(floats, hi - lo, lo))
+
+
+def uniform(k: Key, shape: tuple[int, ...], minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """float32 `jax.random.uniform(k, shape, minval=, maxval=)`; in [0, 1)
+    by default, where the scaling is the identity and is skipped."""
+    floats = _unit_floats(random_bits(k, shape))
+    if minval == 0.0 and maxval == 1.0:
+        return floats
+    return _scaled(floats, minval, maxval)
+
+
+#: XLA's float32 ErfInv (Giles, "Approximating the erfinv function", GPU
+#: Computing Gems Jade, 2011), as stablehlo's chlo decomposition has it:
+#: Horner coefficients for w < 5 and for w >= 5; each Horner step is a
+#: fused multiply-add on XLA's CPU backend
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 `lax.erf_inv` as XLA computes it (its polynomial, not
+    `torch.erfinv`'s, which rounds differently)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    p = torch.where(lt, torch.tensor(_ERFINV_LT5[0], **f32),
+                    torch.tensor(_ERFINV_GE5[0], **f32))
+    for c_lt, c_ge in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        c = torch.where(lt, torch.tensor(c_lt, **f32),
+                        torch.tensor(c_ge, **f32))
+        p = _fma(p, w, c)
+    out = p * x
+    return torch.where(x.abs() == 1.0, x * math.inf, out)
+
+
+#: elements a truncated-normal draw makes at once: int64 words of this many
+#: elements are a few hundred MB, whatever the leaf's size
+_CHUNK = 1 << 25
+
+
+def truncated_normal(k: Key, lower: float, upper: float,
+                     shape: tuple[int, ...], *, scale: float | None = None,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """float32 `jax.random.truncated_normal(k, lower, upper, shape)`:
+    `sqrt2 * erf_inv(uniform(k, minval=erf(lower/sqrt2),
+    maxval=erf(upper/sqrt2)))`, clipped into the open interval.
+
+    `scale` multiplies the float32 draw and `out_dtype` is the cast after
+    it, as `models.common.p` does with the result; the draw is made in
+    chunks of elements, each the whole draw's, so a leaf of hundreds of
+    millions of elements never holds its int64 words at once."""
+    dev = k[0].device
+    f32 = dict(dtype=torch.float32, device=dev)
+    sqrt2 = torch.tensor(math.sqrt(2.0), **f32)
+    lo = torch.tensor(lower, **f32)
+    hi = torch.tensor(upper, **f32)
+    # the bounds' erf on the host, whatever the device: the CPU's float32
+    # erf is jax's at these points
+    a = float(torch.erf(lo.cpu() / sqrt2.cpu()))
+    b = float(torch.erf(hi.cpu() / sqrt2.cpu()))
+    lo_open = torch.nextafter(lo, torch.tensor(math.inf, **f32))
+    hi_open = torch.nextafter(hi, torch.tensor(-math.inf, **f32))
+    out = torch.empty(math.prod(shape), dtype=out_dtype, device=dev)
+    for start in range(0, out.numel(), _CHUNK):
+        count = min(_CHUNK, out.numel() - start)
+        u = _scaled(_unit_floats(_bits(k, start, count)), a, b)
+        val = torch.clamp(sqrt2 * erf_inv(u), lo_open, hi_open)
+        if scale is not None:
+            val = scale * val
+        out[start:start + count] = val
+    return out.reshape(shape)
 

@@ -9,6 +9,10 @@ comparison, and the one parity check of two `RunResult`s.
   * `assert_results_match` compares two RunResult dicts under the port's
     stated tolerances: host fields exactly, trace floats and residual
     norms within `RTOL`/`ATOL`, execution timings not at all.
+  * `lm_params_from_reference` / `lm_params_to_reference` carry the LM
+    launcher's parameter and `OptState` trees across (numpy, bf16 as
+    ml_dtypes' bfloat16 on the reference's side), so both packages can
+    start from the same weights.
 
 Numpy in, numpy out: this module imports neither `jax` nor `repro`.
 """
@@ -22,8 +26,10 @@ import torch
 
 from repro_torch import resolve_device
 
-__all__ = ["ATOL", "RTOL", "STATE_FIELDS", "assert_results_match",
-           "problem_arrays", "state_from_reference"]
+__all__ = ["ATOL", "LAUNCH_TIMINGS", "RTOL", "STATE_FIELDS",
+           "assert_results_match", "lm_params_from_reference",
+           "lm_params_to_reference", "problem_arrays",
+           "state_from_reference"]
 
 #: the carry of `DDASimulator._segment`, in order
 STATE_FIELDS = ("z", "x", "xhat", "res", "t")
@@ -32,6 +38,10 @@ STATE_FIELDS = ("z", "x", "xhat", "res", "t")
 #: `BENCH_dense.json` `config.tol` gates the reference's own fused path with
 RTOL = 1e-5
 ATOL = 1e-6
+
+#: the launch backend's execution timings in `extras`: the step functions'
+#: build seconds and each step's wall (not compared)
+LAUNCH_TIMINGS = ("local_compile_s", "fused_compile_s", "step_walls")
 
 #: trace fields compared within RTOL/ATOL; the other trace fields are host
 #: numpy and compared exactly
@@ -67,6 +77,60 @@ def state_from_reference(arrays: Mapping[str, np.ndarray], device=None
             raise ValueError(f"{f} has shape {tuple(v.shape)}, z "
                              f"{tuple(shape)}")
     return tuple(out)
+
+
+def _map_tree(fn, tree, opt_state_cls):
+    """`fn` on every array leaf of nested dicts, lists, tuples and
+    namedtuples; a namedtuple with the fields (step, inner), an
+    `OptState`, becomes `opt_state_cls`."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v, opt_state_cls) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(fn, v, opt_state_cls) for v in tree]
+    if isinstance(tree, tuple):
+        items = [_map_tree(fn, v, opt_state_cls) for v in tree]
+        if getattr(tree, "_fields", None) == ("step", "inner"):
+            return opt_state_cls(*items)
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(
+            items)
+    return fn(tree)
+
+
+def lm_params_from_reference(params_np, *, device=None):
+    """The JAX package's LM parameter tree, `OptState` or a tuple of both,
+    as numpy (`jax.tree.map(np.asarray, tree)`), into the port's tensors on
+    `device` (None: the CUDA card). bf16 leaves (ml_dtypes' bfloat16) keep
+    their bits; every reference `OptState` becomes the port's."""
+    device = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.view(np.uint16).copy()).view(
+                torch.bfloat16)
+        else:
+            t = torch.from_numpy(a.copy())
+        return t.to(device)
+    from repro_torch.optim import OptState
+    return _map_tree(leaf, params_np, OptState)
+
+
+def lm_params_to_reference(tree, opt_state_cls=None):
+    """The inverse: the port's tree as numpy on the host, bf16 leaves as
+    numpy's registered "bfloat16" (ml_dtypes', the reference's numpy
+    dtype, known once the reference is imported), each `OptState` as
+    `opt_state_cls(step, inner)` (pass the reference's `OptState`; by
+    default a plain pair)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            # numpy knows "bfloat16" once ml_dtypes has registered it, as
+            # importing the reference does
+            return t.view(torch.uint16).numpy().view(np.dtype("bfloat16"))
+        return t.numpy()
+    return _map_tree(leaf, tree, opt_state_cls or (lambda *items: items))
 
 
 def problem_arrays(problem) -> dict[str, np.ndarray]:
@@ -113,8 +177,11 @@ def assert_results_match(ours: Mapping[str, Any], ref: Mapping[str, Any],
 
     Exact: spec, backend, iters, sim_time, comms, eps_value, predictions,
     r_measurement, extras (but for the residual norms of its compression
-    block), and the message counts and the compression block's kind,
-    wire_ratio and bytes_saved in `metrics`.
+    block and the launch backend's timings, `LAUNCH_TIMINGS`: present on
+    both sides, not compared), and the message counts and the compression
+    block's kind, wire_ratio and bytes_saved in `metrics`. A launch run's
+    extras (arch, variant, mesh, comm_rounds, sim_time_units, param_bytes,
+    step_comm, n_pods, k, dryrun) are exact with the rest.
     Within rtol/atol (by default the port's RTOL/ATOL): fvals,
     fvals_consensus, disagreement, time_to_target and the compression
     block's residual_norms. A looser rtol/atol is for compressed runs whose
@@ -128,6 +195,11 @@ def assert_results_match(ours: Mapping[str, Any], ref: Mapping[str, Any],
             bad.append(f"{key}: {ours.get(key)!r} != {ref.get(key)!r}")
     extras, extras_ref = dict(ours.get("extras") or {}), dict(
         ref.get("extras") or {})
+    for key in LAUNCH_TIMINGS:
+        if (key in extras) != (key in extras_ref):
+            bad.append(f"extras.{key} present on one side only")
+        extras.pop(key, None)
+        extras_ref.pop(key, None)
     _compare_compression("extras.compression",
                          extras.pop("compression", None),
                          extras_ref.pop("compression", None), bad, rtol, atol)

@@ -1,11 +1,19 @@
-"""Deterministic synthetic data for the paper problems, copied from
-`repro.data.pipeline` (the numpy generators only; the LM token stream is not
-ported yet).
+"""Deterministic synthetic data, the port of `repro.data.pipeline`: the
+paper problems' numpy generators (copied), plus the token stream for LM
+training with per-node disjoint shards and async host prefetch, whose
+batches are the reference's numpy bits, handed over as torch tensors on the
+run's device.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import queue
+import threading
+from typing import Any, Iterator
+
 import numpy as np
+import torch
 
 
 # ---------------------------------------------------------------------------
@@ -44,3 +52,78 @@ def nonsmooth_quadratic_problem(n_nodes: int, M: int, d: int, seed: int = 0,
     node_shift = rng.normal(0.0, center_scale, (n_nodes, 1, 1, d))
     centers = rng.normal(0.0, 0.3, (n_nodes, M, 2, d)) + node_shift
     return centers.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# LM token stream
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TokenStream:
+    """Deterministic synthetic LM token stream with disjoint per-node shards
+    and background host prefetch.
+
+    Documents are Zipf-sampled token blocks with an injected bigram
+    structure so the loss has real signal (a pure-uniform stream trains to
+    log(V) and nothing else). Batches are (batch, seq+1); the step splits
+    tokens[:, :-1] / labels[:, 1:], int32 tensors on `device` (None: the
+    CUDA card). A producer thread fills the queue: `close()` every stream.
+    """
+
+    vocab_size: int
+    seq_len: int
+    batch_size: int
+    node_index: int = 0
+    num_nodes: int = 1
+    seed: int = 0
+    prefetch: int = 2
+    device: Any = None
+
+    def __post_init__(self):
+        from repro_torch import resolve_device
+
+        self.device = resolve_device(self.device)
+        self._q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._producer, daemon=True)
+        self._thread.start()
+
+    def _batch_at(self, step: int) -> np.ndarray:
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + self.node_index) * 977 + step)
+        B, S, V = self.batch_size, self.seq_len + 1, self.vocab_size
+        base = rng.zipf(1.3, size=(B, S)).astype(np.int64)
+        toks = (base - 1) % V
+        # bigram structure: every even position strongly predicts the next
+        toks[:, 1::2] = (toks[:, 0::2][:, : toks[:, 1::2].shape[1]]
+                         * 31 + 7) % V
+        return toks.astype(np.int32)
+
+    def _producer(self):
+        step = 0
+        while not self._stop.is_set():
+            try:
+                self._q.put(self._batch_at(step), timeout=0.5)
+                step += 1
+            except queue.Full:
+                continue
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        toks = torch.from_numpy(self._q.get())
+        return {"tokens": toks[:, :-1].contiguous().to(self.device),
+                "labels": toks[:, 1:].contiguous().to(self.device)}
+
+    def close(self):
+        """Stop the producer and wait for it: the queue is drained so that
+        a put it is blocked in returns at once."""
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=0.01)

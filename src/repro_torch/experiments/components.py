@@ -29,6 +29,7 @@ from repro_torch.experiments.registry import Registry
 from repro_torch.netsim.problems import quadratic_consensus as _quadratic
 
 __all__ = [
+    "LMProblem",
     "Problem",
     "problems",
     "topologies",
@@ -339,9 +340,24 @@ def _metric_learning_problem(n: int, m_pairs: int = 2000, d_feat: int = 8,
                    capturable=False)
 
 
+@dataclasses.dataclass
+class LMProblem:
+    """Marker problem for the `launch` backend: the 'problem' is consensus
+    data-parallel LM training of a registry architecture, not a convex
+    objective -- dense/netsim backends reject it."""
+
+    arch: str
+    variant: str = "smoke"
+    batch_per_node: int = 8
+    seq_len: int = 64
+
+
 @problems.register("lm")
-def _lm_problem(**_params):
-    _not_ported("problem kind 'lm' (consensus LM training)", "LM stack")
+def _lm_problem(arch: str, variant: str = "smoke", batch_per_node: int = 8,
+                seq_len: int = 64, device=None) -> LMProblem:
+    # nothing is made on the device until the launcher inits the model
+    return LMProblem(arch=arch, variant=variant,
+                     batch_per_node=batch_per_node, seq_len=seq_len)
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,10 @@ Backends (the `backends` registry):
     preset and its knobs, plus engine / algorithm / adaptive controller),
     with fault plans and checkpoints. Its event loops are host numpy on
     either device, bit for bit the reference's.
-  * "launch" -- not ported yet: asking for it raises
-    `NotImplementedError`.
+  * "launch" -- consensus LM training (`launch.train.
+    train_consensus_lm`) of a registry architecture's dense ("attn")
+    family, its pods stacked on the device and mixed through kernel K1;
+    the other block kinds raise `NotImplementedError`.
 
 Each returns the reference's `RunResult`. `run_sweep` runs a grid of cells
 serially, as one batched program (`DDASimulator.run_batch`,
@@ -627,9 +629,106 @@ def _run_netsim(spec: ExperimentSpec, backend: ComponentSpec,
 
 
 @backends.register("launch")
-def _run_launch(spec, backend, tracer=None, *, device=None):
-    raise NotImplementedError("the launch backend is not ported yet "
-                              "(slice: LM stack)")
+def _run_launch(spec: ExperimentSpec, backend: ComponentSpec,
+                tracer: Tracer | None = None, *, device=None) -> RunResult:
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train_consensus_lm
+    from repro_torch.models import registry as _models
+    from repro_torch.optim import adamw, cosine_lr
+
+    device = resolve_device(device)
+    tr = tracer if tracer is not None else Tracer()
+    _require(spec.faults is None,
+             "fault injection is event-driven (netsim backends only); "
+             "launch runs real processes")
+    _require(spec.profile_dir is None,
+             "profile_dir wraps the dense scanned program; profile the "
+             "launch path with jax.profiler around train_consensus_lm "
+             "directly")
+    params = dict(backend.params)
+    mesh_shape = tuple(params.pop("mesh", None) or (1, 1, 1))
+    dryrun = params.pop("dryrun", False)
+    lr = params.pop("lr", 3e-4)
+    mix_target = params.pop("mix_target", "params")
+    log_every = params.pop("log_every", 0)
+    _require(not params,
+             f"launch backend has unknown params {sorted(params)}")
+
+    with tr.span("build"):
+        problem = _build_problem(spec, device)
+        _require(isinstance(problem, C.LMProblem),
+                 'launch backend needs the "lm" problem kind')
+        _require(len(mesh_shape) == 3, "mesh must be (pod, data, model)")
+        _require(spec.controller is None,
+                 "the launch backend has no controller hook yet (ROADMAP)")
+        # reject spec fields this backend cannot honor rather than silently
+        # dropping them -- the other backends validate the same way
+        _require(spec.eps_frac is None,
+                 "launch has no F* to target; eps_frac is dense/netsim-only")
+        _require(spec.time_limit is None,
+                 "time_limit is event-clock only (netsim backends)")
+        _require(spec.stepsize == ComponentSpec("sqrt", {"A": 1.0}),
+                 "the launch optimizer's LR schedule is the backend's 'lr' "
+                 "param; leave spec.stepsize at its default")
+        n_pods = mesh_shape[0]
+        # the pods stack on one card: the mesh refuses data/model axes
+        mesh = make_mesh(mesh_shape, ("pod", "data", "model"),
+                         device=device)
+        graph = _build_topology(spec, n_pods)
+        _require(isinstance(graph, CommGraph),
+                 "launch backend needs a fixed CommGraph topology")
+        schedule = _build_schedule(spec)
+
+        cfg = _models.get_config(problem.arch, problem.variant)
+        optimizer = adamw(cosine_lr(lr, max(spec.T, 1)))
+    t0 = time.perf_counter()
+    with tr.span("execute"), DEVICE_LOCK.shared():
+        report = train_consensus_lm(
+            cfg, optimizer, mesh, steps=spec.T, schedule=schedule,
+            graph=graph, r_estimate=spec.r,
+            batch_per_node=problem.batch_per_node,
+            seq_len=problem.seq_len, seed=spec.seed, log_every=log_every,
+            mix_target=mix_target, dryrun=dryrun, tracer=tr)
+    wall = time.perf_counter() - t0
+
+    # fold the per-step losses into the canonical trace shape at the spec's
+    # eval cadence; sim_time is the closed-form eq. 9/19 charge
+    n, k = graph.n, graph.degree
+    trace = SimTrace([], [], [], [], [])
+    for step in range(spec.eval_every, report.steps + 1, spec.eval_every):
+        H = schedule.H(step)
+        trace.iters.append(step)
+        trace.sim_time.append(step * (1.0 / n) + H * k * spec.r)
+        trace.fvals.append(float(report.losses[step - 1]))
+        # the recorded loss is already the pod-mean, which is the closest
+        # thing this mode has to F at the consensus average; keep the
+        # column populated so all six SimTrace fields stay row-aligned
+        trace.fvals_consensus.append(float(report.losses[step - 1]))
+        trace.comms.append(H)
+        trace.disagreement.append(0.0)
+    extras = {"arch": problem.arch, "variant": problem.variant,
+              "mesh": list(mesh_shape), "comm_rounds": report.comm_rounds,
+              "sim_time_units": report.sim_time_units, **report.extras}
+
+    # message accounting mirrors the dense closed form: every gossip round
+    # is each pod shipping its parameter payload to its k graph
+    # neighbors; param_bytes comes measured from the train loop
+    compile_s = float(report.extras.get("local_compile_s", 0.0)
+                      + report.extras.get("fused_compile_s", 0.0))
+    msgs = report.comm_rounds * n_pods * k
+    metrics_fields: dict[str, Any] = dict(
+        compile_s=min(compile_s, wall),
+        execute_s=max(wall - compile_s, 0.0),
+        msgs=msgs,
+        bytes_on_wire=float(msgs * report.extras.get("param_bytes", 0.0)),
+        gossip_rounds=report.comm_rounds)
+    step_walls = report.extras.get("step_walls")
+    if step_walls:
+        metrics_fields["step_time_quantiles"] = sample_quantiles(
+            step_walls, "host")
+    metrics = RunMetrics.from_tracer(tr, **metrics_fields)
+    return RunResult(spec=spec, backend=backend, trace=trace, wall_s=wall,
+                     extras=extras, metrics=metrics)
 
 
 # ---------------------------------------------------------------------------

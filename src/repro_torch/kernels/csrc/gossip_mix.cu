@@ -18,7 +18,8 @@
 // acc) for j = 0 .. k-1, and round once to z's dtype: they give the same
 // bits.
 //
-//   - The slab kernel, launched whenever it takes the call: a block owns a
+//   - The slab kernel, launched whenever it takes the call and n (k + 1)
+//     >= kSlabMinReads (below): a block owns a
 //     slab of columns of all n rows of msg in shared memory (128 bytes a
 //     row, less at large n), staged once by cp.async, with S_in and the
 //     weights of all rows, which it checks once; each element of msg then
@@ -26,9 +27,19 @@
 //     what keeps it near the HBM bytes (the register kernel reads every
 //     neighbor row again from L2 or HBM). Staging the slab by Hopper's 1-D
 //     bulk copies (TMA), one a row, was 2.4x slower on the H100 (PERF.md).
+//     A slab round stages n x 128 bytes a block, too few at small n to
+//     keep HBM busy (at n = 2, 16 of 256 threads copy), while the register
+//     kernel reads k + 1 rows for each row it writes. Timed against each
+//     other on the H100 (scripts/profile_torch_k1_forms.py, PERF.md),
+//     the slab kernel was faster at LM leaves (M from 16.8M to 525M bf16)
+//     where the n (k + 1) row reads a column come to 60 or more and slower
+//     below (7.7x at the LM pod mix, n = 2, k = 1); at M of 4096 to 16384
+//     fp32 both take 2-15 us, the register kernel faster by under 1 us
+//     up to n = 128, the two even at the dense main path's n = 256, k = 4.
 //   - The register kernel, for what the slab kernel does not take: ragged
-//     M and unaligned views (one element a thread), k > 8, and n too large
-//     for the slab's shared memory. A block owns one node row i and a span
+//     M and unaligned views (one element a thread), k > 8, n (k + 1) below
+//     kSlabMinReads, and n too large for the slab's shared memory. A
+//     block owns one node row i and a span
 //     of M in 16-byte packets (float4, 8 x bf16); each thread loads its
 //     slots' indices and weights (broadcast loads), checks them, then
 //     issues all k + 1 row loads of its 2 packets before the first FMA, so
@@ -76,6 +87,7 @@ constexpr int kPackets = 2;         // K1 register kernel: packets a thread
 constexpr int kMaxSlots = 8;        // and slots a pass above k = 8
 constexpr int kStages = 1;          // K1 slab kernel: slabs a block holds
 constexpr int kSlabBytes = 65536;   // and bytes of slabs in them
+constexpr int kSlabMinReads = 60;   // and the fewest n (k + 1) it takes
 constexpr int kMaxSmem = 232448;    // shared memory a block may use
 constexpr int kSmemPerSM = 233472;  // and an SM holds
 constexpr int kSmemUnasked = 49152;  // dynamic shared memory without opt-in
@@ -338,13 +350,16 @@ void run_slab(const T* z, const T* msg, const int64_t* s_in,
       stage_bytes);
 }
 
-// the slab kernel for k <= kMaxSlots while its shared memory fits, on a
-// card of `sms` SMs; returns false (nothing launched) otherwise
+// the slab kernel for k <= kMaxSlots and n (k + 1) >= min_reads while its
+// shared memory fits, on a card of `sms` SMs; returns false (nothing
+// launched) otherwise
 template <typename T>
 bool launch_slab(const T* z, const T* msg, const int64_t* s_in,
                  const float* w_self, const float* w_edge, T* out, int n,
-                 int k, int M, int sms, cudaStream_t s) {
-  if (k > kMaxSlots) return false;
+                 int k, int M, int sms, int min_reads, cudaStream_t s) {
+  if (k > kMaxSlots || static_cast<int64_t>(n) * (k + 1) < min_reads) {
+    return false;
+  }
   // slabs of 128 bytes a row while kStages slabs of n rows fit kSlabBytes,
   // narrower down to 16, and no wider than a row
   const int64_t row_bytes = static_cast<int64_t>(M) * sizeof(T);
@@ -386,12 +401,16 @@ bool aligned16(const void* p) {
 }
 
 // K1: the slab kernel when M and the pointers allow 16-byte packets, k <=
-// kMaxSlots and its shared memory fits, else the register kernel (in
-// packets, or one element at a time); the one launched goes to *form
+// kMaxSlots, n (k + 1) >= kSlabMinReads and its shared memory fits, else
+// the register kernel (in packets, or one element at a time). *form asks
+// on entry: kRegs for the register kernel, kSlab for the slab kernel at
+// any n (k + 1) (to time the two against each other), anything else for
+// the choice above; the one launched goes to *form
 template <typename T>
 int launch(const void* z, const void* msg, const void* s_in,
            const void* w_self, const void* w_edge, void* out, int n, int k,
            int M, int sms, int* form, void* stream) {
+  const int asked = *form;
   constexpr int V = 16 / sizeof(T);
   const bool packed =
       M % V == 0 && aligned16(z) && aligned16(msg) && aligned16(out);
@@ -405,7 +424,9 @@ int launch(const void* z, const void* msg, const void* s_in,
   if (!packed) {
     launch_regs<T, 1>(zt, mt, st, ws, we, ot, n, k, M, s);
     *form = kRegs;
-  } else if (launch_slab<T>(zt, mt, st, ws, we, ot, n, k, M, sms, s)) {
+  } else if (asked != kRegs &&
+             launch_slab<T>(zt, mt, st, ws, we, ot, n, k, M, sms,
+                            asked == kSlab ? 0 : kSlabMinReads, s)) {
     *form = kSlab;
   } else {
     launch_regs<T, V>(zt, mt, st, ws, we, ot, n, k, M, s);
@@ -478,6 +499,9 @@ extern "C" int gossip_mix_flat_bf16(const void* self_buf, const void* nbrs,
   return launch_flat<__nv_bfloat16>(self_buf, nbrs, out, k, M, sw, ew,
                                     stream);
 }
+
+// kSlabMinReads, for the checks that mirror the choice of kernel
+extern "C" int gossip_mix_slab_min_reads() { return kSlabMinReads; }
 
 extern "C" int gossip_mix_f32(const void* z, const void* msg,
                               const void* s_in, const void* w_self,

@@ -11,9 +11,10 @@ design and bound are written down) reads the k neighbor rows through S_in
 itself, so the gathered (k, n, M) stack the TPU version was handed is never
 built. It is bandwidth-bound: one pass over z, msg and out. The library
 launches its slab kernel, which stages each slab of msg's columns in shared
-memory once, whenever that kernel takes the call, and its register kernel
-for the rest (ragged M, unaligned views, k > 8, n too large for the slab);
-both give the same bits, and `FORM_LAUNCHES` counts the calls of each.
+memory once, whenever that kernel takes the call and n (k + 1) reaches
+`slab_min_reads()`, and its register kernel for the rest (ragged M,
+unaligned views, k > 8, fewer row reads, n too large for the slab); both
+give the same bits, and `FORM_LAUNCHES` counts the calls of each.
 
 K3, the flat per-node mix with scalar weights:
 
@@ -42,7 +43,7 @@ from repro_torch.kernels import build, counters
 
 __all__ = ["FLAT_LAUNCHES", "FORM_LAUNCHES", "LAUNCHES",
            "check_mix_operands", "check_on_card", "check_operand",
-           "gossip_mix", "gossip_mix_weighted", "library"]
+           "gossip_mix", "gossip_mix_weighted", "library", "slab_min_reads"]
 
 #: launches of K1 since the count was last set to 0
 LAUNCHES = 0
@@ -75,6 +76,12 @@ def library() -> ctypes.CDLL:
             fn.argtypes = _FLAT_ARGTYPES
             fn.restype = ctypes.c_int
     return lib
+
+
+def slab_min_reads() -> int:
+    """The fewest row reads a column, n (k + 1), at which the library
+    launches its slab kernel (`kSlabMinReads` in csrc/gossip_mix.cu)."""
+    return int(library().gossip_mix_slab_min_reads())
 
 
 def check_on_card(kernel: str, t) -> None:
@@ -130,7 +137,8 @@ def check_mix_operands(kernel: str, z: torch.Tensor, S_in: torch.Tensor,
 
 def gossip_mix_weighted(z: torch.Tensor, S_in: torch.Tensor,
                         w_self: torch.Tensor, w_edge: torch.Tensor,
-                        msg: torch.Tensor | None = None) -> torch.Tensor:
+                        msg: torch.Tensor | None = None, *,
+                        form: str | None = None) -> torch.Tensor:
     """One weighted gossip round on the card.
 
     z: (n, M) float32 or bfloat16, contiguous, on a CUDA device; S_in:
@@ -143,6 +151,11 @@ def gossip_mix_weighted(z: torch.Tensor, S_in: torch.Tensor,
     device-side assert, raised by the next synchronizing call, as PyTorch's
     own CUDA index ops do): a host-side check would copy S_in back and wait
     for the card on every launch.
+
+    `form` ("regs" or "slab") asks for one of the two kernels, the slab
+    kernel at any row count it takes, so that the two can be timed against
+    each other (scripts/profile_torch_k1_forms.py); a ValueError if that
+    kernel does not take the call. None lets the library choose.
     """
     global LAUNCHES
     n, M, k = check_mix_operands("gossip_mix_weighted", z, S_in, w_self,
@@ -160,18 +173,26 @@ def gossip_mix_weighted(z: torch.Tensor, S_in: torch.Tensor,
     if device not in _SMS:
         _SMS[device] = torch.cuda.get_device_properties(
             device).multi_processor_count
-    form = ctypes.c_int(-1)
+    if form is not None and form not in _FORM_NAMES:
+        raise ValueError(f"form must be one of {_FORM_NAMES} or None, got "
+                         f"{form!r}")
+    asked = -1 if form is None else _FORM_NAMES.index(form)
+    launched = ctypes.c_int(asked)
     with torch.cuda.device(z.device):
         stream = torch.cuda.current_stream(z.device).cuda_stream
         err = fn(z.data_ptr(), msg.data_ptr(), S_in.data_ptr(),
                  w_self.data_ptr(), w_edge.data_ptr(), out.data_ptr(),
-                 n, k, M, _SMS[device], ctypes.byref(form), stream)
+                 n, k, M, _SMS[device], ctypes.byref(launched), stream)
     if err != 0:
         raise RuntimeError(f"gossip_mix kernel launch failed with CUDA "
                            f"error {err}")
     with counters.LOCK:
         LAUNCHES += 1
-        FORM_LAUNCHES[_FORM_NAMES[form.value]] += 1
+        FORM_LAUNCHES[_FORM_NAMES[launched.value]] += 1
+    if form is not None and launched.value != asked:
+        raise ValueError(f"the {form} kernel does not take this call (n={n}, "
+                         f"k={k}, M={M}); the {_FORM_NAMES[launched.value]} "
+                         f"kernel ran")
     return out
 
 

@@ -126,7 +126,8 @@ def _k1_form(call):
 def test_k1_matches_plain_on_the_kernel_it_picks(cuda_device, k, M,
                                                  msg_kind, dtype, packets):
     """K1 against the plain version on the kernel the library picks: the
-    slab kernel for 16-byte packets and k <= 8, else the register kernel.
+    slab kernel for 16-byte packets, k <= 8 and n (k + 1) row reads a
+    column from 60 (here n = 40: 80 and more), else the register kernel.
     An unaligned msg view and an aligned copy of it (the register and the
     slab kernel, at k <= 8) give the same bits: each takes the slots in
     order, one FMA each after w_self * z, rounded once."""
@@ -141,6 +142,7 @@ def test_k1_matches_plain_on_the_kernel_it_picks(cuda_device, k, M,
                           device=cuda_device).to(z.dtype)[off:].view(n, M)
     out, form = _k1_form(lambda: gossip_mix.gossip_mix_weighted(
         z, S_in, ws, we, msg=msg))
+    assert gossip_mix.slab_min_reads() <= n * 2
     assert form == ("slab" if packets and k <= 8 else "regs")
     expect = ref.gossip_gather_mix_ref(z, S_in, ws, we, msg=msg)
     torch.cuda.synchronize()

@@ -3,6 +3,7 @@ halves are the reference's bit for bit, and its torch halves
 (`subgrad_stack`, `objective`, `projection`) agree with the jax halves on
 seeded inputs."""
 
+import dataclasses
 import inspect
 
 import jax
@@ -112,6 +113,11 @@ def test_device_halves_agree(kind, params, seed):
 
 
 def test_lm_problem_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        port_C.build_component(port_C.problems, "lm", {"arch": "llama3-8b"},
-                               device=torch.device("cpu"))
+    """Named for the refusal it used to pin: the "lm" problem is ported
+    now, and built from the registry it carries the reference's fields."""
+    params = {"arch": "llama3-8b", "batch_per_node": 2, "seq_len": 32}
+    port = port_C.build_component(port_C.problems, "lm", params,
+                                  device=torch.device("cpu"))
+    ref = ref_C.build_component(ref_C.problems, "lm", params)
+    assert type(port).__name__ == type(ref).__name__ == "LMProblem"
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)

@@ -2,8 +2,9 @@
 dense backend of every dense manifest, compressed and uncompressed, under
 the port's parity check (`convert.assert_results_match`: host fields exact,
 trace floats and residual norms rtol 1e-5, atol 1e-6), plus the CLI, the
-refusal of what is not ported yet (the launch backend) and the paths that
-were refused before (netsim manifests, the dense closed loop)."""
+refusal of what is not ported yet (the launch backend's families other
+than the dense one) and the paths that were refused before (netsim
+manifests, the dense closed loop)."""
 
 import copy
 import os
@@ -171,8 +172,14 @@ def test_parity_check_compares_the_compression_block():
     ("launch_dryrun", "launch"),
 ])
 def test_unported_paths_raise(name, backend):
-    spec = repro_torch.ExperimentSpec.from_file(MANIFESTS / f"{name}.json")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """The launch backend runs the dense ("attn") family; the manifest's
+    spec for another family raises, naming the block kind."""
+    d = repro_torch.ExperimentSpec.from_file(
+        MANIFESTS / f"{name}.json").to_dict()
+    d["problem"]["params"]["arch"] = "zamba2-2.7b"
+    spec = repro_torch.ExperimentSpec.from_dict(d)
+    with pytest.raises(NotImplementedError,
+                       match="'mamba2' is not ported yet"):
         repro_torch.run(spec, backend, device="cpu")
 
 

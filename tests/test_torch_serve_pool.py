@@ -426,13 +426,21 @@ def test_pooled_server_inflight_survives_drain():
 @pytest.mark.chaos
 @pytest.mark.serve
 def test_pooled_unported_backend_fails_the_request_not_the_worker():
-    """A served LM spec (the launch backend is not ported) fails with the
-    NotImplementedError in its worker, which goes on serving."""
-    lm = _spec(name="lm", backends=[{"kind": "launch"}])
+    """A served LM spec of a family the launch backend does not build yet
+    (Mamba-1) fails with the NotImplementedError in its worker, which goes
+    on serving."""
+    lm = _spec(name="lm", problem={"kind": "lm", "params": {
+        "arch": "falcon-mamba-7b", "batch_per_node": 2}},
+        topology={"kind": "complete", "params": {}},
+        schedule={"kind": "periodic", "params": {"h": 2}},
+        backends=[{"kind": "launch"}], stepsize={"kind": "sqrt",
+                                                 "params": {"A": 1.0}},
+        controller=None, faults=None, compression=None, eps_frac=None,
+        time_limit=None, profile_dir=None, T=2, eval_every=1)
     spec = _spec(name="after_lm")
     srv = ExperimentServer(processes=1, packing=False, device=CPU)
     try:
-        with pytest.raises(NotImplementedError, match="launch backend"):
+        with pytest.raises(NotImplementedError, match="'mamba1'"):
             srv.submit(lm).result(timeout=120)
         res = srv.submit(spec, backend="dense").result(timeout=120)
         assert comparable_result_dict(res) == comparable_result_dict(
