@@ -169,6 +169,39 @@ non-zero and the last line is not printed. The phases:
             and the CPU (host fields exact, losses within LM_TRACE_RTOL,
             the loss decreasing, K1 12 times a round) and the dry-run
             manifest, card against CPU
+  lm_k1_expert_leaf
+            K1 at deepseek-v2's routed-expert leaf of two full-width pods
+            (bf16, n=2, k=1, M = 160 x 5120 x 1536 = 1,258,291,200) on
+            the empty card, against its plain version bit for bit, on the
+            register kernel alone; timed beside the plain version (eager:
+            its float32 temporaries are about 50 GB a call) and
+            torch.matmul with the 2 x 2 mixing matrix, its bound 3.005 ms
+            from bytes read once and written once
+  lm_moe_full
+            deepseek-v2 at its published widths (d_model 5120, vocab
+            102400, 128 heads of 128, MLA kv_lora 512, q_lora 1536, rope
+            64, v 128; a dense prologue FFN of 12288; 160 routed experts
+            at top-6 with 2 shared, expert d_ff 1536, capacity factor
+            1.25; bf16) cut to its prologue layer and LM_MOE_N_SUPER = 1
+            of its 59 MLA + MoE superblocks, two pods stacked, S = 4096,
+            T = 6, complete graph, periodic h=2, SGD without momentum
+            (AdamW's moments do not fit), through
+            launch.train.train_consensus_lm with every launch count set
+            to 0 just before and read just after: losses finite, the pods
+            bitwise equal after each mix, K1 launched once a leaf (33) a
+            comm step (66), all on its register kernel, param_bytes
+            10,719,055,872, peak memory under LM_PEAK_CAP_GIB; prints the
+            step walls, the peak, K1's time a comm step against its bound
+            (12.80 ms, from the run's param_bytes), each MoE call's
+            dropped assignments (in the overflow slot) out of 4096 x 6,
+            and the second fused step's device time by kind (K1, SGD,
+            matmuls, the MoE gathers, attention, the rest)
+  lm_moe_smoke
+            deepseek-v2 and llama4-maverick at smoke width through
+            repro_torch.run at mesh (4, 1, 1), expander k=2, adamw, on
+            the card and the CPU: host fields exact, losses within
+            LM_MOE_TRACE_RTOL, K1 once a leaf a comm round; prints the
+            router's top-K choices that differ between card and CPU
   kernel_k3 K3 (the flat per-node mix, `kernels.ops.gossip_mix`) against
             its plain version over M in {1, 3, 130, 4099, 8192, 65537,
             2^20} (and a misaligned view), k in {1, 4, 8}, fp32 and bf16
@@ -2038,13 +2071,13 @@ ATTN_STREAM_RTOL = 1.2e-2
 
 
 def _lm_spec(name: str, variant: str, mesh, topology: dict, T: int,
-             batch_per_node: int, seq_len: int):
+             batch_per_node: int, seq_len: int, arch: str = "llama3-8b"):
     import repro_torch
 
     return repro_torch.ExperimentSpec(
         name=name, T=T, eval_every=1, r=0.05, seed=0,
         problem={"kind": "lm", "params": {
-            "arch": "llama3-8b", "variant": variant,
+            "arch": arch, "variant": variant,
             "batch_per_node": batch_per_node, "seq_len": seq_len}},
         topology=topology,
         schedule={"kind": "periodic", "params": {"h": 2}},
@@ -2086,16 +2119,20 @@ def _lm_host_fields(result, n: int, k: int, r: float) -> None:
         raise AssertionError(f"lm losses not finite: {d['trace']['fvals']}")
 
 
-def _lm_k1_call() -> dict:
-    """K1 at the LM call: the embed leaf of two full-width pods (bf16,
-    n = 2, k = 1, M = 128256 x 4096), against its plain version bit for
-    bit, timed beside it and torch.matmul with the 2 x 2 mixing matrix."""
+def _lm_k1_call(M: int = 128256 * 4096, seed: int = 20,
+                plain_graph: bool = True) -> dict:
+    """K1 at an LM call: one leaf of two full-width pods (bf16, n = 2,
+    k = 1, M columns; by default llama3-8b's embed leaf, 128256 x 4096),
+    against its plain version bit for bit, timed beside it and
+    torch.matmul with the 2 x 2 mixing matrix. `plain_graph=False` times
+    the plain version eagerly (CUDA events around single calls): its
+    float32 temporaries at deepseek-v2's expert leaf are about 50 GB a
+    call, too many for a graph's pool beside the eager windows' cache."""
     import torch
 
     from repro_torch.kernels import ops, ref
 
-    M = 128256 * 4096
-    gen = torch.Generator(device="cuda").manual_seed(20)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     z = torch.empty((2, M), dtype=torch.bfloat16, device="cuda")
     for i in range(2):
         z[i] = torch.randn((M,), generator=gen, device="cuda")
@@ -2108,11 +2145,15 @@ def _lm_k1_call() -> dict:
                              "version")
     err = _max_err(out, expect)
     del out, expect
+    torch.cuda.empty_cache()
     P = torch.full((2, 2), 0.5, dtype=torch.bfloat16, device="cuda")
     kernel_t = time_ms(lambda: ops.gossip_gather_mix_impl(z, S_in, 0.5, 0.5),
                        reps=7, inner=3)
-    plain_t = time_ms(lambda: ref.gossip_gather_mix_ref(z, S_in, 0.5, 0.5),
-                      reps=5, inner=2)
+    def plain():
+        return ref.gossip_gather_mix_ref(z, S_in, 0.5, 0.5)
+    plain_t = (time_ms(plain, reps=5, inner=2) if plain_graph else
+               time_ms(plain, reps=5, inner=1, graph=False, warmup=1))
+    torch.cuda.empty_cache()
     library_t = time_ms(lambda: torch.matmul(P, z), reps=7, inner=3)
     nbytes = 2 * z.numel() * z.element_size()  # z read once, out written
     del z
@@ -2157,41 +2198,6 @@ def _lm_attention_check() -> dict:
         raise AssertionError(f"the streamed attention is {rel} off the whole "
                              f"score-matrix form (rtol {ATTN_STREAM_RTOL})")
     return {"rel_err": rel, "rtol": ATTN_STREAM_RTOL}
-
-
-def _lm_profile_split(prof) -> dict:
-    """Device time (ms) of one profiled fused step by kind, from the
-    profiler's kernel events: K1, AdamW (kernels inside the GPU side of
-    the "lm:adamw" ranges), the matmuls (cuBLAS/CUTLASS kernels, forward
-    and backward) and the rest (attention's softmax and masks, norms,
-    rope, loss, embedding, gradient sums, copies)."""
-    from torch.autograd import DeviceType
-
-    kernels, windows = [], []
-    for evt in prof.events():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        span = (evt.time_range.start, evt.time_range.end)
-        if evt.name.startswith("lm:"):
-            windows.append(span)
-        else:
-            kernels.append((evt.name.lower(), span))
-    split = {"k1": 0.0, "adamw": 0.0, "matmul": 0.0, "other": 0.0}
-    for name, (t0, t1) in kernels:
-        if "gossip_mix" in name:
-            kind = "k1"
-        elif any(w0 <= t0 < w1 for w0, w1 in windows):
-            kind = "adamw"
-        elif any(s in name for s in ("gemm", "xmma", "cutlass", "nvjet",
-                                     "cublas")):
-            kind = "matmul"
-        else:
-            kind = "other"
-        split[kind] += (t1 - t0) / 1e3
-    split["total"] = sum(split.values())
-    split["kernels"] = len(kernels)
-    split["adamw_windows"] = len(windows)
-    return split
 
 
 def _lm_isolated_ms() -> dict:
@@ -2293,10 +2299,11 @@ def phase_lm() -> dict:
             seen["mixes"] += 1
             if seen["mixes"] == 2:  # the second comm step, profiled
                 with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
+                                         ProfilerActivity.CUDA],
+                             record_shapes=True) as prof:
                     out = fused(params, opt_state, batch)
                     torch.cuda.synchronize()
-                seen["profile"] = _lm_profile_split(prof)
+                seen["profile"] = _lm_profile_split(prof, "adamw")
             else:
                 out = fused(params, opt_state, batch)
             for leaf in torch.utils._pytree.tree_leaves(out[0]):
@@ -2397,6 +2404,318 @@ def phase_lm() -> dict:
     if not all(math.isfinite(v) for v in card.trace.fvals):
         raise AssertionError("smoke LM losses not finite")
     return {"launches": counts["gossip_mix"], "call": k1_call}
+
+
+#: deepseek-v2's full-width cell: the dense MLA prologue layer and one of
+#: its 59 MLA + MoE superblocks (2 of 60 layers), two pods, B = 1 and
+#: S = 4096 a pod (train_4k's sequence), T = 6, SGD without momentum
+LM_MOE_N_SUPER = 1
+LM_MOE_SEQ = 4096
+#: leaves of the cut deepseek-v2 tree, each mixed by one K1 launch: embed,
+#: final_norm, lm_head; the prologue's 9 MLA and 4 FFN leaves; the
+#: superblock's 9 MLA, 5 MoE and 3 shared-expert leaves
+LM_MOE_LEAVES = 33
+#: a pod's parameter bytes in that tree: 5,357,830,144 bf16 elements and
+#: 848,896 float32 ones (the norms and the router)
+LM_MOE_PARAM_BYTES = 5357830144 * 2 + 848896 * 4
+#: the routed-expert leaf's columns a pod (160 experts x 5120 x 1536)
+LM_EXPERT_LEAF = 160 * 5120 * 1536
+#: the smoke-width MoE and MLA archs, card against CPU
+LM_MOE_ARCHS = ("deepseek-v2-236b", "llama4-maverick-400b-a17b")
+#: the relative error those runs' losses may show on the card against the
+#: CPU: bf16 matmuls accumulate in another order on each, and a router
+#: choice near a tie then flips (observed 1.09e-3 for deepseek-v2, with 404
+#: of 24,576 choices flipped, above LM_TRACE_RTOL); the standard the CPU
+#: tests hold the port's MoE runs to against the reference's
+#: (tests/test_torch_launch_moe.py, observed 2.5e-3 there)
+LM_MOE_TRACE_RTOL = 5e-3
+
+
+def phase_lm_k1_expert_leaf() -> dict:
+    """K1 at deepseek-v2's routed-expert leaf of two full-width pods (bf16,
+    n = 2, k = 1, M = 1,258,291,200), on the empty card before the cell,
+    against its plain version bit for bit; timed beside it and
+    torch.matmul(P, z), its bound from bytes read once and written once."""
+    import torch
+
+    from repro_torch.kernels import gossip_mix
+
+    torch.cuda.empty_cache()
+    before = dict(gossip_mix.FORM_LAUNCHES)
+    call = _lm_k1_call(M=LM_EXPERT_LEAF, seed=21, plain_graph=False)
+    forms = {form: gossip_mix.FORM_LAUNCHES[form] - before[form]
+             for form in before}
+    emit("lm_k1_expert_leaf", n=2, k=1, M=LM_EXPERT_LEAF,
+         forms_launched=forms, **call)
+    if forms["slab"] or not forms["regs"]:
+        raise AssertionError(f"K1 at the expert leaf ran {forms}, not the "
+                             f"register kernel alone (n (k + 1) = 4)")
+    return call
+
+
+def _lm_profile_split(prof, optimizer: str) -> dict:
+    """Device time (ms) of one profiled fused step by kind, from the
+    profiler's kernel events: K1; the optimizer (kernels inside the GPU
+    side of the "lm:<optimizer>" ranges); the matmuls (cuBLAS/CUTLASS
+    kernels: the projections, the MoE's expert einsums, attention's
+    einsums, the head, forward and backward); the MoE dispatch and combine
+    (gather and scatter kernels: the gathers forward, their scatter-adds
+    backward, and the loss's small gather); attention (the rest of the
+    kernels launched by an op with a 5-D input, as the profiler ties each
+    kernel to the op that launched it: the streamed attention's score
+    chunks and carries, the only 5-D tensors of the models); the rest
+    (norms, rope, the FFNs' and router's elementwise work, the loss, the
+    embedding, gradient sums, copies). Needs a profile taken with
+    record_shapes=True."""
+    from torch.autograd import DeviceType
+
+    def kind_of(name: str) -> str:
+        if "gossip_mix" in name:
+            return "k1"
+        if any(s in name for s in ("gemm", "xmma", "cutlass", "nvjet",
+                                   "cublas")):
+            return "matmul"
+        if "gather" in name or "scatter" in name:
+            return "moe_gather"
+        return "other"
+
+    kernels, windows, attention = [], [], 0.0
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CPU:
+            shapes = getattr(evt, "input_shapes", None) or ()
+            if any(isinstance(sh, (list, tuple)) and len(sh) == 5
+                   for sh in shapes):
+                attention += sum(k.duration for k in evt.kernels
+                                 if kind_of(k.name.lower()) == "other")
+            continue
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        span = (evt.time_range.start, evt.time_range.end)
+        if evt.name.startswith("lm:"):
+            windows.append(span)
+        else:
+            kernels.append((evt.name.lower(), span))
+    split = {"k1": 0.0, optimizer: 0.0, "matmul": 0.0, "moe_gather": 0.0,
+             "attention": attention / 1e3, "other": -attention / 1e3}
+    for name, (t0, t1) in kernels:
+        kind = kind_of(name)
+        if kind != "k1" and any(w0 <= t0 < w1 for w0, w1 in windows):
+            kind = optimizer
+        split[kind] += (t1 - t0) / 1e3
+    split["total"] = sum(split.values())
+    split["kernels"] = len(kernels)
+    split[f"{optimizer}_windows"] = len(windows)
+    return split
+
+
+def phase_lm_moe_full() -> dict:
+    """deepseek-v2 at its published widths (MLA, 160 routed experts at
+    top-6 with 2 shared, bf16) cut to 2 of its 60 layers, two pods stacked
+    on the card, B = 1 and S = 4096 a pod, complete graph, periodic h = 2,
+    T = 6, seed 0, through `launch.train.train_consensus_lm` with SGD
+    without momentum (AdamW's float32 moments for two pods, 85.7 GB, do
+    not fit the card), every launch count set to 0 just before and read
+    just after: losses finite, the pods bitwise equal after each mix, K1
+    once a leaf a comm step (33 leaves) and all on its register kernel,
+    param_bytes the tree's, peak memory under LM_PEAK_CAP_GIB. Prints the
+    step walls, the peak, K1's time a comm step against its bound, the
+    dropped assignments of each MoE call (those in the overflow slot E*C)
+    and the second fused step's device time by kind."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch import optim
+    from repro_torch.core.schedules import Periodic
+    from repro_torch.kernels import gossip_mix
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import mlp as mlp_mod
+    from repro_torch.models import registry
+
+    cfg = dataclasses.replace(registry.get_config("deepseek-v2-236b",
+                                                  "full"),
+                              n_super=LM_MOE_N_SUPER)
+    seen = {"mixes": 0, "profile": None, "leaves": set()}
+    drops = []
+    real_steps = train_mod.make_consensus_steps
+    real_dispatch = mlp_mod._dispatch_indices
+
+    def counting_dispatch(ids, num_experts, capacity):
+        dest = real_dispatch(ids, num_experts, capacity)
+        drops.append((dest == num_experts * capacity).sum())  # no sync
+        return dest
+
+    def watched_steps(*a, **kw):
+        local, mix, fused = real_steps(*a, **kw)
+
+        def checked_fused(params, opt_state, batch):
+            seen["mixes"] += 1
+            if seen["mixes"] == 2:  # the second comm step, profiled
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA],
+                             record_shapes=True) as prof:
+                    out = fused(params, opt_state, batch)
+                    torch.cuda.synchronize()
+                seen["profile"] = _lm_profile_split(prof, "sgd")
+            else:
+                out = fused(params, opt_state, batch)
+            leaves = torch.utils._pytree.tree_leaves(out[0])
+            seen["leaves"].add(len(leaves))
+            for leaf in leaves:
+                if not torch.equal(leaf[0], leaf[1]):
+                    raise AssertionError("the two pods differ after the "
+                                         "mix (complete graph, n = 2)")
+            return out
+        return local, mix, checked_fused
+
+    sgd = optim.sgd(optim.cosine_lr(3e-4, 6))
+
+    def labelled_update_(grads, state, params):
+        with record_function("lm:sgd"):
+            sgd.update_(grads, state, params)
+    opt = dataclasses.replace(sgd, update_=labelled_update_)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh((2, 1, 1), ("pod", "data", "model"), device="cuda")
+    train_mod.make_consensus_steps = watched_steps
+    mlp_mod._dispatch_indices = counting_dispatch
+    try:
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        report = train_mod.train_consensus_lm(
+            cfg, opt, mesh, steps=6, schedule=Periodic(h=2),
+            topology="complete", batch_per_node=1, seq_len=LM_MOE_SEQ,
+            seed=0, log_every=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _launch_counts()
+        forms = dict(gossip_mix.FORM_LAUNCHES)
+    finally:
+        train_mod.make_consensus_steps = real_steps
+        mlp_mod._dispatch_indices = real_dispatch
+    peak = torch.cuda.max_memory_allocated()
+    drops = [int(d) for d in drops]
+    torch.cuda.empty_cache()
+    rounds = report.comm_rounds
+    launches = counts["gossip_mix"]
+    if launches != LM_MOE_LEAVES * rounds or rounds != 2 or \
+            sum(counts.values()) != launches:
+        raise AssertionError(f"the MoE cell launched {counts} for {rounds} "
+                             f"comm steps of {LM_MOE_LEAVES} leaves")
+    if forms != {"regs": launches, "slab": 0}:
+        raise AssertionError(f"K1 ran {forms} in the MoE cell, not the "
+                             f"register kernel alone")
+    if seen["mixes"] != rounds or seen["leaves"] != {LM_MOE_LEAVES}:
+        raise AssertionError(f"{seen['mixes']} fused steps with "
+                             f"{seen['leaves']} leaves for {rounds} rounds")
+    if report.extras["param_bytes"] != LM_MOE_PARAM_BYTES:
+        raise AssertionError(f"param_bytes {report.extras['param_bytes']}")
+    if not all(math.isfinite(v) for v in report.losses):
+        raise AssertionError(f"MoE cell losses not finite: {report.losses}")
+    if peak > LM_PEAK_CAP_GIB * 2 ** 30:
+        raise AssertionError(f"peak {peak} bytes above {LM_PEAK_CAP_GIB} "
+                             f"GiB at S={LM_MOE_SEQ}")
+    calls = 2 * 6 * 2 * LM_MOE_N_SUPER  # pods, steps, forward + recompute
+    if len(drops) != calls:
+        raise AssertionError(f"{len(drops)} MoE calls, not {calls}")
+    walls, comm = report.extras["step_walls"], report.extras["step_comm"]
+    step_bytes = 2 * 2 * report.extras["param_bytes"]
+    split = seen["profile"]
+    emit("lm_moe_full", arch=cfg.name, n_super=LM_MOE_N_SUPER,
+         seq_len=LM_MOE_SEQ, n_pods=2, optimizer="sgd",
+         losses=report.losses, k1_launches=launches,
+         k1_forms_launched=forms, leaves=LM_MOE_LEAVES,
+         param_bytes=report.extras["param_bytes"],
+         k1_comm_step_ms=split["k1"],
+         k1_comm_step_bound_ms=_bound(step_bytes, 0.0)["bound_ms"],
+         peak_allocated_gib=peak / 2 ** 30, wall_s=wall,
+         step_walls_s=walls, step_comm=comm,
+         local_step_s=[w for w, c in zip(walls[1:], comm[1:]) if not c],
+         fused_step_s_unprofiled=walls[2],
+         capacity=mlp_mod.moe_capacity(cfg, LM_MOE_SEQ),
+         assignments_per_call=LM_MOE_SEQ * cfg.moe_top_k,
+         dropped_per_call=drops, fused_step_profiled_split_ms=split)
+    return {"launches": launches, "k1_comm_step_ms": split["k1"]}
+
+
+def phase_lm_moe_smoke() -> dict:
+    """deepseek-v2 and llama4-maverick at smoke width through
+    repro_torch.run at mesh (4, 1, 1), expander k = 2, with the runner's
+    AdamW, on the card (every launch count set to 0 just before and read
+    just after) and on the CPU: host fields exact, losses within
+    LM_MOE_TRACE_RTOL, K1 once a leaf a comm round. Prints, per arch, the
+    router's top-K choices that differ between card and CPU. Returns K1's
+    launches by arch."""
+    import torch
+
+    import repro_torch
+    from repro_torch.compress import prng
+    from repro_torch.convert import assert_results_match
+    from repro_torch.models import mlp as mlp_mod
+    from repro_torch.models import registry, transformer
+
+    torch.cuda.empty_cache()
+    real_top = mlp_mod._top_indices
+    launches = {}
+    for arch in LM_MOE_ARCHS:
+        spec = _lm_spec("lm_moe_smoke", "smoke", (4, 1, 1),
+                        {"kind": "expander", "params": {"k": 2, "seed": 0}},
+                        T=6, batch_per_node=2, seq_len=64, arch=arch)
+        choices = {"cuda": [], "cpu": []}
+        results = {}
+        for device in ("cuda", "cpu"):
+            def recording_top(probs, k, side=choices[device]):
+                ids = real_top(probs, k)
+                side.append(ids.cpu())
+                return ids
+            mlp_mod._top_indices = recording_top
+            try:
+                _zero_launch_counts()
+                results[device] = repro_torch.run(spec, device=device)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    counts = _launch_counts()
+            finally:
+                mlp_mod._top_indices = real_top
+        card, cpu = results["cuda"], results["cpu"]
+        ours, theirs = card.to_dict(), cpu.to_dict()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            ours["trace"]["fvals"], theirs["trace"]["fvals"]))
+        flips = sum(int((a != b).sum()) for a, b in zip(choices["cuda"],
+                                                        choices["cpu"]))
+        total = sum(a.numel() for a in choices["cpu"])
+        leaves = len(torch.utils._pytree.tree_leaves(transformer.init(
+            prng.key(0, "cpu"), registry.get_config(arch, "smoke"))[0]))
+        emit("lm_moe_smoke", arch=arch, card_cpu_max_rel=rel,
+             rtol=LM_MOE_TRACE_RTOL, losses=card.trace.fvals,
+             cpu_losses=cpu.trace.fvals, k1_launches=counts["gossip_mix"],
+             leaves=leaves, router_choices=total,
+             router_choices_card_cpu_differ=flips,
+             moe_calls=len(choices["cuda"]))
+        if len(choices["cuda"]) != len(choices["cpu"]) or not total:
+            raise AssertionError(f"{arch}: the card made "
+                                 f"{len(choices['cuda'])} MoE calls, the "
+                                 f"CPU {len(choices['cpu'])}")
+        if not rel <= LM_MOE_TRACE_RTOL:
+            raise AssertionError(f"{arch}: the smoke run's losses on the card "
+                                 f"are {rel} off the CPU's (rtol "
+                                 f"{LM_MOE_TRACE_RTOL})")
+        for side in (ours, theirs):
+            side["trace"]["fvals"] = theirs["trace"]["fvals"]
+            side["trace"]["fvals_consensus"] = theirs["trace"][
+                "fvals_consensus"]
+        assert_results_match(ours, theirs)
+        _lm_host_fields(card, n=4, k=2, r=0.05)
+        if counts["gossip_mix"] != leaves * card.extras["comm_rounds"] or \
+                sum(counts.values()) != counts["gossip_mix"]:
+            raise AssertionError(f"{arch}: the smoke run launched {counts} "
+                                 f"for {card.extras['comm_rounds']} rounds "
+                                 f"of {leaves} leaves")
+        launches[arch] = counts["gossip_mix"]
+    return launches
 
 
 def phase_kernel_k3() -> dict:
@@ -2791,6 +3110,11 @@ def main() -> int:
     lm = phase_lm()
     k1["lm_launches"] = lm["launches"]
     k1["lm_call"] = lm["call"]
+    k1["lm_expert_leaf_call"] = phase_lm_k1_expert_leaf()
+    lm_moe = phase_lm_moe_full()
+    k1["lm_moe_launches"] = lm_moe["launches"]
+    k1["lm_moe_comm_step_ms"] = lm_moe["k1_comm_step_ms"]
+    k1["lm_moe_smoke_launches"] = phase_lm_moe_smoke()
     k3 = phase_kernel_k3()
     k4 = phase_kernel_k4(build_s)
     k5 = phase_kernel_k5()

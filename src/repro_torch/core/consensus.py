@@ -4,16 +4,19 @@ numpy stale-gossip combines (`stale_combine`, `stale_combine_batch`) the
 event-driven netsim nodes call.
 
 `mix_dense` is the P @ z matmul the simulator uses on complete (or
-near-complete) graphs; it stays a plain `torch.matmul` in float32 (the port
-never turns TF32 on, so it is full precision on the card too). The sparse
-k-regular mix is the hand kernel behind `repro_torch.kernels.ops`.
+near-complete) graphs (`tree_mix_dense`: on every leaf of a tree); it
+stays a plain `torch.matmul` in float32 (the port never turns TF32 on, so
+it is full precision on the card too). The sparse k-regular mix is the
+hand kernel behind `repro_torch.kernels.ops`.
 
 `tree_mix_gossip` is the LM launcher's pod mix: the reference mixes the
 pods of every parameter leaf with `einsum("pq,q...->p...", P, a)` in
 float32 (`launch/steps.py` `_dense_mix`), or with the graph's ppermutes
 inside a shard_map across chips. The port stacks the pods on one card and
 mixes each leaf through kernel K1 (`kernels.ops.gossip_gather_mix_impl`).
-The shard_map collectives of the reference wait for the multi-card slice.
+The shard_map collectives of the reference (`mix_collective`,
+`tree_mix_collective`, and `mix_stale`'s one-step-stale gossip over an
+axis) wait for the multi-card slice.
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils._pytree as _pytree
 
 __all__ = ["disagreement", "gossip_operands", "mix_dense", "stale_combine",
-           "stale_combine_batch", "tree_mix_gossip"]
+           "stale_combine_batch", "tree_mix_dense", "tree_mix_gossip"]
 
 
 def mix_dense(z: torch.Tensor, P: torch.Tensor | np.ndarray) -> torch.Tensor:
@@ -32,6 +36,11 @@ def mix_dense(z: torch.Tensor, P: torch.Tensor | np.ndarray) -> torch.Tensor:
     P = torch.as_tensor(P, dtype=z.dtype, device=z.device)
     zf = z.reshape(z.shape[0], -1)
     return (P @ zf).reshape(z.shape)
+
+
+def tree_mix_dense(tree: Any, P: torch.Tensor | np.ndarray) -> Any:
+    """`mix_dense` on every leaf of a tree of stacked (n, ...) tensors."""
+    return _pytree.tree_map(lambda a: mix_dense(a, P), tree)
 
 
 def stale_combine(z, neighbor_acc, self_weight: float):

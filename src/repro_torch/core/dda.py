@@ -43,6 +43,11 @@ captured and says so (`DDASimulator(capture=False)`); its runs, and every
 run on the CPU, call the same bodies eagerly. `last_loop` records which.
 A capture runs alone on the card (`DEVICE_LOCK`), so threads that share
 the process (the experiment server's) may run and capture side by side.
+
+`DDAState`, `dda_init` and `dda_local_step` are the reference's per-node
+pytree step (a cheap iteration, z <- z + g, on nested dicts and lists of
+tensors). Its expensive twin `dda_mix_step` mixes over a shard_map axis
+across chips and comes with the multi-card slice.
 """
 
 from __future__ import annotations
@@ -54,10 +59,11 @@ import math
 import threading
 import time
 import weakref
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as _pytree
 
 from repro_torch import resolve_device
 from repro_torch.core import consensus as _cons
@@ -66,10 +72,13 @@ from repro_torch.core.schedules import CommSchedule, EveryIteration
 
 __all__ = [
     "DEVICE_LOCK",
+    "DDAState",
     "DDASimulator",
     "SegmentStats",
     "SimTrace",
     "TRACE_FIELDS",
+    "dda_init",
+    "dda_local_step",
     "json_sanitize",
     "stepsize_sqrt",
     "trace_time_to_reach",
@@ -192,6 +201,44 @@ def stepsize_sqrt(A: float, q: float = 0.5) -> Callable:
             return torch.full_like(t, A) / torch.clamp(t, min=1.0) ** q
         return A / np.maximum(t, 1.0) ** q
     return a
+
+
+class DDAState(NamedTuple):
+    z: Any              # accumulated dual (subgradient) direction
+    x: Any              # current primal iterate
+    xhat: Any           # running average (the algorithm's output)
+    t: torch.Tensor     # iteration counter (float32 scalar)
+
+
+def dda_init(x0) -> DDAState:
+    """z = 0, x = xhat = x0, t = 0 (float32, on x0's device)."""
+    leaves = _pytree.tree_leaves(x0)
+    device = leaves[0].device if leaves else None
+    return DDAState(z=_pytree.tree_map(torch.zeros_like, x0), x=x0, xhat=x0,
+                    t=torch.zeros((), dtype=torch.float32, device=device))
+
+
+def _prox(z, a_t: torch.Tensor, projection: Callable | None):
+    x = _pytree.tree_map(lambda zl: (-a_t * zl).to(zl.dtype), z)
+    return projection(x) if projection is not None else x
+
+
+def _advance(state: DDAState, z_new, a_fn, projection) -> DDAState:
+    """x = Proj(-a(t+1) z), xhat = (t xhat + x) / (t + 1): each product
+    rounded on its own (no fused multiply-add), as the simulator rounds."""
+    t_new = state.t + 1.0
+    x_new = _prox(z_new, a_fn(t_new), projection)
+    xhat_new = _pytree.tree_map(lambda h, x: (state.t * h + x) / t_new,
+                                state.xhat, x_new)
+    return DDAState(z=z_new, x=x_new, xhat=xhat_new, t=t_new)
+
+
+def dda_local_step(state: DDAState, grad, a_fn,
+                   projection: Callable | None = None) -> DDAState:
+    """Cheap iteration: z <- z + g (no communication), then the prox and
+    the running average. New tensors; the state given is left as it is."""
+    z_new = _pytree.tree_map(torch.add, state.z, grad)
+    return _advance(state, z_new, a_fn, projection)
 
 
 @dataclasses.dataclass

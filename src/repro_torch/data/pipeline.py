@@ -54,6 +54,18 @@ def nonsmooth_quadratic_problem(n_nodes: int, M: int, d: int, seed: int = 0,
     return centers.astype(np.float32)
 
 
+def partition_rows(m: int, n_nodes: int) -> list[slice]:
+    """Even partition (paper assumes n | m; we give the remainder to the
+    last node)."""
+    base = m // n_nodes
+    out = []
+    for i in range(n_nodes):
+        lo = i * base
+        hi = (i + 1) * base if i < n_nodes - 1 else m
+        out.append(slice(lo, hi))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # LM token stream
 # ---------------------------------------------------------------------------

@@ -65,14 +65,14 @@ def _grads_like(params: PyTree, flat_grads: list[torch.Tensor]) -> PyTree:
     return out
 
 
-def grad_fn(params: PyTree, batch: dict, cfg: ModelConfig
-            ) -> tuple[torch.Tensor, PyTree]:
+def grad_fn(params: PyTree, batch: dict, cfg: ModelConfig,
+            moe_groups: int = 1) -> tuple[torch.Tensor, PyTree]:
     """(loss, grads) of `transformer.loss_fn` at one pod's params: the
     reference's `jax.value_and_grad`. Gradients are in each leaf's dtype."""
     train = _trainable(params)
     flat = _pytree.tree_leaves(train)
     with torch.enable_grad():
-        loss = transformer.loss_fn(train, batch, cfg)
+        loss = transformer.loss_fn(train, batch, cfg, moe_groups)
         grads = torch.autograd.grad(loss, flat)
     return loss.detach(), _grads_like(params, list(grads))
 
@@ -82,9 +82,10 @@ def _grad_norm(grads: PyTree) -> torch.Tensor:
                           for g in _pytree.tree_leaves(grads)))
 
 
-def _loss_and_grads(params, batch, cfg: ModelConfig, microbatches: int):
+def _loss_and_grads(params, batch, cfg: ModelConfig, moe_groups: int,
+                    microbatches: int):
     if microbatches == 1:
-        return grad_fn(params, batch, cfg)
+        return grad_fn(params, batch, cfg, moe_groups)
     # gradient accumulation: the batch split along its leading dim, fp32
     # sums of the microbatches' gradients and losses
     def resh(a):
@@ -97,7 +98,8 @@ def _loss_and_grads(params, batch, cfg: ModelConfig, microbatches: int):
         lambda p_: torch.zeros(p_.shape, dtype=torch.float32,
                                device=p_.device), params)
     for m in range(microbatches):
-        loss, g = grad_fn(params, {k: v[m] for k, v in mb.items()}, cfg)
+        loss, g = grad_fn(params, {k: v[m] for k, v in mb.items()}, cfg,
+                          moe_groups)
         g_acc = _pytree.tree_map(lambda a, b: a + b.float(), g_acc, g)
         loss_acc = loss_acc + loss
     return (loss_acc / microbatches,
@@ -109,12 +111,13 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     """Pure synchronous step on one replica: (params, opt_state, batch) ->
     (params, opt_state, metrics), new tensors. `microbatches` > 1 runs
     gradient accumulation (the batch split along its leading dim, fp32
-    gradient sums). `moe_groups` is the reference's MoE dispatch knob; the
-    dense family ignores it."""
+    gradient sums). `moe_groups` is the MoE dispatch groups
+    (`mlp.moe_apply`'s `groups`); the dense blocks ignore it."""
     transformer.check_config(cfg)
 
     def train_step(params, opt_state, batch):
-        loss, grads = _loss_and_grads(params, batch, cfg, microbatches)
+        loss, grads = _loss_and_grads(params, batch, cfg, moe_groups,
+                                      microbatches)
         new_params, new_state = optimizer.update(grads, opt_state, params)
         return new_params, new_state, {"loss": loss,
                                        "grad_norm": _grad_norm(grads)}
@@ -123,6 +126,11 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
 
 
 def _pod(tree: PyTree, i: int) -> PyTree:
+    """Pod i's views of a pod-stacked tree. None (the state of SGD without
+    momentum) stays None: some torch versions map a function over None as
+    over a leaf, others take it for an empty tree, as jax does."""
+    if tree is None:
+        return None
     return _pytree.tree_map(lambda a: a[i], tree)
 
 
@@ -159,7 +167,7 @@ def make_consensus_steps(cfg: ModelConfig, optimizer: Optimizer, graph,
             p_i = _pod(params, i)
             st_i = OptState(opt_state.step[i], _pod(opt_state.inner, i))
             loss, grads = _loss_and_grads(p_i, _pod(batch, i), cfg,
-                                          microbatches)
+                                          moe_groups, microbatches)
             optimizer.update_(grads, st_i, p_i)
             losses.append(loss)
             norms.append(_grad_norm(grads))

@@ -111,7 +111,11 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
     k = graph.degree
 
     t0 = time.perf_counter()
+    # the MoE dispatch groups: one per data shard, as the reference sets
+    # them (the port's one-card mesh has a data axis of 1)
+    moe_groups = max(axis_sizes.get("data", 1), 1) if cfg.moe_experts else 1
     local, mix, fused = make_consensus_steps(cfg, optimizer, graph, mesh,
+                                             moe_groups=moe_groups,
                                              mix_target=mix_target)
     build_s = time.perf_counter() - t0
 

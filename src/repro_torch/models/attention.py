@@ -1,7 +1,9 @@
-"""GQA self-attention, the port of `repro.models.attention`'s training path:
-`gqa_init`, `_qkv`, `gqa_apply` and the grouped causal attention
-(`_sdpa_causal`, with `_sdpa_causal_streamed`'s online softmax over KV
-chunks for long sequences).
+"""Self-attention, the port of `repro.models.attention`'s training path: GQA
+(`gqa_init`, `_qkv`, `gqa_apply`), MLA, DeepSeek-V2's multi-head latent
+attention (`mla_init`, `_mla_q`, `_mla_kv_latent`, `mla_apply`), and the
+grouped causal attention both run (`_sdpa_causal`, with
+`_sdpa_causal_streamed`'s online softmax over KV chunks for long
+sequences).
 
 All shapes follow (batch, seq, heads, head_dim). GQA repeats are expressed
 by grouping q heads as (kv_heads, group), so the einsums contract natively
@@ -10,8 +12,8 @@ softmax, the counterpart of the reference's XLA path (it reaches no Pallas
 kernel); `scaled_dot_product_attention` is not used, since its rounding is
 not the reference's: the scores are rounded to the activations' dtype by
 their einsum and then taken to float32, the softmax weights cast back
-before P·V, as the reference casts. MLA, cross-attention and the decode
-caches come with later slices.
+before P·V, as the reference casts. Cross-attention and the decode caches
+come with later slices.
 """
 
 from __future__ import annotations
@@ -137,4 +139,73 @@ def gqa_apply(prm, x, cfg: ModelConfig, positions) -> torch.Tensor:
     h = rms_norm(x, prm["norm"])
     q, k, v = _qkv(prm, h, cfg, positions)
     out = _sdpa_causal(q, k, v)
+    return torch.einsum("bshk,hkd->bsd", out, prm["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLA -- multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+
+def mla_init(key: prng.Key, cfg: ModelConfig) -> PyTree:
+    ks = prng.split(key, 8)
+    D, H = cfg.d_model, cfg.num_heads
+    qk_nope, rope_hd = cfg.hd, cfg.mla_rope_head_dim
+    v_hd = cfg.mla_v_head_dim or cfg.hd
+    kvl, ql = cfg.mla_kv_lora, cfg.mla_q_lora
+    dev = key[0].device
+    return {
+        "wq_a": p(ks[0], (D, ql), ("embed", "q_lora"), cfg.dtype),
+        "q_norm": pz((ql,), ("q_lora",), torch.float32, device=dev),
+        "wq_b": p(ks[1], (ql, H, qk_nope + rope_hd),
+                  ("q_lora", "q_heads", "head"), cfg.dtype),
+        "wkv_a": p(ks[2], (D, kvl + rope_hd), ("embed", "kv_lora"),
+                   cfg.dtype),
+        "kv_norm": pz((kvl,), ("kv_lora",), torch.float32, device=dev),
+        "wk_b": p(ks[3], (kvl, H, qk_nope), ("kv_lora", "q_heads", "head"),
+                  cfg.dtype),
+        "wv_b": p(ks[4], (kvl, H, v_hd), ("kv_lora", "q_heads", "head"),
+                  cfg.dtype),
+        "wo": p(ks[5], (H, v_hd, D), ("q_heads", "head", "embed"),
+                cfg.dtype),
+        "norm": pz((D,), ("embed",), torch.float32, device=dev),
+    }
+
+
+def _mla_q(prm, h, cfg: ModelConfig, positions):
+    qk_nope = cfg.hd
+    ql = torch.einsum("bsd,dq->bsq", h, prm["wq_a"])
+    ql = rms_norm(ql, prm["q_norm"])
+    q = torch.einsum("bsq,qhk->bshk", ql, prm["wq_b"])
+    q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_kv_latent(prm, h, cfg: ModelConfig, positions):
+    kvl = cfg.mla_kv_lora
+    kv = torch.einsum("bsd,dq->bsq", h, prm["wkv_a"])
+    c_kv, k_rope = kv[..., :kvl], kv[..., kvl:]
+    c_kv = rms_norm(c_kv, prm["kv_norm"])
+    # rope over a head axis of one, inserted and taken out again
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_apply(prm, x, cfg: ModelConfig, positions) -> torch.Tensor:
+    """Prefill/training forward: the latent expanded per head, then the
+    causal attention with the rope dims concatenated onto q and k (the
+    shared rope key broadcast to every head), so the softmax scale is
+    1/sqrt(nope + rope), as DeepSeek-V2's. v has its own head dim."""
+    h = rms_norm(x, prm["norm"])
+    q_nope, q_rope = _mla_q(prm, h, cfg, positions)
+    c_kv, k_rope = _mla_kv_latent(prm, h, cfg, positions)
+    k_nope = torch.einsum("bsq,qhk->bshk", c_kv, prm["wk_b"])
+    v = torch.einsum("bsq,qhk->bshk", c_kv, prm["wv_b"])
+    B, S, H, _ = q_nope.shape
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, cfg.mla_rope_head_dim)], dim=-1)
+    out = _sdpa_causal(q_full, k_full, v)
     return torch.einsum("bshk,hkd->bsd", out, prm["wo"])

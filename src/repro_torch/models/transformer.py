@@ -7,16 +7,23 @@ The layer stack is `cfg.prologue` followed by `cfg.n_super` repetitions of
 the reference stacks them for its scan. `forward` loops over the
 repetitions, and with `cfg.remat` checkpoints each one (the reference's
 `jax.checkpoint` with `nothing_saveable` around its scan body: only the
-residual stream between superblocks is kept for the backward pass).
+residual stream between superblocks is kept for the backward pass). With
+`cfg.remat` each prologue block is checkpointed too, which the reference
+leaves outside its scan for XLA to schedule: the values and gradients are
+the same, and a full-width prologue (deepseek-v2's MLA layer, 128 heads)
+then keeps no attention chunks alive through the stack's backward.
 
 A stacked leaf may also be handed to `forward` as a sequence of per-layer
 tensors (`launch.steps` does, so that each layer's gradient is its own
 tensor and no per-layer slice of a stacked leaf scatters into a zero
 tensor of the whole stack on the backward pass).
 
-Block kinds ported: "attn". The others (attn_moe, mla, mla_moe,
-cross_attn, mamba1, mamba2, shared_attn) raise `NotImplementedError`; so
-do one-token decode and its caches. They come with later slices.
+Block kinds ported: "attn", "attn_moe", "mla" and "mla_moe" (GQA or MLA
+attention, then the dense or the MoE FFN). The others (cross_attn,
+mamba1, mamba2, shared_attn) raise `NotImplementedError`; so do one-token
+decode and its caches. They come with later slices. `moe_groups` is the
+MoE dispatch groups (`mlp.moe_apply`'s `groups`), threaded through
+`forward` and `loss_fn` as the reference threads it.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from repro_torch.models.common import (ModelConfig, cross_entropy_loss, p,
 PyTree = Any
 
 #: the block kinds this port builds and runs
-PORTED_KINDS = ("attn",)
+PORTED_KINDS = ("attn", "attn_moe", "mla", "mla_moe")
 
 
 def _not_ported(kind: str):
@@ -53,17 +60,23 @@ def check_config(cfg: ModelConfig) -> None:
 
 
 def _block_init(kind: str, key: prng.Key, cfg: ModelConfig) -> PyTree:
-    if kind == "attn":
-        k1, k2 = prng.split(key)
-        return {"attn": attn.gqa_init(k1, cfg),
-                "mlp": mlp_mod.mlp_init(k2, cfg)}
-    _not_ported(kind)
-
-
-def _block_apply(kind: str, prm, x, cfg: ModelConfig, positions):
-    if kind != "attn":
+    if kind not in PORTED_KINDS:
         _not_ported(kind)
-    x = x + attn.gqa_apply(prm["attn"], x, cfg, positions)
+    k1, k2 = prng.split(key)
+    mixer = attn.mla_init if kind.startswith("mla") else attn.gqa_init
+    if kind.endswith("_moe"):
+        return {"attn": mixer(k1, cfg), "moe": mlp_mod.moe_init(k2, cfg)}
+    return {"attn": mixer(k1, cfg), "mlp": mlp_mod.mlp_init(k2, cfg)}
+
+
+def _block_apply(kind: str, prm, x, cfg: ModelConfig, positions,
+                 moe_groups: int):
+    if kind not in PORTED_KINDS:
+        _not_ported(kind)
+    mixer = attn.mla_apply if kind.startswith("mla") else attn.gqa_apply
+    x = x + mixer(prm["attn"], x, cfg, positions)
+    if kind.endswith("_moe"):
+        return x + mlp_mod.moe_apply(prm["moe"], x, cfg, groups=moe_groups)
     return x + mlp_mod.mlp_apply(prm["mlp"], x, cfg)
 
 
@@ -159,23 +172,33 @@ def _layer(tree: PyTree, j: int) -> PyTree:
     return _map_leaves(lambda leaf: leaf[j], tree)
 
 
-def forward(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+            moe_groups: int = 1) -> torch.Tensor:
     """Training/prefill forward -> logits (B,S,V) in `cfg.dtype`."""
     check_config(cfg)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    remat = cfg.remat and torch.is_grad_enabled()
     x = _embed(params, tokens, cfg)
+
+    def block(x, kind, prm):
+        return _block_apply(kind, prm, x, cfg, positions, moe_groups)
+
     for i, kind in enumerate(cfg.prologue):
-        x = _block_apply(kind, params["prologue"][i], x, cfg, positions)
+        if remat:
+            x = checkpoint(block, x, kind, params["prologue"][i],
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = block(x, kind, params["prologue"][i])
 
     def superblock(x, slots):
         for i, kind in enumerate(cfg.superblock):
-            x = _block_apply(kind, slots[f"slot{i}"], x, cfg, positions)
+            x = block(x, kind, slots[f"slot{i}"])
         return x
 
     for j in range(cfg.n_super):
         slots = _layer(params["stack"], j)
-        if cfg.remat and torch.is_grad_enabled():
+        if remat:
             x = checkpoint(superblock, x, slots, use_reentrant=False,
                            preserve_rng_state=False)
         else:
@@ -183,6 +206,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _unembed(params, x, cfg)
 
 
-def loss_fn(params, batch, cfg: ModelConfig) -> torch.Tensor:
-    logits = forward(params, batch["tokens"], cfg)
+def loss_fn(params, batch, cfg: ModelConfig, moe_groups: int = 1
+            ) -> torch.Tensor:
+    logits = forward(params, batch["tokens"], cfg, moe_groups=moe_groups)
     return cross_entropy_loss(logits, batch["labels"])

@@ -1,21 +1,83 @@
-"""Fault tolerance: the straggler math the adaptive controller reads.
+"""Fault tolerance: straggler-tolerant consensus, the port of
+`repro.runtime.fault_tolerance` (host numpy, bit for bit).
 
 The paper's motivation (section I): consensus algorithms are "immune to slow
 nodes that use part of their computation and communication resources for
 unrelated tasks" and tolerate delays (ref [9]). In a round where a
 neighbor's message misses its deadline, its weight folds back into the
 receiver's self weight (rows stay stochastic, so iterates stay in the
-convex hull). `arrival_reweighted_matrix` is the expectation of that over
-per-sender arrival probabilities, and `sinkhorn_project` rebalances it to
-doubly stochastic, which `repro_torch.adaptive.StragglerReweighter` needs
-before it trusts the matrix's lambda2. Stale mixing is the netsim nodes'
-`core.consensus.stale_combine`; crash and restart are the netsim fault
-layer (`repro_torch.faults`) and `repro_torch.checkpoint`.
+convex hull): `degraded_matrix` is one such round's mixing matrix, and
+`effective_round_time` its wall time, which the stragglers past the
+deadline do not gate. `StragglerModel` draws, per round, which nodes are
+slow (the reference's numpy stream, so the same seed gives the same
+draws). `arrival_reweighted_matrix` is the expectation of a degraded round
+over per-sender arrival probabilities, and `sinkhorn_project` rebalances
+it to doubly stochastic, which `repro_torch.adaptive.StragglerReweighter`
+needs before it trusts the matrix's lambda2. Stale mixing is the netsim
+nodes' `core.consensus.stale_combine`; crash and restart are the netsim
+fault layer (`repro_torch.faults`) and `repro_torch.checkpoint`; a change
+of membership is `runtime.elastic`.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
+
+from repro_torch.core.graphs import CommGraph
+
+
+@dataclasses.dataclass
+class StragglerModel:
+    """Per-node slowdown for tests and benchmarks: each round each node is
+    slow with probability p_slow (multiplier m_slow), and a message misses
+    the deadline when its sender's time exceeds it."""
+
+    p_slow: float = 0.1
+    m_slow: float = 4.0          # slowdown multiplier for a straggling node
+    deadline: float = 2.0        # in units of the median round time
+    seed: int = 0
+
+    def __post_init__(self):
+        self._rng = np.random.default_rng(self.seed)
+
+    def sample_round(self, n: int) -> np.ndarray:
+        """Per-node completion time for one round (median-normalized)."""
+        slow = self._rng.random(n) < self.p_slow
+        return np.where(slow, self.m_slow, 1.0)
+
+    def arrival_mask(self, n: int) -> np.ndarray:
+        """mask[j] = True if node j's message makes the deadline."""
+        return self.sample_round(n) <= self.deadline
+
+
+def degraded_matrix(graph: CommGraph, arrived: np.ndarray) -> np.ndarray:
+    """Mixing matrix for a round where only `arrived[j]` messages landed.
+
+    Every weight p_ij for a missing j (j != i) is folded into p_ii: rows
+    stay stochastic and the update remains a convex combination. The result
+    is generally NOT doubly stochastic -- consensus-weighted averaging with
+    occasional drop rounds still converges when drops are independent and
+    the expected graph is connected."""
+    P = graph.mixing_matrix().copy()
+    n = P.shape[0]
+    for j in range(n):
+        if not arrived[j]:
+            col = P[:, j].copy()
+            for i in range(n):
+                if i != j:
+                    P[i, i] += col[i]
+                    P[i, j] = 0.0
+    return P
+
+
+def effective_round_time(times: np.ndarray, deadline: float,
+                         comm_cost: float) -> float:
+    """Wall time of a deadline-gossip round: stragglers beyond the deadline
+    do NOT gate the round (that is the point); the round costs the deadline
+    plus the communication term."""
+    return float(min(times.max(), deadline) + comm_cost)
 
 
 def arrival_reweighted_matrix(P: np.ndarray,

@@ -29,6 +29,9 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.experiments.__main__\n"
         "import repro_torch.netsim, repro_torch.adaptive, repro_torch.faults\n"
         "import repro_torch.checkpoint, repro_torch.runtime\n"
+        "import repro_torch.runtime.elastic, repro_torch.core.compression\n"
+        "import repro_torch.core.consensus_sgd, repro_torch.launch.train\n"
+        "import repro_torch.models.mlp, repro_torch.models.attention\n"
         "import repro_torch.serve, repro_torch.serve.__main__\n"
         "from repro_torch.serve import ExperimentServer, Client, WorkerPool\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"

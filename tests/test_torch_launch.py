@@ -1,6 +1,7 @@
 """The port's launch backend against the JAX package's, on the CPU: the
 token stream, the pod mix (`core.consensus.tree_mix_gossip`, K1's plain
-version here), the consensus steps, a whole launch run at mesh (2, 1, 1),
+version here), the consensus steps (mixing the parameters, or the dual
+state z with `mix_target="z"`), a whole launch run at mesh (2, 1, 1),
 a checkpoint the reference wrote resumed by the port, the dry-run
 manifest, and the mesh's refusal of sharded pods.
 
@@ -247,6 +248,51 @@ def test_local_and_fused_match_vmapped_reference(dtype):
         else:  # complete n=2: the pods agree bit for bit
             for leaf in jax.tree.leaves(p1):
                 assert torch.equal(leaf[0], leaf[1])
+
+
+def test_fused_step_mixing_z_matches_reference():
+    """mix_target="z", the faithful DDA mode: a fused step with the
+    dual_averaging optimizer at complete n = 4 in float32 mixes the dual
+    state z (K1's plain version) and leaves the parameters as the local
+    step set them, as the reference's fused step does (observed z 4.1e-8
+    apart at a largest 0.071, parameters 6.0e-8: K1's summation order is
+    not the einsum's)."""
+    n = 4
+    cfg_r = dataclasses.replace(ref_registry.get_config("llama3-8b",
+                                                        "smoke"),
+                                dtype=jnp.float32)
+    cfg_t = dataclasses.replace(port_registry.get_config("llama3-8b",
+                                                         "smoke"),
+                                dtype=torch.float32)
+    opt_r = ref_optim.dual_averaging(ref_optim.rsqrt_lr(0.5, q=0.7))
+    opt_t = port_optim.dual_averaging(port_optim.rsqrt_lr(0.5, q=0.7))
+    start = _pod_stacked_start(cfg_r, opt_r, n)
+    toks = np.random.default_rng(2).integers(
+        0, cfg_r.vocab_size, (n, 2, 17)).astype(np.int32)
+    batch_r = {"tokens": jnp.asarray(toks[..., :-1]),
+               "labels": jnp.asarray(toks[..., 1:])}
+    batch_t = {k: torch.from_numpy(np.asarray(v).copy())
+               for k, v in batch_r.items()}
+    local_r = jax.jit(jax.vmap(ref_steps.make_train_step(cfg_r, opt_r)))
+    p_ref, s_ref, m_ref = local_r(*start, batch_r)
+    z_ref = _dense_mix(s_ref.inner["z"], ref_graphs.complete_graph(n))
+    _, _, fused = port_steps.make_consensus_steps(
+        cfg_t, opt_t, port_graphs.complete_graph(n),
+        make_mesh((n, 1, 1), AXES, device=CPU), mix_target="z")
+    p0, s0 = lm_params_from_reference(jax.tree.map(np.asarray, start),
+                                      device=CPU)
+    p1, s1, m = fused(p0, s0, batch_t)
+    np.testing.assert_allclose(m["loss"].numpy(), m_ref["loss"], rtol=1e-6)
+    assert s1.step.tolist() == [1] * n
+    for a, b in zip(jax.tree.leaves(z_ref),
+                    jax.tree.leaves(lm_params_to_reference(s1.inner["z"]))):
+        np.testing.assert_allclose(b, np.asarray(a), rtol=1e-6, atol=1e-7)
+    for a, b in zip(jax.tree.leaves(p_ref),
+                    jax.tree.leaves(lm_params_to_reference(p1))):
+        np.testing.assert_allclose(b, np.asarray(a), rtol=0, atol=2e-5)
+    # mixed: every pod holds the same z
+    for leaf in jax.tree.leaves(s1.inner["z"]):
+        assert torch.allclose(leaf[0], leaf[3], rtol=1e-6, atol=1e-7)
 
 
 def test_microbatched_train_step_matches_reference():

@@ -1,8 +1,9 @@
 """The port's LM model stack against the JAX package's, on the CPU:
 jax's random bits (`split`, `uniform` with bounds, `truncated_normal`), the
 model init from a seed, the registry's configs, one forward, loss and
-gradient in float32 and in bf16, and the refusal of block kinds that are
-not ported yet.
+gradient in float32 and in bf16 (the dense family; the MoE and MLA
+families are `tests/test_torch_moe.py` and `tests/test_torch_mla.py`),
+and the refusal of block kinds that are not ported yet.
 
 Standards (PERF.md and ROADMAP queue 3 give the observed errors):
   * `split` and bounded `uniform`: bits equal.
@@ -48,9 +49,11 @@ from repro_torch.models import registry as port_registry
 from repro_torch.models import transformer as port_tf
 
 CPU = torch.device("cpu")
-#: the dense family's activations and options: SwiGLU, squared ReLU, and
-#: SwiGLU with QKV biases
-DENSE_ARCHS = ("llama3-8b", "nemotron-4-15b", "codeqwen1.5-7b")
+#: the dense family's activations and options: SwiGLU, squared ReLU,
+#: SwiGLU with QKV biases, GELU (tanh-approximate, musicgen's) and the
+#: three-superblock qwen1.5-110b smoke
+DENSE_ARCHS = ("llama3-8b", "nemotron-4-15b", "codeqwen1.5-7b",
+               "musicgen-medium", "qwen1.5-110b")
 
 
 def _bits(a) -> np.ndarray:
@@ -183,6 +186,16 @@ def test_forward_loss_grad_bf16():
     assert max(errs.values()) < 3e-2, errs
 
 
+def test_forward_loss_grad_bf16_gelu():
+    """musicgen-medium's tanh-approximate GELU, the dense family's one
+    GELU path, in bf16 (observed loss 2.8e-5, gradients 1.0e-2 of their
+    max), at llama3's bf16 standard."""
+    loss_r, loss_t, errs = _loss_and_grads("musicgen-medium", jnp.bfloat16,
+                                           torch.bfloat16)
+    assert loss_t == pytest.approx(loss_r, rel=1e-4)
+    assert max(errs.values()) < 3e-2, errs
+
+
 def test_forward_matches_without_remat():
     """Checkpointing each repetition changes nothing computed."""
     cfg = port_registry.get_config("llama3-8b", "smoke")
@@ -236,10 +249,8 @@ def test_streamed_attention_matches_reference(dtype):
 
 
 @pytest.mark.parametrize("arch,kind", [
-    ("deepseek-v2-236b", "mla"),
     ("falcon-mamba-7b", "mamba1"),
     ("zamba2-2.7b", "mamba2"),
-    ("llama4-maverick-400b-a17b", "attn_moe"),
     ("llama-3.2-vision-90b", "cross_attn"),
 ])
 def test_unported_block_kind_raises_naming_it(arch, kind):

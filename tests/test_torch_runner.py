@@ -172,8 +172,9 @@ def test_parity_check_compares_the_compression_block():
     ("launch_dryrun", "launch"),
 ])
 def test_unported_paths_raise(name, backend):
-    """The launch backend runs the dense ("attn") family; the manifest's
-    spec for another family raises, naming the block kind."""
+    """The launch backend runs the attention families ("attn", "attn_moe",
+    "mla", "mla_moe"); the manifest's spec for a family with a kind still
+    unported (zamba2's Mamba-2 blocks) raises, naming the block kind."""
     d = repro_torch.ExperimentSpec.from_file(
         MANIFESTS / f"{name}.json").to_dict()
     d["problem"]["params"]["arch"] = "zamba2-2.7b"
