@@ -202,6 +202,37 @@ non-zero and the last line is not printed. The phases:
             the card and the CPU: host fields exact, losses within
             LM_MOE_TRACE_RTOL, K1 once a leaf a comm round; prints the
             router's top-K choices that differ between card and CPU
+  lm_ssm_full
+            falcon-mamba-7b at its published widths (d_model 4096,
+            d_inner 8192, dt_rank 256, N 16, conv 4, vocab 65024, bf16),
+            its 64 Mamba-1 layers cut to LM_SSM_N_SUPER = 4 (the mixer's
+            per-token loop sets the wall), two pods stacked, B = 1 and
+            S = 4096 a pod, T = 6, complete graph, periodic h=2, adamw,
+            through repro_torch.run with every launch count set to 0 just
+            before and read just after: losses finite, the pods bitwise
+            equal after each mix, K1 launched once a leaf (13) a comm step
+            (26), the host fields' closed form, param_bytes 1,909,080,064,
+            peak memory under LM_PEAK_CAP_GIB; prints the step walls, the
+            peak, AdamW's time a step (CUDA events), the second fused
+            step's kernels by name (K1 against its bound, 2.280 ms from
+            the run's param_bytes; matmuls; AdamW by its events; the
+            rest; the busy share of its window) under torch.profiler with
+            device activity alone (a host-op profile of the token loop's
+            launches takes minutes to parse), the scans' share from one
+            mixer's chunked scan profiled alone at the cell's shapes,
+            counted for each mixer and pod
+  lm_hybrid_full
+            zamba2-2.7b the same way at its published widths and full
+            depth (54 blocks: 9 superblocks of five Mamba-2 blocks and the
+            weight-shared attention block; d_model 2560, 80 SSD heads of
+            64, N 64, 32 attention heads of 80, d_ff 10240 GELU, LoRA rank
+            128, vocab 32000): K1 60 launches a comm step (120),
+            param_bytes 4,099,244,480, K1's bound 4.895 ms a comm step
+  lm_ssm_smoke
+            falcon-mamba-7b and zamba2-2.7b at smoke width through
+            repro_torch.run at mesh (4, 1, 1), expander k=2, adamw, on
+            the card and the CPU: host fields exact, losses within
+            LM_TRACE_RTOL, K1 once a leaf a comm round
   kernel_k3 K3 (the flat per-node mix, `kernels.ops.gossip_mix`) against
             its plain version over M in {1, 3, 130, 4099, 8192, 65537,
             2^20} (and a misaligned view), k in {1, 4, 8}, fp32 and bf16
@@ -259,6 +290,14 @@ non-zero and the last line is not printed. The phases:
             fp32), one piece, its error within SCAN_CAP (2e-5: exp on the
             SFU); its entry adds the kernels the call launched, the pieces,
             the lanes a channel and the workspace bytes
+  ssm_scans K5 and K6 held to the models' own scans (models/ssm.py), as
+            tests/test_kernels.py:78-98 holds the Pallas SSD kernel to the
+            model's: K5 at zamba2-2.7b's mixer shapes (1, 4096, 80, 64,
+            64) against `_ssd_chunk` over the model's 256-token chunks
+            with its carry, K6 at falcon-mamba-7b's (1, 4096, 8192, 16)
+            against `_m1_scan_chunk` over the same chunks with the D skip,
+            each within SCAN_CAP; prints both times (the models' scans
+            eagerly). This only measures: the models call neither kernel
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as nvidia-smi prints them, and the result line
@@ -2718,6 +2757,327 @@ def phase_lm_moe_smoke() -> dict:
     return launches
 
 
+#: falcon-mamba-7b's full-width cell: its 64 Mamba-1 layers cut to 4, since
+#: the mixer's per-token loop (a few launches a token, forward, recompute
+#: and backward) sets the step's wall; two pods, B = 1 and S = 4096 a pod
+LM_SSM_N_SUPER = 4
+#: leaves of the cut falcon-mamba tree, each mixed by one K1 launch: the
+#: 10 stacked Mamba-1 leaves, embed, lm_head and final_norm
+LM_SSM_LEAVES = 13
+#: a pod's parameter bytes there: 953,319,424 bf16 elements and 610,304
+#: float32 ones (norms, dt_b, A_log, D_skip), from the reference's init
+#: shapes
+LM_SSM_PARAM_BYTES = 953319424 * 2 + 610304 * 4
+#: zamba2-2.7b's full-width cell at full depth (9 superblocks of five
+#: Mamba-2 blocks and the shared attention block: 54 blocks)
+LM_HYBRID_N_SUPER = 9
+#: its leaves: five Mamba-2 slots of 9, the 4 LoRA leaves, the shared
+#: attention's 5 and the shared FFN's 3, embed, lm_head and final_norm
+LM_HYBRID_LEAVES = 60
+#: 2,048,894,080 bf16 elements and 364,080 float32 ones a pod
+LM_HYBRID_PARAM_BYTES = 2048894080 * 2 + 364080 * 4
+LM_SSM_SEQ = 4096
+#: the smoke-width state-space archs, card against CPU
+LM_SSM_ARCHS = ("falcon-mamba-7b", "zamba2-2.7b")
+
+
+def _lm_ssm_cell(phase: str, arch: str, n_super: int, leaves: int,
+                 param_bytes: int) -> dict:
+    """One state-space arch at its published widths with `n_super`
+    superblocks, two pods stacked, B = 1 and S = 4096 a pod, complete
+    graph, periodic h = 2, T = 6, seed 0, through repro_torch.run (AdamW),
+    every launch count set to 0 just before and read just after: losses
+    finite, the pods bitwise equal after each mix, K1 once a leaf a comm
+    step, the host fields' closed form, param_bytes, peak under
+    LM_PEAK_CAP_GIB. The second fused step is profiled by kernel
+    (`_kernel_split`), AdamW timed by CUDA events, and the scans' share
+    taken from one mixer's scan profiled alone (`_scan_split`)."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import registry
+    import repro_torch.optim as optim_mod
+
+    cfg = dataclasses.replace(registry.get_config(arch, "full"),
+                              n_super=n_super)
+    real_get_config = registry.get_config
+    real_steps = train_mod.make_consensus_steps
+    real_adamw = optim_mod.adamw
+    seen = {"mixes": 0, "profile": None, "leaves": set()}
+    adamw_events = []
+
+    def cut_config(name, variant="full"):
+        if (name, variant) == (arch, "full"):
+            return cfg
+        return real_get_config(name, variant)
+
+    def timed_adamw(*a, **kw):
+        opt = real_adamw(*a, **kw)
+
+        def update_(grads, state, params):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = opt.update_(grads, state, params)
+            end.record()
+            adamw_events.append((start, end))
+            return out
+        return dataclasses.replace(opt, update_=update_)
+
+    def watched_steps(*a, **kw):
+        local, mix, fused = real_steps(*a, **kw)
+
+        def checked_fused(params, opt_state, batch):
+            seen["mixes"] += 1
+            if seen["mixes"] == 2:  # the second comm step, profiled
+                t0 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    out = fused(params, opt_state, batch)
+                    torch.cuda.synchronize()
+                seen["profile"] = _kernel_split(prof)
+                seen["profile"]["profiled_step_s"] = time.perf_counter() - t0
+                seen["adamw_at"] = len(adamw_events) - 2
+                del prof
+            else:
+                out = fused(params, opt_state, batch)
+            flat = torch.utils._pytree.tree_leaves(out[0])
+            seen["leaves"].add(len(flat))
+            for leaf in flat:
+                if not torch.equal(leaf[0], leaf[1]):
+                    raise AssertionError("the two pods differ after the "
+                                         "mix (complete graph, n = 2)")
+            return out
+        return local, mix, checked_fused
+
+    spec = _lm_spec(f"lm_{arch}", "full", (2, 1, 1),
+                    {"kind": "complete", "params": {}}, T=6,
+                    batch_per_node=1, seq_len=LM_SSM_SEQ, arch=arch)
+    torch.cuda.empty_cache()
+    registry.get_config = cut_config
+    train_mod.make_consensus_steps = watched_steps
+    optim_mod.adamw = timed_adamw
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts()
+        result = repro_torch.run(spec, device="cuda")
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+    finally:
+        registry.get_config = real_get_config
+        train_mod.make_consensus_steps = real_steps
+        optim_mod.adamw = real_adamw
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    rounds = result.extras["comm_rounds"]
+    launches = counts["gossip_mix"]
+    if launches != leaves * rounds or rounds != 2 or \
+            sum(counts.values()) != launches:
+        raise AssertionError(f"{arch}: the cell launched {counts} for "
+                             f"{rounds} comm steps of {leaves} leaves")
+    if seen["mixes"] != rounds or seen["leaves"] != {leaves}:
+        raise AssertionError(f"{arch}: {seen['mixes']} fused steps with "
+                             f"{seen['leaves']} leaves for {rounds} rounds")
+    _lm_host_fields(result, n=2, k=1, r=0.05)
+    if result.extras["param_bytes"] != param_bytes:
+        raise AssertionError(f"{arch}: param_bytes "
+                             f"{result.extras['param_bytes']}")
+    if not all(math.isfinite(v) for v in result.trace.fvals):
+        raise AssertionError(f"{arch}: losses not finite: "
+                             f"{result.trace.fvals}")
+    if peak > LM_PEAK_CAP_GIB * 2 ** 30:
+        raise AssertionError(f"{arch}: peak {peak} bytes above "
+                             f"{LM_PEAK_CAP_GIB} GiB at n_super={n_super}")
+    walls, comm = result.extras["step_walls"], result.extras["step_comm"]
+    adamw_ms = [sum(s.elapsed_time(e) for s, e in adamw_events[i:i + 2])
+                for i in range(0, len(adamw_events), 2)]
+    # the profiled step's split: AdamW's kernels (by its CUDA events) and
+    # the scans' (one mixer's scan profiled alone, `_scan_split`, for each
+    # mixer of each pod) taken out of the rest
+    split = seen["profile"]
+    split["adamw"] = adamw_ms[seen["adamw_at"] // 2]
+    block = _scan_split(cfg)
+    mixers = 2 * n_super * sum(kind.startswith("mamba")
+                               for kind in cfg.superblock)
+    split["scan"] = block["total"] * mixers
+    split["matmul"] -= block["matmul"] * mixers
+    split["other"] -= split["adamw"] + block["other"] * mixers
+    step_bytes = 2 * 2 * result.extras["param_bytes"]
+    numbers = {"launches": launches, "k1_comm_step_ms": split["k1"],
+               "k1_comm_step_bound_ms": _bound(step_bytes, 0.0)["bound_ms"]}
+    emit(phase, arch=arch, n_super=n_super, seq_len=LM_SSM_SEQ, n_pods=2,
+         optimizer="adamw", losses=result.trace.fvals, k1_launches=launches,
+         leaves=leaves, param_bytes=result.extras["param_bytes"],
+         peak_allocated_gib=peak / 2 ** 30, wall_s=result.wall_s,
+         step_walls_s=walls, step_comm=comm,
+         local_step_s=[w for w, c in zip(walls[1:], comm[1:]) if not c],
+         fused_step_s_unprofiled=walls[2], adamw_step_ms=adamw_ms,
+         fused_step_profiled_split_ms=split, scan_alone_split_ms=block,
+         mixers_a_step=mixers, **numbers)
+    return numbers
+
+
+def _kernel_split(prof) -> dict:
+    """Device time (ms) of a profile taken with CUDA activity alone (no
+    host ops), by kernel name: K1, the matmuls, the rest; the busy share
+    of the window from the first kernel's start to the last's end. Read
+    from the profiler's raw events: a step of hundreds of thousands of
+    launches is then cheap to take apart."""
+    from torch.autograd import DeviceType
+
+    split = {"k1": 0.0, "matmul": 0.0, "other": 0.0}
+    first, last, n = None, None, 0
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != DeviceType.CUDA:
+            continue
+        name = evt.name().lower()
+        t0, dur = evt.start_ns(), evt.duration_ns()
+        first = t0 if first is None else min(first, t0)
+        last = t0 + dur if last is None else max(last, t0 + dur)
+        n += 1
+        kind = "k1" if "gossip_mix" in name else "matmul" if any(
+            s in name for s in ("gemm", "xmma", "cutlass", "nvjet",
+                                "cublas")) else "other"
+        split[kind] += dur / 1e6
+    split["total"] = sum(split.values())
+    split["kernels"] = n
+    split["window_ms"] = (last - first) / 1e6 if n else 0.0
+    split["busy_share"] = split["total"] / split["window_ms"] if n else 0.0
+    return split
+
+
+def _scan_split(cfg) -> dict:
+    """One mixer's chunked scan (models/ssm.py `_run_chunks` with the
+    mixer's chunk body: Mamba-1's token loop or Mamba-2's `_ssd_chunk`)
+    alone at the cell's shapes (B = 1, S = 4096; x, B and C bf16 as the
+    mixer hands them over, dt and A float32; random, seed 13), under the
+    layer's checkpoint with each chunk's inside it as in the model, its
+    forward and backward profiled with CUDA activity alone
+    (`_kernel_split`): the scan's device time in one mixer of one pod."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch.models import ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    S, N = LM_SSM_SEQ, cfg.ssm_state
+    if "mamba1" in cfg.superblock:
+        d, _ = ssm._m1_dims(cfg)
+        x_shape, dt_shape, A_shape, h_shape = (1, S, d), (1, S, d), (d, N), \
+            (1, d, N)
+        body = ssm._m1_chunk_body
+    else:
+        _, H = ssm._m2_dims(cfg)
+        P = cfg.ssm_head_dim
+        x_shape, dt_shape, A_shape, h_shape = (1, S, H, P), (1, S, H), \
+            (H,), (1, H, P, N)
+        body = ssm._m2_chunk_body
+    x = _randn(gen, x_shape, torch.bfloat16, 0.5).requires_grad_()
+    dt = torch.nn.functional.softplus(_randn(gen, dt_shape) - 4.6)
+    dt.requires_grad_()
+    A = (-torch.exp(_randn(gen, A_shape, scale=0.3))).requires_grad_()
+    Bm = _randn(gen, (1, S, N), torch.bfloat16, 0.5).requires_grad_()
+    Cm = _randn(gen, (1, S, N), torch.bfloat16, 0.5).requires_grad_()
+    h0 = torch.zeros(h_shape, device="cuda")
+    n_chunks, Q = ssm._chunking(S, ssm._CHUNK)
+    g = _randn(gen, x_shape)
+
+    def scan(x, dt, A, Bm, Cm):
+        return ssm._run_chunks(body(A), h0, (x, dt, Bm.float(), Cm), Q,
+                               n_chunks, remat=True)
+
+    def fwd_bwd():
+        y = checkpoint(scan, x, dt, A, Bm, Cm, use_reentrant=False,
+                       preserve_rng_state=False)
+        torch.autograd.grad(y, (x, dt, A, Bm, Cm), g)
+
+    fwd_bwd()   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fwd_bwd()
+        torch.cuda.synchronize()
+    split = _kernel_split(prof)
+    split["wall_s"] = time.perf_counter() - t0
+    del prof, x, dt, A, Bm, Cm, g
+    torch.cuda.empty_cache()
+    return split
+
+
+def phase_lm_ssm_full() -> dict:
+    """falcon-mamba-7b at its published widths (d_model 4096, d_inner 8192,
+    dt_rank 256, N 16, conv 4, vocab 65024, bf16), 4 of its 64 layers,
+    through `_lm_ssm_cell`."""
+    return _lm_ssm_cell("lm_ssm_full", "falcon-mamba-7b", LM_SSM_N_SUPER,
+                        LM_SSM_LEAVES, LM_SSM_PARAM_BYTES)
+
+
+def phase_lm_hybrid_full() -> dict:
+    """zamba2-2.7b at its published widths and full depth (54 blocks:
+    d_model 2560, 80 SSD heads of 64, N 64, 32 attention heads of 80, d_ff
+    10240 GELU, LoRA rank 128, vocab 32000, bf16) through
+    `_lm_ssm_cell`."""
+    return _lm_ssm_cell("lm_hybrid_full", "zamba2-2.7b", LM_HYBRID_N_SUPER,
+                        LM_HYBRID_LEAVES, LM_HYBRID_PARAM_BYTES)
+
+
+def phase_lm_ssm_smoke() -> dict:
+    """falcon-mamba-7b and zamba2-2.7b at smoke width through
+    repro_torch.run at mesh (4, 1, 1), expander k = 2, with the runner's
+    AdamW, on the card (every launch count set to 0 just before and read
+    just after) and on the CPU: host fields exact, losses within
+    LM_TRACE_RTOL, K1 once a leaf a comm round. Returns K1's launches by
+    arch."""
+    import torch
+
+    import repro_torch
+    from repro_torch.compress import prng
+    from repro_torch.convert import assert_results_match
+    from repro_torch.models import registry, transformer
+
+    torch.cuda.empty_cache()
+    launches = {}
+    for arch in LM_SSM_ARCHS:
+        spec = _lm_spec("lm_ssm_smoke", "smoke", (4, 1, 1),
+                        {"kind": "expander", "params": {"k": 2, "seed": 0}},
+                        T=6, batch_per_node=2, seq_len=64, arch=arch)
+        _zero_launch_counts()
+        card = repro_torch.run(spec, device="cuda")
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+        cpu = repro_torch.run(spec, device="cpu")
+        ours, theirs = card.to_dict(), cpu.to_dict()
+        rel = max(abs(a - b) / abs(b) for a, b in zip(
+            ours["trace"]["fvals"], theirs["trace"]["fvals"]))
+        leaves = len(torch.utils._pytree.tree_leaves(transformer.init(
+            prng.key(0, "cpu"), registry.get_config(arch, "smoke"))[0]))
+        emit("lm_ssm_smoke", arch=arch, card_cpu_max_rel=rel,
+             rtol=LM_TRACE_RTOL, losses=card.trace.fvals,
+             cpu_losses=cpu.trace.fvals, k1_launches=counts["gossip_mix"],
+             leaves=leaves)
+        if not rel <= LM_TRACE_RTOL:
+            raise AssertionError(f"{arch}: the smoke run's losses on the card "
+                                 f"are {rel} off the CPU's (rtol "
+                                 f"{LM_TRACE_RTOL})")
+        for side in (ours, theirs):
+            side["trace"]["fvals"] = theirs["trace"]["fvals"]
+            side["trace"]["fvals_consensus"] = theirs["trace"][
+                "fvals_consensus"]
+        assert_results_match(ours, theirs)
+        _lm_host_fields(card, n=4, k=2, r=0.05)
+        if counts["gossip_mix"] != leaves * card.extras["comm_rounds"] or \
+                sum(counts.values()) != counts["gossip_mix"]:
+            raise AssertionError(f"{arch}: the smoke run launched {counts} "
+                                 f"for {card.extras['comm_rounds']} rounds "
+                                 f"of {leaves} leaves")
+        launches[arch] = counts["gossip_mix"]
+    return launches
+
+
 def phase_kernel_k3() -> dict:
     """K3 (the flat per-node mix) against its plain version on the card,
     then its front door at full width, then its times."""
@@ -3083,6 +3443,96 @@ def phase_kernel_k6() -> dict:
         plain_timing=PLAIN_SCAN_NOTE, library_call=None)
 
 
+def _ssd_model_scan(x, dt, A, B, C):
+    """The port's zamba2 mixer scan (models/ssm.py): `_ssd_chunk` over the
+    model's 256-token chunks, the state carried from one to the next (no
+    D skip, as K5 has none)."""
+    import torch
+
+    from repro_torch.models import ssm
+
+    Bt, S, H, P = x.shape
+    n_chunks, Q = ssm._chunking(S, ssm._CHUNK)
+    h = torch.zeros((Bt, H, P, B.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for c in range(n_chunks):
+        sl = slice(c * Q, (c + 1) * Q)
+        h, y = ssm._ssd_chunk(h, x[:, sl], dt[:, sl], B[:, sl], C[:, sl], A)
+        ys.append(y)
+    return torch.cat(ys, dim=1)
+
+
+def _m1_model_scan(x, dt, A, B, C, D):
+    """The port's falcon-mamba mixer scan (models/ssm.py `mamba1_mix`
+    between its conv and its gate): `_m1_scan_chunk` over the model's
+    256-token chunks with the chunk body's dA and dBx, the state carried,
+    then the D skip."""
+    import torch
+
+    from repro_torch.models import ssm
+
+    Bt, S, d = x.shape
+    n_chunks, Q = ssm._chunking(S, ssm._CHUNK)
+    h = torch.zeros((Bt, d, A.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for c in range(n_chunks):
+        sl = slice(c * Q, (c + 1) * Q)
+        dA = torch.exp(dt[:, sl, :, None] * A)
+        dBx = (dt[:, sl] * x[:, sl])[..., None] * B[:, sl, None, :]
+        h, y = ssm._m1_scan_chunk(h, dA, dBx, C[:, sl])
+        ys.append(y)
+    return torch.cat(ys, dim=1) + x * D
+
+
+def phase_ssm_scans(k5: dict, k6: dict) -> None:
+    """K5 and K6 held to the models' own scans on the card, as
+    tests/test_kernels.py:78-98 holds the Pallas SSD kernel to the
+    model's: K5 at zamba2-2.7b's full-width mixer (Bt=1, S=4096, H=80,
+    P=64, N=64, fp32) against `_ssd_chunk` over 256-token chunks; K6 at
+    falcon-mamba-7b's (Bt=1, S=4096, d=8192, N=16, fp32) against the
+    Mamba-1 chunk scan with its D skip. Each error within SCAN_CAP; both
+    times printed (the models' scans eagerly: thousands of launches).
+    This only measures: the models call neither kernel. Adds the numbers
+    to the K5 and K6 entries."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    cases = (
+        ("ssd_scan", k5, ops.ssd_scan, _ssd_model_scan,
+         _scan_inputs(gen, (1, 4096, 80, 64), (1, 4096, 80), (80,),
+                      (1, 4096, 64))),
+        ("selective_scan", k6, ops.selective_scan, _m1_model_scan,
+         _scan_inputs(gen, (1, 4096, 8192), (1, 4096, 8192), (8192, 16),
+                      (1, 4096, 16)) + (_randn(gen, (8192,)),)))
+    for name, entry, door, model, args in cases:
+        with torch.no_grad():
+            out = door(*args)
+            expect = model(*args)
+        torch.cuda.synchronize()
+        err = _max_err(out, expect)
+        del out, expect
+        if not err <= SCAN_CAP[name]:
+            raise AssertionError(f"{name} is {err} off the model's scan, "
+                                 f"over its cap {SCAN_CAP[name]}")
+        with torch.no_grad():
+            kernel_t = time_ms(lambda: door(*args), reps=10, inner=5)
+            model_t = time_ms(lambda: model(*args), **PLAIN_SCAN_TIMING)
+        numbers = {"model_scan_max_abs_err": err,
+                   "model_scan_ms": model_t["device"],
+                   "model_scan_kernel_ms": kernel_t["device"]}
+        emit("ssm_scans", name=name, cap=SCAN_CAP[name],
+             shape=[list(a.shape) for a in args],
+             model_timing=PLAIN_SCAN_NOTE, **numbers)
+        entry.update(numbers)
+        del args
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import repro_torch  # noqa: F401  (fails outside a checkout)
     import torch
@@ -3115,10 +3565,18 @@ def main() -> int:
     k1["lm_moe_launches"] = lm_moe["launches"]
     k1["lm_moe_comm_step_ms"] = lm_moe["k1_comm_step_ms"]
     k1["lm_moe_smoke_launches"] = phase_lm_moe_smoke()
+    lm_ssm = phase_lm_ssm_full()
+    k1["lm_ssm_launches"] = lm_ssm["launches"]
+    k1["lm_ssm_comm_step_ms"] = lm_ssm["k1_comm_step_ms"]
+    lm_hybrid = phase_lm_hybrid_full()
+    k1["lm_hybrid_launches"] = lm_hybrid["launches"]
+    k1["lm_hybrid_comm_step_ms"] = lm_hybrid["k1_comm_step_ms"]
+    k1["lm_ssm_smoke_launches"] = phase_lm_ssm_smoke()
     k3 = phase_kernel_k3()
     k4 = phase_kernel_k4(build_s)
     k5 = phase_kernel_k5()
     k6 = phase_kernel_k6()
+    phase_ssm_scans(k5, k6)
     print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}), flush=True)
     print(env["nvidia_smi"], flush=True)
     print(json.dumps({"ok": True, "device": {

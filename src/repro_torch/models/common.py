@@ -45,8 +45,7 @@ class ModelConfig:
       "mamba1"      Mamba-1 selective-scan block (attn-free)
       "mamba2"      Mamba-2 SSD block
       "shared_attn" the hybrid's weight-shared attention block (zamba2)
-    The port builds and runs "attn", "attn_moe", "mla" and "mla_moe" so
-    far; the others raise.
+    The port builds and runs all but "cross_attn" so far, which raises.
     """
 
     name: str

@@ -1,0 +1,319 @@
+"""State-space blocks, the port of `repro.models.ssm`'s training path:
+Mamba-1 (the selective scan; `mamba1_init`, `_m1_scan_chunk`,
+`mamba1_mix`, `mamba1_apply`) and Mamba-2 (SSD; `mamba2_init`,
+`_ssd_chunk`, `mamba2_mix`, `mamba2_apply`), with the depthwise causal
+conv both run (`_causal_conv`).
+
+The mixers run CHUNKED along the sequence, as the reference's: a loop over
+`_CHUNK`-token chunks carries the recurrent state from one to the next, and
+with `cfg.remat` each chunk is checkpointed (inside the layer's own
+checkpoint), so the backward pass keeps one chunk's intermediates at a
+time. When the sequence is not a multiple of the chunk, the whole sequence
+is one chunk, as in the reference. Mamba-1's recurrence inside a chunk is a
+sequential loop over its tokens (the reference's `lax.scan`); Mamba-2's is
+the SSD matmul form. These are plain torch ops under autograd, as the
+reference runs its mixers in XLA: the models call neither K5
+(`kernels/ssd_scan.py`) nor K6 (`kernels/selective_scan.py`), which have
+no backward.
+
+Rounding follows the reference's casts: the conv in the activations'
+dtype, one tap at a time; `dt` through softplus in float32; the scans in
+float32; the output cast back before the gate. `softplus` is jax's
+`logaddexp(x, 0)`. The init draws the reference's
+bits (jax's threefry through `prng`), and builds Mamba-2's `A` with
+`jnp.linspace`'s float32 arithmetic under jit, as the reference's jitted
+init computes it; its `log` is correctly rounded here, where XLA's is
+not quite (a few elements 1 ulp off at zamba2's 80 heads: pinned in
+tests/test_torch_ssm.py). The one-token decode and its caches come with a
+later slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.compress import prng
+from repro_torch.models.common import ModelConfig, p, pz, rms_norm
+
+PyTree = Any
+
+_CHUNK = 256
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv. x: (B,S,C); w: (C,K); b: (C,). Each tap is
+    added in x's dtype, in the reference's order."""
+    K = w.shape[1]
+    S = x.shape[1]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for k in range(K):
+        out = out + pad[:, k:k + S, :] * w[:, k]
+    return out + b
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softplus`, `logaddexp(x, 0)`: `max(x, 0) + log1p(exp(-|x|))`,
+    its derivative `exp(x - softplus(x))`, as jax's."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
+
+
+def _chunking(S: int, chunk: int) -> tuple[int, int]:
+    """(number of chunks, chunk length): the whole sequence is one chunk
+    when S is not a multiple of the chunk."""
+    Q = min(chunk, S)
+    if S % Q != 0:
+        return 1, S
+    return S // Q, Q
+
+
+def _run_chunks(body, h, inputs, Q: int, n_chunks: int, remat: bool):
+    """The reference's `lax.scan` over chunks: `body(h, *chunk_inputs) ->
+    (h, y)` on each Q-token slice of `inputs` (sequence on dim 1), the
+    outputs concatenated along the sequence; each chunk checkpointed with
+    `remat`."""
+    ys = []
+    # split, not slices: a slice's backward writes its gradient into zeros
+    # of the whole input, a split's concatenates them once
+    pieces = [a.split(Q, dim=1) for a in inputs]
+    for c in range(n_chunks):
+        sl = [piece[c] for piece in pieces]
+        if remat:
+            h, y = checkpoint(body, h, *sl, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            h, y = body(h, *sl)
+        ys.append(y)
+    return ys[0] if n_chunks == 1 else torch.cat(ys, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1
+# ---------------------------------------------------------------------------
+
+
+def _m1_dims(cfg: ModelConfig) -> tuple[int, int]:
+    d_inner = cfg.ssm_expand * cfg.d_model
+    dt_rank = max(1, -(-cfg.d_model // 16))
+    return d_inner, dt_rank
+
+
+def mamba1_init(key: prng.Key, cfg: ModelConfig) -> PyTree:
+    ks = prng.split(key, 8)
+    D, N = cfg.d_model, cfg.ssm_state
+    d_inner, dt_rank = _m1_dims(cfg)
+    dev = key[0].device
+    # S4D-real A init: A[:, n] = -(n+1)
+    A = torch.arange(1, N + 1, dtype=torch.float64, device=dev).repeat(
+        d_inner, 1)
+    return {
+        "norm": pz((D,), ("embed",), torch.float32, device=dev),
+        "in_proj": p(ks[0], (D, 2 * d_inner), ("embed", "ssm_inner"),
+                     cfg.dtype),
+        "conv_w": p(ks[1], (d_inner, cfg.ssm_conv), ("ssm_inner", "conv"),
+                    cfg.dtype, scale=0.5),
+        "conv_b": pz((d_inner,), ("ssm_inner",), cfg.dtype, device=dev),
+        "x_proj": p(ks[2], (d_inner, dt_rank + 2 * N), ("ssm_inner", None),
+                    cfg.dtype),
+        "dt_w": p(ks[3], (dt_rank, d_inner), (None, "ssm_inner"), cfg.dtype),
+        "dt_b": pz((d_inner,), ("ssm_inner",), torch.float32, fill=-4.6,
+                   device=dev),
+        "A_log": (torch.log(A).float(), ("ssm_inner", "state")),
+        "D_skip": pz((d_inner,), ("ssm_inner",), torch.float32, fill=1.0,
+                     device=dev),
+        "out_proj": p(ks[4], (d_inner, D), ("ssm_inner", "embed"),
+                      cfg.dtype),
+    }
+
+
+def _m1_scan_chunk(h0, dA, dBx, C):
+    """Sequential inner scan over one chunk.
+    h0: (B,di,N); dA, dBx: (B,Q,di,N); C: (B,Q,N). Returns (hQ, y (B,Q,di)).
+
+    The tokens' inputs are taken by `unbind`, whose backward stacks their
+    gradients once; indexing token t would write each token's gradient
+    into zeros of the whole chunk (Q passes over a (B,Q,di,N) tensor)."""
+    h = h0
+    ys = []
+    for dA_t, dBx_t, C_t in zip(dA.unbind(1), dBx.unbind(1), C.unbind(1)):
+        h = dA_t * h + dBx_t
+        ys.append(torch.einsum("bdn,bn->bd", h, C_t))
+    return h, torch.stack(ys, dim=1)
+
+
+def _m1_chunk_body(A):
+    def body(h, x_c, dt_c, B_c, C_c):
+        dA = torch.exp(dt_c[..., None] * A)                   # (B,Q,di,N)
+        dBx = (dt_c * x_c.float())[..., None] * B_c[:, :, None, :]
+        return _m1_scan_chunk(h, dA, dBx, C_c.float())
+    return body
+
+
+def mamba1_mix(prm, xz: torch.Tensor, cfg: ModelConfig,
+               chunk: int = _CHUNK) -> torch.Tensor:
+    """Core selective-scan mixer. xz: (B,S,2*d_inner) post-in_proj."""
+    d_inner, dt_rank = _m1_dims(cfg)
+    N = cfg.ssm_state
+    x, z = torch.chunk(xz, 2, dim=-1)
+    x = F.silu(_causal_conv(x, prm["conv_w"], prm["conv_b"]))
+
+    proj = torch.einsum("bsd,dk->bsk", x, prm["x_proj"])
+    dt_r, B_, C_ = torch.split(proj, [dt_rank, N, N], dim=-1)
+    dt = softplus(torch.einsum("bsr,rd->bsd", dt_r, prm["dt_w"]).float()
+                  + prm["dt_b"])                              # (B,S,di)
+    A = -torch.exp(prm["A_log"])                              # (di,N)
+
+    B, S, _ = x.shape
+    n_chunks, Q = _chunking(S, chunk)
+    h0 = torch.zeros((B, d_inner, N), dtype=torch.float32, device=xz.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    y = _run_chunks(_m1_chunk_body(A), h0, (x, dt, B_.float(), C_), Q,
+                    n_chunks, remat)                          # (B,S,di)
+    y = y + x.float() * prm["D_skip"]
+    return y.to(xz.dtype) * F.silu(z)
+
+
+def mamba1_apply(prm, x, cfg: ModelConfig, positions=None) -> torch.Tensor:
+    h = rms_norm(x, prm["norm"])
+    xz = torch.einsum("bsd,de->bse", h, prm["in_proj"])
+    y = mamba1_mix(prm, xz, cfg)
+    return torch.einsum("bse,ed->bsd", y, prm["out_proj"])
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD)
+# ---------------------------------------------------------------------------
+
+
+def _m2_dims(cfg: ModelConfig) -> tuple[int, int]:
+    d_inner = cfg.ssm_expand * cfg.d_model
+    nheads = d_inner // cfg.ssm_head_dim
+    return d_inner, nheads
+
+
+def _linspace(start: float, stop: float, num: int, device=None
+              ) -> torch.Tensor:
+    """`jnp.linspace(start, stop, num)` in float32 as the reference's jitted
+    init computes it: `start * (1 - s) + stop * s` with `s = i * (1 /
+    (num - 1))` (XLA turns the division by the constant into a product by
+    its reciprocal), and the end point exact."""
+    if num == 1:
+        return torch.full((1,), start, dtype=torch.float32, device=device)
+    div = num - 1
+    i = torch.arange(div, dtype=torch.float32, device=device)
+    s = i * torch.tensor(1.0 / div, dtype=torch.float32, device=device)
+    out = start * (1.0 - s) + stop * s
+    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32,
+                                      device=device)])
+
+
+def mamba2_init(key: prng.Key, cfg: ModelConfig) -> PyTree:
+    ks = prng.split(key, 6)
+    D, N = cfg.d_model, cfg.ssm_state
+    d_inner, nheads = _m2_dims(cfg)
+    conv_dim = d_inner + 2 * N  # x plus (B,C), single group
+    d_proj = 2 * d_inner + 2 * N + nheads
+    dev = key[0].device
+    A = _linspace(1.0, 16.0, nheads, device=dev)
+    return {
+        "norm": pz((D,), ("embed",), torch.float32, device=dev),
+        "in_proj": p(ks[0], (D, d_proj), ("embed", "ssm_inner"), cfg.dtype),
+        "conv_w": p(ks[1], (conv_dim, cfg.ssm_conv), ("ssm_inner", "conv"),
+                    cfg.dtype, scale=0.5),
+        "conv_b": pz((conv_dim,), ("ssm_inner",), cfg.dtype, device=dev),
+        "A_log": (torch.log(A.double()).float(), ("ssm_heads",)),
+        "dt_bias": pz((nheads,), ("ssm_heads",), torch.float32, fill=-4.6,
+                      device=dev),
+        "D_skip": pz((nheads,), ("ssm_heads",), torch.float32, fill=1.0,
+                     device=dev),
+        "gate_norm": pz((d_inner,), ("ssm_inner",), torch.float32,
+                        device=dev),
+        "out_proj": p(ks[2], (d_inner, D), ("ssm_inner", "embed"),
+                      cfg.dtype),
+    }
+
+
+def _ssd_chunk(h0, x_c, dt_c, B_c, C_c, A):
+    """SSD matmul form for one chunk.
+    h0: (B,H,P,N); x_c: (B,Q,H,P); dt_c: (B,Q,H); B_c, C_c: (B,Q,N);
+    A: (H,) negative reals. Returns (hQ, y_c (B,Q,H,P)).
+
+    The reference's three-operand einsums are the two products its XLA
+    program contracts, in that order: y_inter as (exp(cum) C) then h0,
+    the state update as (exp(total - cum) B) then x dt. The values are the
+    reference's; the gradient is too wherever the reference's is finite,
+    and stays finite where a chunk's decay passes exp's range (above 88.7
+    in log), where the reference's is NaN."""
+    dA = dt_c * A                                    # (B,Q,H)  log-decay
+    cum = torch.cumsum(dA, dim=1)                    # (B,Q,H)
+    # intra-chunk: L[s,t] = exp(cum_s - cum_t) for s >= t, and 0 above
+    # the diagonal as exp(-inf): the reference's where(mask, exp(rel), 0)
+    # gives the same values, but where rel overflows exp above the
+    # diagonal its gradient is 0 * inf = NaN
+    rel = cum[:, :, None, :] - cum[:, None, :, :]    # (B,Q,Q,H)
+    Q = x_c.shape[1]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=x_c.device).tril()
+    L = torch.exp(torch.where(mask[None, :, :, None], rel,
+                              torch.full((), float("-inf"),
+                                         dtype=rel.dtype,
+                                         device=rel.device)))
+    scores = torch.einsum("bsn,btn->bst", C_c, B_c)  # (B,Q,Q)
+    W = scores[..., None] * L                        # (B,Q,Q,H)
+    xdt = x_c * dt_c[..., None]                      # (B,Q,H,P)
+    y_intra = torch.einsum("bsth,bthp->bshp", W, xdt)
+    # inter-chunk: contribution of h0 decayed to each position
+    decay0 = torch.exp(cum)                          # (B,Q,H)
+    y_inter = torch.einsum("bshn,bhpn->bshp",
+                           decay0[..., None] * C_c[:, :, None, :], h0)
+    # state update: hQ = exp(sum dA) h0 + sum_t exp(cum_Q - cum_t) dB_t x_t
+    total = cum[:, -1, :]                            # (B,H)
+    decay_t = torch.exp(total[:, None, :] - cum)     # (B,Q,H)
+    hQ = (torch.exp(total)[..., None, None] * h0
+          + torch.einsum("bthp,bthn->bhpn", xdt,
+                         decay_t[..., None] * B_c[:, :, None, :]))
+    return hQ, y_intra + y_inter
+
+
+def _m2_chunk_body(A):
+    def body(h, x_c, dt_c, B_c, C_c):
+        return _ssd_chunk(h, x_c.float(), dt_c, B_c.float(), C_c.float(), A)
+    return body
+
+
+def mamba2_mix(prm, zxbcdt: torch.Tensor, cfg: ModelConfig,
+               chunk: int = _CHUNK) -> torch.Tensor:
+    """Core SSD mixer. zxbcdt: (B,S,2*di+2*N+H) post-in_proj."""
+    d_inner, nheads = _m2_dims(cfg)
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    z, xBC, dt_raw = torch.split(zxbcdt, [d_inner, d_inner + 2 * N, nheads],
+                                 dim=-1)
+    xBC = F.silu(_causal_conv(xBC, prm["conv_w"], prm["conv_b"]))
+    x, B_, C_ = torch.split(xBC, [d_inner, N, N], dim=-1)
+    dt = softplus(dt_raw.float() + prm["dt_bias"])
+    A = -torch.exp(prm["A_log"])                     # (H,)
+
+    B, S, _ = zxbcdt.shape
+    n_chunks, Q = _chunking(S, chunk)
+    x = x.reshape(B, S, nheads, P)
+    h0 = torch.zeros((B, nheads, P, N), dtype=torch.float32,
+                     device=zxbcdt.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    y = _run_chunks(_m2_chunk_body(A), h0, (x, dt, B_, C_), Q, n_chunks,
+                    remat)                           # (B,S,H,P)
+    y = y + x.float() * prm["D_skip"][:, None]
+    y = y.reshape(B, S, d_inner)
+    # gated RMSNorm (mamba2): norm(y * silu(z))
+    return rms_norm(y.to(zxbcdt.dtype) * F.silu(z), prm["gate_norm"])
+
+
+def mamba2_apply(prm, x, cfg: ModelConfig, positions=None) -> torch.Tensor:
+    h = rms_norm(x, prm["norm"])
+    zxbcdt = torch.einsum("bsd,de->bse", h, prm["in_proj"])
+    y = mamba2_mix(prm, zxbcdt, cfg)
+    return torch.einsum("bse,ed->bsd", y, prm["out_proj"])

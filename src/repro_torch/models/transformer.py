@@ -19,11 +19,17 @@ tensor and no per-layer slice of a stacked leaf scatters into a zero
 tensor of the whole stack on the backward pass).
 
 Block kinds ported: "attn", "attn_moe", "mla" and "mla_moe" (GQA or MLA
-attention, then the dense or the MoE FFN). The others (cross_attn,
-mamba1, mamba2, shared_attn) raise `NotImplementedError`; so do one-token
-decode and its caches. They come with later slices. `moe_groups` is the
-MoE dispatch groups (`mlp.moe_apply`'s `groups`), threaded through
-`forward` and `loss_fn` as the reference threads it.
+attention, then the dense or the MoE FFN); "mamba1" and "mamba2" (the
+state-space mixers of `models.ssm`, mixer-only: no FFN after them); and
+"shared_attn", zamba2's weight-shared attention block: ONE copy of GQA
+attention (and of the FFN after it, when the config has one) at the top
+level of the tree, `shared_attn`/`shared_mlp`, specialized per
+repetition by stacked LoRA deltas on the q and o projections. The shared
+weights are threaded through `forward` to every block as the reference
+threads them (`shared`). "cross_attn" raises `NotImplementedError`; so do
+one-token decode and its caches. They come with later slices.
+`moe_groups` is the MoE dispatch groups (`mlp.moe_apply`'s `groups`),
+threaded through `forward` and `loss_fn` as the reference threads it.
 """
 
 from __future__ import annotations
@@ -36,13 +42,15 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.compress import prng
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ModelConfig, cross_entropy_loss, p,
                                        pz, rms_norm, split_axes)
 
 PyTree = Any
 
 #: the block kinds this port builds and runs
-PORTED_KINDS = ("attn", "attn_moe", "mla", "mla_moe")
+PORTED_KINDS = ("attn", "attn_moe", "mla", "mla_moe", "mamba1", "mamba2",
+                "shared_attn")
 
 
 def _not_ported(kind: str):
@@ -62,6 +70,24 @@ def check_config(cfg: ModelConfig) -> None:
 def _block_init(kind: str, key: prng.Key, cfg: ModelConfig) -> PyTree:
     if kind not in PORTED_KINDS:
         _not_ported(kind)
+    if kind == "mamba1":
+        return {"mamba": ssm_mod.mamba1_init(key, cfg)}
+    if kind == "mamba2":
+        return {"mamba": ssm_mod.mamba2_init(key, cfg)}
+    if kind == "shared_attn":
+        # LoRA deltas only; shared weights live at top level.
+        r = cfg.shared_attn_lora
+        D, H, hd = cfg.d_model, cfg.num_heads, cfg.hd
+        ks = prng.split(key, 4)
+        dev = key[0].device
+        return {
+            "lora_q_a": p(ks[0], (D, r), ("embed", "lora"), cfg.dtype),
+            "lora_q_b": pz((r, H, hd), ("lora", "q_heads", "head"),
+                           cfg.dtype, device=dev),
+            "lora_o_a": p(ks[1], (H, hd, r), ("q_heads", "head", "lora"),
+                          cfg.dtype),
+            "lora_o_b": pz((r, D), ("lora", "embed"), cfg.dtype, device=dev),
+        }
     k1, k2 = prng.split(key)
     mixer = attn.mla_init if kind.startswith("mla") else attn.gqa_init
     if kind.endswith("_moe"):
@@ -69,15 +95,46 @@ def _block_init(kind: str, key: prng.Key, cfg: ModelConfig) -> PyTree:
     return {"attn": mixer(k1, cfg), "mlp": mlp_mod.mlp_init(k2, cfg)}
 
 
-def _block_apply(kind: str, prm, x, cfg: ModelConfig, positions,
+def _mixer_apply(kind: str, prm, x, cfg: ModelConfig, positions, shared):
+    if kind in ("attn", "attn_moe"):
+        return attn.gqa_apply(prm["attn"], x, cfg, positions)
+    if kind in ("mla", "mla_moe"):
+        return attn.mla_apply(prm["attn"], x, cfg, positions)
+    if kind == "mamba1":
+        return ssm_mod.mamba1_apply(prm["mamba"], x, cfg, positions)
+    if kind == "mamba2":
+        return ssm_mod.mamba2_apply(prm["mamba"], x, cfg, positions)
+    if kind == "shared_attn":
+        return _shared_attn_apply(prm, shared["attn"], x, cfg, positions)
+    _not_ported(kind)
+
+
+def _block_apply(kind: str, prm, x, cfg: ModelConfig, positions, shared,
                  moe_groups: int):
-    if kind not in PORTED_KINDS:
-        _not_ported(kind)
-    mixer = attn.mla_apply if kind.startswith("mla") else attn.gqa_apply
-    x = x + mixer(prm["attn"], x, cfg, positions)
+    x = x + _mixer_apply(kind, prm, x, cfg, positions, shared)
     if kind.endswith("_moe"):
-        return x + mlp_mod.moe_apply(prm["moe"], x, cfg, groups=moe_groups)
-    return x + mlp_mod.mlp_apply(prm["mlp"], x, cfg)
+        x = x + mlp_mod.moe_apply(prm["moe"], x, cfg, groups=moe_groups)
+    elif kind in ("attn", "mla"):
+        x = x + mlp_mod.mlp_apply(prm["mlp"], x, cfg)
+    elif kind == "shared_attn" and shared.get("mlp") is not None:
+        x = x + mlp_mod.mlp_apply(shared["mlp"], x, cfg)
+    # mamba1/mamba2 blocks are mixer-only (falcon-mamba has d_ff=0);
+    # zamba2's shared block carries the model's single (shared) FFN.
+    return x
+
+
+def _shared_attn_apply(lora, shared, x, cfg: ModelConfig, positions):
+    """zamba2-style weight-shared attention with per-repetition LoRA on the
+    q and o projections (the reference's simplification of zamba2's
+    shared-block LoRA): the shared attention's output plus a low-rank
+    delta of the normed input."""
+    base = attn.gqa_apply(shared, x, cfg, positions)
+    h = rms_norm(x, shared["norm"])
+    q_delta = torch.einsum("bsd,dr->bsr", h, lora["lora_q_a"])
+    q_delta = torch.einsum("bsr,rhk->bshk", q_delta, lora["lora_q_b"])
+    o_delta = torch.einsum("bshk,hkr->bsr", q_delta, lora["lora_o_a"])
+    o_delta = torch.einsum("bsr,rd->bsd", o_delta, lora["lora_o_b"])
+    return base + o_delta
 
 
 def _map_leaves(fn, tree):
@@ -108,8 +165,9 @@ def init(key: prng.Key, cfg: ModelConfig) -> tuple[PyTree, PyTree]:
     """Returns (params, logical_axes) trees, their dicts in sorted key order
     (jax's leaf order), drawn on the key's device with the reference's
     keys: `split(key, 8)`; the embedding from key 0, the
-    LM head from key 1, the prologue from key 2's split, and stacked slot
-    i's repetition j from `fold_in(key 4, i * 1000 + j)`."""
+    LM head from key 1, the prologue from key 2's split, the shared
+    attention from key 3 and its FFN from key 6, and stacked slot i's
+    repetition j from `fold_in(key 4, i * 1000 + j)`."""
     check_config(cfg)
     dev = key[0].device
     keys = prng.split(key, 8)
@@ -126,6 +184,10 @@ def init(key: prng.Key, cfg: ModelConfig) -> tuple[PyTree, PyTree]:
         pk = prng.split(keys[2], len(cfg.prologue))
         pairs["prologue"] = [_block_init(kind, pk[i], cfg)
                              for i, kind in enumerate(cfg.prologue)]
+    if "shared_attn" in cfg.superblock:
+        pairs["shared_attn"] = attn.gqa_init(keys[3], cfg)
+        if cfg.d_ff > 0:
+            pairs["shared_mlp"] = mlp_mod.mlp_init(keys[6], cfg)
     params, axes = split_axes(pairs)
 
     stack_params: dict[str, Any] = {}
@@ -180,9 +242,11 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
     x = _embed(params, tokens, cfg)
+    shared = {"attn": params.get("shared_attn"),
+              "mlp": params.get("shared_mlp")}
 
     def block(x, kind, prm):
-        return _block_apply(kind, prm, x, cfg, positions, moe_groups)
+        return _block_apply(kind, prm, x, cfg, positions, shared, moe_groups)
 
     for i, kind in enumerate(cfg.prologue):
         if remat:

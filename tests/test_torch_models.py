@@ -3,7 +3,8 @@ jax's random bits (`split`, `uniform` with bounds, `truncated_normal`), the
 model init from a seed, the registry's configs, one forward, loss and
 gradient in float32 and in bf16 (the dense family; the MoE and MLA
 families are `tests/test_torch_moe.py` and `tests/test_torch_mla.py`),
-and the refusal of block kinds that are not ported yet.
+and the refusal of block kinds that are not ported yet (the state-space
+families are `tests/test_torch_ssm.py`).
 
 Standards (PERF.md and ROADMAP queue 3 give the observed errors):
   * `split` and bounded `uniform`: bits equal.
@@ -249,8 +250,6 @@ def test_streamed_attention_matches_reference(dtype):
 
 
 @pytest.mark.parametrize("arch,kind", [
-    ("falcon-mamba-7b", "mamba1"),
-    ("zamba2-2.7b", "mamba2"),
     ("llama-3.2-vision-90b", "cross_attn"),
 ])
 def test_unported_block_kind_raises_naming_it(arch, kind):

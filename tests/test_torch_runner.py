@@ -2,8 +2,8 @@
 dense backend of every dense manifest, compressed and uncompressed, under
 the port's parity check (`convert.assert_results_match`: host fields exact,
 trace floats and residual norms rtol 1e-5, atol 1e-6), plus the CLI, the
-refusal of what is not ported yet (the launch backend's families other
-than the dense one) and the paths that were refused before (netsim
+refusal of what is not ported yet (the launch backend's cross-attention
+family) and the paths that were refused before (netsim
 manifests, the dense closed loop)."""
 
 import copy
@@ -172,15 +172,16 @@ def test_parity_check_compares_the_compression_block():
     ("launch_dryrun", "launch"),
 ])
 def test_unported_paths_raise(name, backend):
-    """The launch backend runs the attention families ("attn", "attn_moe",
-    "mla", "mla_moe"); the manifest's spec for a family with a kind still
-    unported (zamba2's Mamba-2 blocks) raises, naming the block kind."""
+    """The launch backend runs the attention, MoE, MLA and state-space
+    families; the manifest's spec for a family with a kind still unported
+    (llama-3.2-vision's cross-attention blocks) raises, naming the block
+    kind."""
     d = repro_torch.ExperimentSpec.from_file(
         MANIFESTS / f"{name}.json").to_dict()
-    d["problem"]["params"]["arch"] = "zamba2-2.7b"
+    d["problem"]["params"]["arch"] = "llama-3.2-vision-90b"
     spec = repro_torch.ExperimentSpec.from_dict(d)
     with pytest.raises(NotImplementedError,
-                       match="'mamba2' is not ported yet"):
+                       match="'cross_attn' is not ported yet"):
         repro_torch.run(spec, backend, device="cpu")
 
 

@@ -321,9 +321,10 @@ def test_submit_surfaces_run_errors():
 
 
 def _unported_lm_spec():
-    """A launch spec of a family the port does not build yet (Mamba-1)."""
+    """A launch spec of a family the port does not build yet
+    (cross-attention)."""
     return _spec(name="lm", problem={"kind": "lm", "params": {
-        "arch": "falcon-mamba-7b", "batch_per_node": 2}},
+        "arch": "llama-3.2-vision-90b", "batch_per_node": 2}},
         topology={"kind": "complete", "params": {}},
         schedule={"kind": "periodic", "params": {"h": 2}},
         backends=[{"kind": "launch"}], stepsize={"kind": "sqrt",
@@ -333,12 +334,12 @@ def _unported_lm_spec():
 
 
 def test_unported_backend_surfaces_to_its_requester():
-    """The launch backend runs the dense family; a served LM spec of a
-    family not ported yet gets the NotImplementedError naming its block
-    kind, and the server goes on serving."""
+    """A served LM spec of a family the launch backend does not build yet
+    gets the NotImplementedError naming its block kind, and the server
+    goes on serving."""
     spec = _unported_lm_spec()
     with ExperimentServer(workers=1, max_wait_s=0.01, device=CPU) as srv:
-        with pytest.raises(NotImplementedError, match="'mamba1'"):
+        with pytest.raises(NotImplementedError, match="'cross_attn'"):
             srv.submit(spec).result(timeout=60)
         ok = srv.submit(_spec(name="after")).result(timeout=60)
         _assert_identical(ok, _solo(_spec(name="after")), "after a failure")

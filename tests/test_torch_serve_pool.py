@@ -427,10 +427,10 @@ def test_pooled_server_inflight_survives_drain():
 @pytest.mark.serve
 def test_pooled_unported_backend_fails_the_request_not_the_worker():
     """A served LM spec of a family the launch backend does not build yet
-    (Mamba-1) fails with the NotImplementedError in its worker, which goes
-    on serving."""
+    (cross-attention) fails with the NotImplementedError in its worker,
+    which goes on serving."""
     lm = _spec(name="lm", problem={"kind": "lm", "params": {
-        "arch": "falcon-mamba-7b", "batch_per_node": 2}},
+        "arch": "llama-3.2-vision-90b", "batch_per_node": 2}},
         topology={"kind": "complete", "params": {}},
         schedule={"kind": "periodic", "params": {"h": 2}},
         backends=[{"kind": "launch"}], stepsize={"kind": "sqrt",
@@ -440,7 +440,7 @@ def test_pooled_unported_backend_fails_the_request_not_the_worker():
     spec = _spec(name="after_lm")
     srv = ExperimentServer(processes=1, packing=False, device=CPU)
     try:
-        with pytest.raises(NotImplementedError, match="'mamba1'"):
+        with pytest.raises(NotImplementedError, match="'cross_attn'"):
             srv.submit(lm).result(timeout=120)
         res = srv.submit(spec, backend="dense").result(timeout=120)
         assert comparable_result_dict(res) == comparable_result_dict(
