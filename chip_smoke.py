@@ -233,6 +233,36 @@ non-zero and the last line is not printed. The phases:
             repro_torch.run at mesh (4, 1, 1), expander k=2, adamw, on
             the card and the CPU: host fields exact, losses within
             LM_TRACE_RTOL, K1 once a leaf a comm round
+  lm_decode LM inference (reaches no kernel of the port: the launch
+            counts, set to 0 before, must read 0 after). llama3-8b at
+            full width and depth (32 layers, 8,030,261,248 parameters,
+            bf16, the port's init): launch.steps.make_prefill_step at
+            B = 1, S = 4096 (prefill_32k's 32,768 left out), timed against
+            its bound; make_serve_step over transformer.init_cache at
+            B = 8 and max_seq 32,768 (decode_32k's cache; its batch of
+            128 cut to 8), LM_DECODE_STEPS teacher-forced steps from
+            position 0, held to the forward's logits over the same tokens
+            (LM_DECODE_TOL, the reference's own decode gate; argmax
+            agreements counted); prints the median step wall and device
+            time against the step's byte bound (the weights and the whole
+            cache read once), one step's kernels and busy share under
+            torch.profiler, the peak (under LM_PEAK_CAP_GIB), and the
+            card's decode scores (cuBLAS, bf16 in, float32 out), GQA's
+            at the cell and MLA's at deepseek-v2's latent width, held to
+            the operands-upcast form (LM_DECODE_SCORES_TOL)
+  lm_vlm    llama-3.2-vision-90b at its published widths (d_model 8192,
+            64 heads (8 kv) of 128, d_ff 28672, vocab 128256, 6400
+            encoder tokens of 7680), 4 of its 20 superblocks, the
+            cross-attention gates set to LM_VLM_GATE: prefill at B = 1,
+            S = 4096 with seeded encoder states (the streamed 4 x 1600
+            form), then LM_VLM_STEPS decode steps over a cache whose
+            cross-attention K and V are filled from them, held to
+            forward(enc=) as lm_decode's; times, kernels, peak
+  lm_decode_smoke
+            the ten archs at smoke width in float32 (every block kind;
+            the gates and LoRA factors perturbed off zero): 8 decode
+            steps on the card against the CPU, logits and caches within
+            LM_DECODE_SMOKE_TOL of their largest magnitude
   kernel_k3 K3 (the flat per-node mix, `kernels.ops.gossip_mix`) against
             its plain version over M in {1, 3, 130, 4099, 8192, 65537,
             2^20} (and a misaligned view), k in {1, 4, 8}, fp32 and bf16
@@ -3078,6 +3108,413 @@ def phase_lm_ssm_smoke() -> dict:
     return launches
 
 
+#: the decode cells' caches and batches (configs/shapes.py): prefill at
+#: train_4k's length (prefill_32k's 32,768 would cost about 64x the
+#: attention time a layer: left out), decode over decode_32k's cache length
+#: at a batch of 8 (its global batch is 128)
+LM_DECODE_PREFILL_SEQ = 4096
+LM_DECODE_CACHE = 32768
+LM_DECODE_BATCH = 8
+#: teacher-forced decode steps held against the forward
+LM_DECODE_STEPS = 32
+#: decode's logits against the teacher-forced forward's: the reference's
+#: own gate (tests/test_models.py test_decode_matches_forward), whose
+#: bf16 decode rounds otherwise than the forward (fp32 scores)
+LM_DECODE_TOL = dict(atol=0.13, rtol=0.1)
+#: decode's float32 scores from bf16 operands on the card (cuBLAS) against
+#: the operands taken to float32 first (the CPU's form), relative to the
+#: largest score: the repo's float32 tolerance (the two sum in another
+#: order)
+LM_DECODE_SCORES_TOL = 1e-5
+#: llama-3.2-vision-90b's 20 superblocks (four self-attention blocks and
+#: one cross-attention block each) cut to 4: 19.2e9 parameters, 38.4 GB
+LM_VLM_N_SUPER = 4
+LM_VLM_STEPS = 16
+#: the cross-attention gate set before the VLM runs (0 at init, where the
+#: blocks add exactly nothing)
+LM_VLM_GATE = 0.5
+#: the smoke archs' float32 decode on the card against the CPU, relative to
+#: each tensor's largest magnitude (float32 sums in another order)
+LM_DECODE_SMOKE_TOL = 1e-4
+LM_DECODE_SMOKE_STEPS = 8
+
+
+def _decode_teacher_forced(serve, params, cache, tokens) -> dict:
+    """`serve` fed tokens (B, T) one at a time from position 0, each step
+    between two CUDA events and synchronised: the logits (B, T, V) in
+    float32, each step's host wall (s) and device time (ms, the events:
+    the stream's time from the step's first launch to its last)."""
+    import torch
+
+    outs, walls, device_ms = [], [], []
+    for pos in range(tokens.shape[1]):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        logits, cache = serve(params, cache, tokens[:, pos:pos + 1], pos)
+        end.record()
+        end.synchronize()
+        walls.append(time.perf_counter() - t0)
+        device_ms.append(start.elapsed_time(end))
+        outs.append(logits[:, 0].float())
+    return {"logits": torch.stack(outs, dim=1), "walls": walls,
+            "device_ms": device_ms}
+
+
+def _hold_to_forward(label: str, dec, full) -> dict:
+    """Decode's logits against the forward's over the same tokens, to
+    LM_DECODE_TOL: the largest error, relative to the largest logit, and
+    the argmax agreements."""
+    import torch
+
+    full = full.float()
+    err = (dec - full).abs()
+    held = {"max_abs_err": float(err.max()),
+            "max_rel_err": float(err.max() / full.abs().max()),
+            "argmax_agree": int((dec.argmax(-1) == full.argmax(-1)).sum()),
+            "positions": int(full.shape[0] * full.shape[1]),
+            "tol": LM_DECODE_TOL}
+    if not bool(torch.isfinite(dec).all()) or not torch.allclose(
+            dec, full, **LM_DECODE_TOL):
+        raise AssertionError(f"{label}: decode's logits are off the "
+                             f"forward's: {held}")
+    return held
+
+
+def _prefill_ms(prefill, params, batch, reps: int = 3) -> list:
+    """Each of `reps` prefill calls timed alone by CUDA events (ms)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        prefill(params, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def _fill_cross_cache(cache, params, cfg, enc) -> None:
+    """Each cross-attention block's encoder K and V from `enc` into the
+    cache, in place: what the reference's decode test fills before decode
+    (tests/test_models.py `_prefill_cross_cache`), which is no API of
+    either package."""
+    import torch
+
+    for i, kind in enumerate(cfg.superblock):
+        if kind == "cross_attn":
+            prm = params["stack"][f"slot{i}"]["attn"]
+            c = cache["stack"][f"slot{i}"]
+            for j in range(cfg.n_super):
+                c["ek"][j].copy_(torch.einsum("bne,ehk->bnhk", enc,
+                                              prm["wk"][j]))
+                c["ev"][j].copy_(torch.einsum("bne,ehk->bnhk", enc,
+                                              prm["wv"][j]))
+
+
+def _decode_scores_check(gen, cfg, B: int) -> dict:
+    """Decode's float32 scores as the card computes them from bf16
+    operands (`attention._bmm_f32`: cuBLAS, bf16 in, float32 out) against
+    the CPU's form, the operands taken to float32 first, seeded values:
+    GQA's block-diagonal contraction at the cell's shapes (B, 32768
+    positions, the config's heads; `attention._gqa_scores`) and MLA's
+    latent one at deepseek-v2's (128 heads over a 512-wide latent cache of
+    the same length). The largest difference over the largest score, by
+    form."""
+    import torch
+
+    from repro_torch.models import attention
+
+    bf16 = torch.bfloat16
+    K, G, hd = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads, cfg.hd
+    qg = torch.randn((B, K, G, hd), generator=gen, device="cuda").to(bf16)
+    ck = torch.randn((B, LM_DECODE_CACHE, K, hd), generator=gen,
+                     device="cuda").to(bf16)
+    gqa = attention._gqa_scores(qg, ck)
+    gqa_up = torch.bmm(attention._block_diagonal(qg).float(), ck.reshape(
+        B, LM_DECODE_CACHE, K * hd).transpose(1, 2).float()).view_as(gqa)
+    del ck
+    q_abs = torch.randn((B, 128, 512), generator=gen, device="cuda").to(bf16)
+    ckv = torch.randn((B, LM_DECODE_CACHE, 512), generator=gen,
+                      device="cuda").to(bf16)
+    mla = attention._bmm_f32(q_abs, ckv.transpose(1, 2))
+    mla_up = torch.bmm(q_abs.float(), ckv.transpose(1, 2).float())
+    return {name: float((card - up).abs().max() / up.abs().max())
+            for name, card, up in (("gqa", gqa, gqa_up),
+                                   ("mla", mla, mla_up))}
+
+
+def _tree_bytes(tree) -> int:
+    import torch
+
+    return sum(t.numel() * t.element_size()
+               for t in torch.utils._pytree.tree_leaves(tree))
+
+
+def _no_kernel_launched(label: str) -> dict:
+    """The launch counts read after an inference phase: the path reaches
+    no kernel of the port (the reference's models call no Pallas kernel)."""
+    counts = _launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{label} launched {counts}")
+    return counts
+
+
+def phase_lm_decode() -> None:
+    """llama3-8b at full width and depth (32 layers, bf16, the port's init
+    from seed 0): `make_prefill_step` at B = 1, S = 4096, timed; then
+    `make_serve_step` over an `init_cache` of B = 8 and max_seq 32768,
+    LM_DECODE_STEPS teacher-forced steps from position 0, every launch
+    count set to 0 just before the prefill and read after the decode
+    (no kernel of the port: inference runs torch ops, as the reference's
+    XLA); the decode's logits held to the forward's over the same tokens
+    (LM_DECODE_TOL). Prints the prefill's time against its bound, the
+    decode step's median wall and device time against its byte bound
+    (the parameters and the whole cache read once: `gqa_decode` reads all
+    max_seq positions whatever the position), one step's kernels and
+    busy share under torch.profiler, and the peak."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.compress import prng
+    from repro_torch.launch import steps
+    from repro_torch.models import registry, transformer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = registry.get_config("llama3-8b", "full")
+    t0 = time.perf_counter()
+    params, _ = transformer.init(prng.key(0, "cuda"), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in torch.utils._pytree.tree_leaves(
+        params))
+    if n_params != 8030261248:
+        raise AssertionError(f"llama3-8b has {n_params} parameters")
+    param_bytes = _tree_bytes(params)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    V, S = cfg.vocab_size, LM_DECODE_PREFILL_SEQ
+
+    _zero_launch_counts()
+    prefill = steps.make_prefill_step(cfg)
+    batch = {"tokens": torch.randint(0, V, (1, S), generator=gen,
+                                     device="cuda")}
+    last = prefill(params, batch)
+    if tuple(last.shape) != (1, V) or not bool(torch.isfinite(
+            last.float()).all()):
+        raise AssertionError(f"prefill gave {tuple(last.shape)} logits, "
+                             f"finite: {bool(torch.isfinite(last).all())}")
+    prefill_ms = _prefill_ms(prefill, params, batch)
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.hd
+    # the matmuls' 2 flops a weight a token (the embedding is a gather),
+    # and causal attention's QK and PV over the kept half of the scores
+    matmul_params = n_params - cfg.vocab_size * cfg.d_model
+    prefill_flops = (2 * matmul_params * S
+                     + 2 * 2 * L * H * hd * S * (S + 1) / 2)
+    prefill_bound = _bound(param_bytes, prefill_flops, BF16_FLOPS)
+    del batch, last
+
+    B, T = LM_DECODE_BATCH, LM_DECODE_STEPS
+    cache = transformer.init_cache(cfg, B, LM_DECODE_CACHE, device="cuda")
+    cache_bytes = _tree_bytes(cache)
+    serve = steps.make_serve_step(cfg)
+    tokens = torch.randint(0, V, (B, T), generator=gen, device="cuda")
+    run = _decode_teacher_forced(serve, params, cache, tokens)
+    counts = _no_kernel_launched("lm_decode")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with torch.no_grad():
+        full = transformer.forward(params, tokens, cfg)
+    held = _hold_to_forward("lm_decode", run["logits"], full)
+    del full
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        serve(params, cache, tokens[:, :1], T)
+        torch.cuda.synchronize()
+    split = _kernel_split(prof)
+    del params, cache, run["logits"]
+    torch.cuda.empty_cache()
+    scores_err = _decode_scores_check(gen, cfg, B)
+    wall_ms = statistics.median(run["walls"]) * 1e3
+    emit("lm_decode", arch="llama3-8b", n_params=n_params,
+         param_bytes=param_bytes, init_s=init_s, prefill_batch=1,
+         prefill_seq=S, prefill_ms=prefill_ms,
+         prefill_bound_ms=prefill_bound["bound_ms"],
+         prefill_bound_by=prefill_bound["bound_by"],
+         prefill_tokens_per_s=S / (statistics.median(prefill_ms) / 1e3),
+         decode_batch=B, cache_seq=LM_DECODE_CACHE, cache_bytes=cache_bytes,
+         steps=T, step_wall_ms_median=wall_ms,
+         step_device_ms_median=statistics.median(run["device_ms"]),
+         step_walls_ms=[w * 1e3 for w in run["walls"]],
+         step_bound_ms=(param_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+         step_bound_by="bytes", step_kernels=split["kernels"],
+         step_kernel_ms=split["total"],
+         step_busy_share=split["total"] / wall_ms,
+         step_split_ms={k: split[k] for k in ("matmul", "other")},
+         tokens_per_s=B / (wall_ms / 1e3), peak_allocated_gib=peak,
+         scores_vs_upcast_max_rel=scores_err,
+         scores_tol=LM_DECODE_SCORES_TOL, launches=counts, **held)
+    if peak > LM_PEAK_CAP_GIB:
+        raise AssertionError(f"lm_decode peaked at {peak:.2f} GiB")
+    if not max(scores_err.values()) <= LM_DECODE_SCORES_TOL:
+        raise AssertionError(f"decode's scores on the card are off the "
+                             f"upcast form's: {scores_err}")
+
+
+def phase_lm_vlm() -> None:
+    """llama-3.2-vision-90b at its published widths (d_model 8192, 64
+    heads (8 kv) of 128, d_ff 28672, 6400 encoder tokens of 7680, vocab
+    128256, bf16), its 20 superblocks cut to LM_VLM_N_SUPER = 4 (16
+    self-attention and 4 cross-attention blocks), the port's init from
+    seed 1 with the cross-attention gates set to LM_VLM_GATE, seeded
+    encoder states (1, 6400, 7680) in bf16 (the streamed 4 x 1600 form):
+    `make_prefill_step` at B = 1, S = 4096 with `enc`, timed; then
+    LM_VLM_STEPS teacher-forced decode steps over an `init_cache` whose
+    cross-attention K and V are filled from `enc`, held to `forward(enc=)`
+    over the same tokens (LM_DECODE_TOL), every launch count set to 0
+    just before the prefill and read after the decode. Prints the times,
+    a decode step's against its byte bound (the weights and the cache
+    read once), its kernels and busy share, and the peak."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.compress import prng
+    from repro_torch.launch import steps
+    from repro_torch.models import registry, transformer
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(
+        registry.get_config("llama-3.2-vision-90b", "full"),
+        n_super=LM_VLM_N_SUPER)
+    t0 = time.perf_counter()
+    params, _ = transformer.init(prng.key(1, "cuda"), cfg)
+    for i, kind in enumerate(cfg.superblock):
+        if kind == "cross_attn":
+            params["stack"][f"slot{i}"]["attn"]["gate"].fill_(LM_VLM_GATE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in torch.utils._pytree.tree_leaves(
+        params))
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    V, S = cfg.vocab_size, LM_DECODE_PREFILL_SEQ
+    enc = torch.randn((1, cfg.num_encoder_tokens, cfg.encoder_dim),
+                      generator=gen, device="cuda").to(cfg.dtype)
+
+    _zero_launch_counts()
+    prefill = steps.make_prefill_step(cfg)
+    batch = {"tokens": torch.randint(0, V, (1, S), generator=gen,
+                                     device="cuda"), "enc": enc}
+    last = prefill(params, batch)
+    if tuple(last.shape) != (1, V) or not bool(torch.isfinite(
+            last.float()).all()):
+        raise AssertionError(f"VLM prefill gave {tuple(last.shape)}")
+    prefill_ms = _prefill_ms(prefill, params, batch)
+    del batch, last
+
+    T = LM_VLM_STEPS
+    cache = transformer.init_cache(cfg, 1, T, device="cuda")
+    _fill_cross_cache(cache, params, cfg, enc)
+    serve = steps.make_serve_step(cfg)
+    tokens = torch.randint(0, V, (1, T), generator=gen, device="cuda")
+    run = _decode_teacher_forced(serve, params, cache, tokens)
+    counts = _no_kernel_launched("lm_vlm")
+    with torch.no_grad():
+        full = transformer.forward(params, tokens, cfg, enc=enc)
+    held = _hold_to_forward("lm_vlm", run["logits"], full)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        serve(params, cache, tokens[:, :1], T - 1)
+        torch.cuda.synchronize()
+    split = _kernel_split(prof)
+    param_bytes = _tree_bytes(params)
+    wall_ms = statistics.median(run["walls"]) * 1e3
+    emit("lm_vlm", arch="llama-3.2-vision-90b", n_super=cfg.n_super,
+         n_params=n_params, param_bytes=param_bytes, init_s=init_s,
+         enc_shape=list(enc.shape), gate=LM_VLM_GATE, prefill_batch=1,
+         prefill_seq=S, prefill_ms=prefill_ms,
+         prefill_tokens_per_s=S / (statistics.median(prefill_ms) / 1e3),
+         steps=T, step_wall_ms_median=wall_ms,
+         step_device_ms_median=statistics.median(run["device_ms"]),
+         step_bound_ms=(param_bytes + _tree_bytes(cache))
+         / HBM_BYTES_PER_S * 1e3, step_bound_by="bytes",
+         step_kernels=split["kernels"], step_kernel_ms=split["total"],
+         step_busy_share=split["total"] / wall_ms,
+         step_split_ms={k: split[k] for k in ("matmul", "other")},
+         peak_allocated_gib=peak, launches=counts, **held)
+    if peak > LM_PEAK_CAP_GIB:
+        raise AssertionError(f"lm_vlm peaked at {peak:.2f} GiB")
+    del params, cache, run, full, enc
+    torch.cuda.empty_cache()
+
+
+def phase_lm_decode_smoke() -> None:
+    """All ten archs at smoke width in float32 (their parameters the port's
+    init plus seeded noise, so the cross-attention gates and zamba2's LoRA
+    factors are not zero), LM_DECODE_SMOKE_STEPS decode steps at B = 2 on
+    the card and the same on the CPU, every launch count set to 0 just
+    before the card's and read just after: each step's logits and the
+    whole cache after the last within LM_DECODE_SMOKE_TOL of their largest
+    magnitude; every block kind exercised."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch.compress import prng
+    from repro_torch.launch import steps
+    from repro_torch.models import registry, transformer
+
+    kinds = set()
+    for arch in registry.ARCH_IDS:
+        cfg = dataclasses.replace(registry.get_config(arch, "smoke"),
+                                  dtype=torch.float32)
+        kinds.update(cfg.blocks)
+        gen = torch.Generator().manual_seed(31)
+        params = transformer.init(prng.key(0, "cpu"), cfg)[0]
+        params = pytree.tree_map(lambda t: t + 0.2 * (
+            t.std() if t.numel() > 1 and bool(t.std() > 0) else 1.0)
+            * torch.randn(t.shape, generator=gen), params)
+        tokens = torch.randint(0, cfg.vocab_size,
+                               (2, LM_DECODE_SMOKE_STEPS), generator=gen)
+        enc = (torch.randn((2, cfg.num_encoder_tokens, cfg.encoder_dim),
+                           generator=gen) if cfg.family == "vlm" else None)
+        serve = steps.make_serve_step(cfg)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            p_dev = pytree.tree_map(lambda t: t.to(dev), params)
+            cache = transformer.init_cache(cfg, 2, LM_DECODE_SMOKE_STEPS,
+                                           torch.float32, device=dev)
+            if enc is not None:
+                _fill_cross_cache(cache, p_dev, cfg, enc.to(dev))
+            if dev == "cuda":
+                _zero_launch_counts()
+            outs = [serve(p_dev, cache, tokens[:, t:t + 1].to(dev), t)[0]
+                    for t in range(LM_DECODE_SMOKE_STEPS)]
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                counts = _no_kernel_launched(f"lm_decode_smoke {arch}")
+            runs[dev] = (torch.cat(outs, dim=1).cpu(),
+                         [t.cpu() for t in pytree.tree_leaves(cache)])
+        (card, card_cache), (cpu, cpu_cache) = runs["cuda"], runs["cpu"]
+        errs = [float((card - cpu).abs().max() / cpu.abs().max())]
+        errs += [float((a - b).abs().max() / max(float(b.abs().max()),
+                                                 1e-30))
+                 for a, b in zip(card_cache, cpu_cache)]
+        emit("lm_decode_smoke", arch=arch, blocks=sorted(set(cfg.blocks)),
+             steps=LM_DECODE_SMOKE_STEPS, logits_max_rel=errs[0],
+             cache_max_rel=max(errs[1:]), tol=LM_DECODE_SMOKE_TOL,
+             launches=counts)
+        if not max(errs) <= LM_DECODE_SMOKE_TOL:
+            raise AssertionError(f"{arch}: decode on the card is "
+                                 f"{max(errs)} off the CPU's")
+    every = {"attn", "attn_moe", "mla", "mla_moe", "cross_attn", "mamba1",
+             "mamba2", "shared_attn"}
+    if kinds != every:
+        raise AssertionError(f"the smoke archs exercise {sorted(kinds)}")
+
+
 def phase_kernel_k3() -> dict:
     """K3 (the flat per-node mix) against its plain version on the card,
     then its front door at full width, then its times."""
@@ -3572,6 +4009,9 @@ def main() -> int:
     k1["lm_hybrid_launches"] = lm_hybrid["launches"]
     k1["lm_hybrid_comm_step_ms"] = lm_hybrid["k1_comm_step_ms"]
     k1["lm_ssm_smoke_launches"] = phase_lm_ssm_smoke()
+    phase_lm_decode()
+    phase_lm_vlm()
+    phase_lm_decode_smoke()
     k3 = phase_kernel_k3()
     k4 = phase_kernel_k4(build_s)
     k5 = phase_kernel_k5()

@@ -10,9 +10,10 @@ comparison, and the one parity check of two `RunResult`s.
     stated tolerances: host fields exactly, trace floats and residual
     norms within `RTOL`/`ATOL`, execution timings not at all.
   * `lm_params_from_reference` / `lm_params_to_reference` carry the LM
-    launcher's parameter and `OptState` trees across (numpy, bf16 as
-    ml_dtypes' bfloat16 on the reference's side), so both packages can
-    start from the same weights.
+    launcher's parameter and `OptState` trees, and a decode cache tree
+    (dicts, the prologue's list, float32 states beside bf16 keys), across
+    (numpy, bf16 as ml_dtypes' bfloat16 on the reference's side), so both
+    packages can start from the same weights and cache.
 
 Numpy in, numpy out: this module imports neither `jax` nor `repro`.
 """
@@ -99,10 +100,11 @@ def _map_tree(fn, tree, opt_state_cls):
 
 
 def lm_params_from_reference(params_np, *, device=None):
-    """The JAX package's LM parameter tree, `OptState` or a tuple of both,
-    as numpy (`jax.tree.map(np.asarray, tree)`), into the port's tensors on
-    `device` (None: the CUDA card). bf16 leaves (ml_dtypes' bfloat16) keep
-    their bits; every reference `OptState` becomes the port's."""
+    """The JAX package's LM parameter tree, `OptState`, decode cache or a
+    tuple of them, as numpy (`jax.tree.map(np.asarray, tree)`), into the
+    port's tensors on `device` (None: the CUDA card). bf16 leaves
+    (ml_dtypes' bfloat16) keep their bits; every reference `OptState`
+    becomes the port's."""
     device = resolve_device(device)
 
     def leaf(a):

@@ -14,10 +14,10 @@ Backends (the `backends` registry):
     with fault plans and checkpoints. Its event loops are host numpy on
     either device, bit for bit the reference's.
   * "launch" -- consensus LM training (`launch.train.
-    train_consensus_lm`) of a registry architecture: the dense, MoE, MLA
-    and state-space families (block kinds `models.transformer.
-    PORTED_KINDS`), its pods stacked on the device and mixed through
-    kernel K1; cross-attention raises `NotImplementedError`.
+    train_consensus_lm`) of a registry architecture, its pods stacked on
+    the device and mixed through kernel K1. The VLM family fails as the
+    reference's does, with its error: its token batches carry no encoder
+    states for the cross-attention blocks.
 
 Each returns the reference's `RunResult`. `run_sweep` runs a grid of cells
 serially, as one batched program (`DDASimulator.run_batch`,

@@ -1,6 +1,7 @@
-"""Step factories, the port of `repro.launch.steps`' training half: the
-synchronous train step and the consensus (multi-pod) wrappers that realize
-the paper's algorithm at pod scale.
+"""Step factories, the port of `repro.launch.steps`: the synchronous train
+step, the inference steps (`make_prefill_step`, `make_serve_step`) and the
+consensus (multi-pod) wrappers that realize the paper's algorithm at pod
+scale.
 
 Every leaf of the state (params, each optimizer leaf, the step counter)
 carries a leading pod dimension, as the reference's `pod_stack` lays it
@@ -16,7 +17,13 @@ state it donates.
 The mix is `core.consensus.tree_mix_gossip` over the pod-stacked leaves:
 kernel K1 on the card, in place of the reference's `einsum` with the
 mixing matrix over the pod dimension (`_dense_mix`) or its ppermutes
-across chips. Prefill and decode steps come with a later slice.
+across chips.
+
+The inference steps run where their tensors are, without autograd:
+prefill returns the last position's logits of `transformer.forward`, and
+the serve step is one `transformer.decode_step`, which overwrites the
+cache it is given (as the reference's jitted step donates it) and returns
+the same tensors.
 """
 
 from __future__ import annotations
@@ -113,7 +120,6 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     gradient accumulation (the batch split along its leading dim, fp32
     gradient sums). `moe_groups` is the MoE dispatch groups
     (`mlp.moe_apply`'s `groups`); the dense blocks ignore it."""
-    transformer.check_config(cfg)
 
     def train_step(params, opt_state, batch):
         loss, grads = _loss_and_grads(params, batch, cfg, moe_groups,
@@ -123,6 +129,33 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                                        "grad_norm": _grad_norm(grads)}
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, moe_groups: int = 1):
+    """Forward-only (inference prefill): (params, batch) -> the logits of
+    the last position (B, V). `batch["enc"]`, when present, is the VLM's
+    encoder states."""
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            logits = transformer.forward(params, batch["tokens"], cfg,
+                                         enc=batch.get("enc"),
+                                         moe_groups=moe_groups)
+            return logits[:, -1, :]
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, moe_groups: int = 1):
+    """One-token decode: (params, cache, tokens, pos) -> (logits, cache),
+    the cache written in place."""
+
+    def serve_step(params, cache, tokens, pos):
+        with torch.no_grad():
+            return transformer.decode_step(params, cache, tokens, pos, cfg,
+                                           moe_groups=moe_groups)
+
+    return serve_step
 
 
 def _pod(tree: PyTree, i: int) -> PyTree:
@@ -158,7 +191,6 @@ def make_consensus_steps(cfg: ModelConfig, optimizer: Optimizer, graph,
     if mix_target not in ("params", "z"):
         raise ValueError(f"mix_target must be 'params' or 'z', got "
                          f"{mix_target!r}")
-    transformer.check_config(cfg)
 
     def local(params, opt_state, batch):
         n = batch["tokens"].shape[0]

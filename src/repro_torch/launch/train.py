@@ -67,6 +67,22 @@ def _restore_into(state, restored) -> None:
         dst.copy_(src)
 
 
+def _meta_trace(cfg: ModelConfig, params, batch: dict,
+                moe_groups: int) -> None:
+    """One pod's `transformer.loss_fn` on the meta device, its parameters
+    and batch meta tensors of the pod's shapes and dtypes, without autograd
+    and without the mix: what the reference's `lower().compile()` of its
+    step programs checks of the model (shapes, dtypes, the tree's keys,
+    the batch's fields), so an error its trace meets is raised here with
+    the same type and message. Nothing is computed or allocated."""
+    def meta(t):
+        return torch.empty(t.shape[1:], dtype=t.dtype, device="meta")
+    with torch.no_grad():
+        transformer.loss_fn(_pytree.tree_map(meta, params),
+                            {k: meta(v) for k, v in batch.items()}, cfg,
+                            moe_groups)
+
+
 def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
                        *, steps: int = 100,
                        schedule: CommSchedule | None = None,
@@ -90,8 +106,10 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
 
     `graph` overrides the `topology` name with a prebuilt CommGraph (n must
     equal the mesh's pod-axis size). `dryrun` builds both step functions
-    (cheap local, fused local+mix) and returns after zero training steps,
-    the seconds spent building each in `extras` (nothing compiles: they
+    (cheap local, fused local+mix), traces one pod's loss on the meta
+    device (`_meta_trace`, the counterpart of the reference's lowering of
+    both step programs), and returns after zero training steps, the
+    seconds spent building each step in `extras` (nothing compiles: they
     are timings of the build). Checkpoints (`ckpt_dir`, every `ckpt_every`
     steps) are the reference's files: a run resumes from either package's.
 
@@ -131,7 +149,7 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
         param_bytes_per_pod = sp.param_bytes_per_pod(params, n_pods)
 
         if dryrun:
-            _stacked_batch(streams)
+            _meta_trace(cfg, params, _stacked_batch(streams), moe_groups)
             extras = {"dryrun": True, "n_pods": n_pods, "k": k,
                       "param_bytes": param_bytes_per_pod}
             # one build made both step functions: each is charged it

@@ -1,9 +1,12 @@
-"""Self-attention, the port of `repro.models.attention`'s training path: GQA
-(`gqa_init`, `_qkv`, `gqa_apply`), MLA, DeepSeek-V2's multi-head latent
-attention (`mla_init`, `_mla_q`, `_mla_kv_latent`, `mla_apply`), and the
-grouped causal attention both run (`_sdpa_causal`, with
-`_sdpa_causal_streamed`'s online softmax over KV chunks for long
-sequences).
+"""Attention, the port of `repro.models.attention`: GQA (`gqa_init`, `_qkv`,
+`gqa_apply`), MLA, DeepSeek-V2's multi-head latent attention (`mla_init`,
+`_mla_q`, `_mla_kv_latent`, `mla_apply`), the grouped causal attention
+both run (`_sdpa_causal`, with `_sdpa_causal_streamed`'s online softmax
+over KV chunks for long sequences), the VLM's cross-attention to encoder
+states (`cross_attn_init`, `cross_attn_apply`, streamed over
+`_ENC_CHUNK`-token encoder chunks), and the one-token decode of GQA and
+MLA with their caches (`gqa_init_cache`, `gqa_decode`, `mla_init_cache`,
+the absorbed `mla_decode`).
 
 All shapes follow (batch, seq, heads, head_dim). GQA repeats are expressed
 by grouping q heads as (kv_heads, group), so the einsums contract natively
@@ -12,8 +15,17 @@ softmax, the counterpart of the reference's XLA path (it reaches no Pallas
 kernel); `scaled_dot_product_attention` is not used, since its rounding is
 not the reference's: the scores are rounded to the activations' dtype by
 their einsum and then taken to float32, the softmax weights cast back
-before P·V, as the reference casts. Cross-attention and the decode caches
-come with later slices.
+before P·V, as the reference casts.
+
+Decode writes the new token's keys (or latent) into the cache at `pos` in
+place, the counterpart of the reference's donated cache, and returns the
+same tensors. Its scores are contracted in float32 from the operands as
+they are (`_bmm_f32`, the reference's `preferred_element_type=float32`:
+no rounding of the scores to the activations' dtype, unlike the
+forward), over the cache as it lies (`_gqa_scores`, `_gqa_context`: one
+batched matmul each, no copy of the cache). Mixed dtypes (a float32
+cache under bf16 weights) promote as jax promotes them
+(`common.promoted_einsum`).
 """
 
 from __future__ import annotations
@@ -22,9 +34,10 @@ from typing import Any
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.compress import prng
-from repro_torch.models.common import (ModelConfig, apply_rope, p, pz,
-                                       rms_norm)
+from repro_torch.models.common import (ModelConfig, apply_rope, p,
+                                       promoted_einsum, pz, rms_norm)
 
 PyTree = Any
 
@@ -63,7 +76,7 @@ def _qkv(prm, x, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def _inv_sqrt_hd(hd: int, device) -> torch.Tensor:
+def _sqrt_hd(hd: int, device) -> torch.Tensor:
     """The float32 `jnp.sqrt(hd)` the scores are divided by."""
     return torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
                                    device=device))
@@ -79,7 +92,7 @@ def _sdpa_causal_streamed(q, k, v):
     G = H // K
     v_hd = v.shape[-1]
     qg = q.reshape(B, S, K, G, hd)
-    scale = 1.0 / _inv_sqrt_hd(hd, q.device)
+    scale = 1.0 / _sqrt_hd(hd, q.device)
     rows = torch.arange(S, device=q.device) + (T - S)
     m = torch.full((B, S, K, G, 1), -1e30, dtype=torch.float32,
                    device=q.device)
@@ -114,7 +127,7 @@ def _sdpa_causal_whole(q, k, v):
     G = H // K
     qg = q.reshape(B, S, K, G, hd)
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k).float()
-    scores = scores / _inv_sqrt_hd(hd, q.device)
+    scores = scores / _sqrt_hd(hd, q.device)
     mask = torch.ones((S, T), dtype=torch.bool,
                       device=q.device).tril(diagonal=T - S)
     scores = scores.masked_fill(~mask, float("-inf"))
@@ -140,6 +153,112 @@ def gqa_apply(prm, x, cfg: ModelConfig, positions) -> torch.Tensor:
     q, k, v = _qkv(prm, h, cfg, positions)
     out = _sdpa_causal(q, k, v)
     return torch.einsum("bshk,hkd->bsd", out, prm["wo"])
+
+
+def _decode_positions(x: torch.Tensor, pos) -> torch.Tensor:
+    """(B, 1) positions of the token decoded at `pos` (an int or a 0-d
+    integer tensor), as the forward's positions feed `apply_rope`."""
+    return torch.as_tensor(pos, device=x.device).reshape(1, 1).expand(
+        x.shape[0], 1)
+
+
+def _write_at(buf: torch.Tensor, pos, value: torch.Tensor) -> torch.Tensor:
+    """Write `value` (B, 1, ...) into `buf` (B, T, ...) at sequence index
+    `pos`, in place, cast to the buffer's dtype (the reference's
+    `dynamic_update_slice` of its donated cache). Returns `buf`."""
+    if isinstance(pos, int):
+        buf.narrow(1, pos, 1).copy_(value)
+    else:
+        buf.index_copy_(1, pos.reshape(1).to(torch.long),
+                        value.to(buf.dtype))
+    return buf
+
+
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`a @ b` (batched) in float32 from the operands as they are, the
+    reference's `preferred_element_type=float32` contraction: on the card,
+    bf16 operands go to cuBLAS with float32 output (bf16 products are exact
+    in float32, summed there), so a bf16 cache is read once and never
+    copied to float32; elsewhere the operands are taken to float32."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _block_diagonal(qg: torch.Tensor) -> torch.Tensor:
+    """(B, K, G, hd) queries as (B, K*G, K*hd) rows that are zero outside
+    their own kv head's hd columns, so that one batched matmul with a
+    (B, T, K, hd) cache seen as (B, T, K*hd) contracts each query with its
+    own head's keys alone: the cache is read as it lies, neither permuted
+    nor copied per head (K times the flops of a decode's few queries,
+    nothing beside the cache's bytes)."""
+    B, K, G, hd = qg.shape
+    rows = qg.new_zeros((B, K, G, K, hd))
+    rows.diagonal(dim1=1, dim2=3).copy_(qg.permute(0, 2, 3, 1))
+    return rows.reshape(B, K * G, K * hd)
+
+
+def _gqa_scores(qg: torch.Tensor, ck: torch.Tensor) -> torch.Tensor:
+    """scores[b,k,g,t] = q[b,k,g] . k[b,t,k] in float32 (`_bmm_f32`)."""
+    B, T, K, hd = ck.shape
+    G = qg.shape[2]
+    return _bmm_f32(_block_diagonal(qg),
+                    ck.reshape(B, T, K * hd).transpose(1, 2)).view(
+        B, K, G, T)
+
+
+def _gqa_context(w: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """out[b,k,g] = sum_t w[b,k,g,t] v[b,t,k] in the promoted dtype: one
+    batched matmul of the (B, K*G, T) weights with the (B, T, K*hd) cache
+    as it lies, then each query's own head's block of the (K*G, K*hd)
+    product (the other blocks, the products with other heads' values, are
+    dropped)."""
+    B, T, K, hd = cv.shape
+    G = w.shape[2]
+    dt = torch.promote_types(w.dtype, cv.dtype)
+    full = torch.bmm(w.reshape(B, K * G, T).to(dt),
+                     cv.reshape(B, T, K * hd).to(dt))
+    return full.view(B, K, G, K, hd).diagonal(dim1=1, dim2=3).permute(
+        0, 3, 1, 2)                                      # (B,K,G,hd)
+
+
+def _valid(T: int, pos, device) -> torch.Tensor:
+    """The cache positions written so far, `arange(T) <= pos`."""
+    return torch.arange(T, device=device) <= torch.as_tensor(pos,
+                                                             device=device)
+
+
+def gqa_init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                   device=None) -> PyTree:
+    """Zero K and V caches of (batch, max_seq, kv_heads, head_dim) on
+    `device` (None: the CUDA card)."""
+    device = resolve_device(device)
+    K, hd = cfg.num_kv_heads, cfg.hd
+    return {
+        "k": torch.zeros((batch, max_seq, K, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, max_seq, K, hd), dtype=dtype, device=device),
+    }
+
+
+def gqa_decode(prm, x, cache, cfg: ModelConfig, pos
+               ) -> tuple[torch.Tensor, PyTree]:
+    """One-token decode. x: (B,1,D); pos: the current position, shared by
+    the batch. Writes the token's k and v into the cache at `pos` (in
+    place) and attends over positions 0..pos of it. Returns (out, cache)."""
+    h = rms_norm(x, prm["norm"])
+    q, k, v = _qkv(prm, h, cfg, _decode_positions(x, pos))
+    ck = _write_at(cache["k"], pos, k)
+    cv = _write_at(cache["v"], pos, v)
+    B, _, H, hd = q.shape
+    T, K = ck.shape[1], ck.shape[2]
+    G = H // K
+    qg = q.reshape(B, K, G, hd)
+    scores = _gqa_scores(qg, ck) / _sqrt_hd(hd, x.device)
+    scores = scores.masked_fill(~_valid(T, pos, x.device), -1e30)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = _gqa_context(w, cv).reshape(B, 1, H, hd)
+    out = promoted_einsum("bshk,hkd->bsd", out, prm["wo"])
+    return out, cache
 
 
 # ---------------------------------------------------------------------------
@@ -209,3 +328,111 @@ def mla_apply(prm, x, cfg: ModelConfig, positions) -> torch.Tensor:
         B, S, H, cfg.mla_rope_head_dim)], dim=-1)
     out = _sdpa_causal(q_full, k_full, v)
     return torch.einsum("bshk,hkd->bsd", out, prm["wo"])
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
+                   device=None) -> PyTree:
+    """MLA caches only the compressed latent and the shared rope key:
+    (kv_lora + rope_hd) values a token (576 for DeepSeek-V2), on `device`
+    (None: the CUDA card)."""
+    device = resolve_device(device)
+    return {
+        "ckv": torch.zeros((batch, max_seq, cfg.mla_kv_lora), dtype=dtype,
+                           device=device),
+        "krope": torch.zeros((batch, max_seq, cfg.mla_rope_head_dim),
+                             dtype=dtype, device=device),
+    }
+
+
+def mla_decode(prm, x, cache, cfg: ModelConfig, pos
+               ) -> tuple[torch.Tensor, PyTree]:
+    """Absorbed decode: attention runs in the latent space. q_nope is taken
+    through `wk_b` (q_abs), the scores are q_abs . c_kv plus q_rope .
+    k_rope, and `wv_b` expands the latent context per head, so the
+    per-head K and V are never materialized. The scale is
+    1/sqrt(nope + rope) in float32, the mask -inf."""
+    h = rms_norm(x, prm["norm"])
+    positions = _decode_positions(x, pos)
+    q_nope, q_rope = _mla_q(prm, h, cfg, positions)
+    c_kv, k_rope = _mla_kv_latent(prm, h, cfg, positions)
+    ckv = _write_at(cache["ckv"], pos, c_kv)
+    krope = _write_at(cache["krope"], pos, k_rope)
+    # absorb W_uk: (B,1,H,nope) x (kvl,H,nope) -> (B,H,kvl)
+    q_abs = torch.einsum("bshk,qhk->bhq", q_nope, prm["wk_b"])
+    scale = 1.0 / _sqrt_hd(cfg.hd + cfg.mla_rope_head_dim, x.device)
+    scores = (_bmm_f32(q_abs, ckv.transpose(1, 2))
+              + _bmm_f32(q_rope[:, 0], krope.transpose(1, 2))) * scale
+    scores = scores.masked_fill(~_valid(ckv.shape[1], pos, x.device),
+                                float("-inf"))
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    ctx = promoted_einsum("bht,btq->bhq", w, ckv)        # latent context
+    out = promoted_einsum("bhq,qhk->bhk", ctx, prm["wv_b"])  # V per head
+    out = promoted_einsum("bhk,hkd->bd", out, prm["wo"])[:, None, :]
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (VLM decoder layers attending to stubbed vision tokens)
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_init(key: prng.Key, cfg: ModelConfig) -> PyTree:
+    ks = prng.split(key, 5)
+    H, K, hd, D = cfg.num_heads, cfg.num_kv_heads, cfg.hd, cfg.d_model
+    E = cfg.encoder_dim or D
+    dev = key[0].device
+    return {
+        "wq": p(ks[0], (D, H, hd), ("embed", "q_heads", "head"), cfg.dtype),
+        "wk": p(ks[1], (E, K, hd), ("enc_embed", "kv_heads", "head"),
+                cfg.dtype),
+        "wv": p(ks[2], (E, K, hd), ("enc_embed", "kv_heads", "head"),
+                cfg.dtype),
+        "wo": p(ks[3], (H, hd, D), ("q_heads", "head", "embed"), cfg.dtype),
+        "norm": pz((D,), ("embed",), torch.float32, device=dev),
+        # tanh-gated residual (llama3.2-V): adds exactly 0 at init
+        "gate": pz((), (), torch.float32, device=dev),
+    }
+
+
+#: the encoder tokens a chunk of `cross_attn_apply`'s streamed softmax
+_ENC_CHUNK = 1600
+
+
+def cross_attn_apply(prm, x, enc, cfg: ModelConfig) -> torch.Tensor:
+    """x: (B,S,D) decoder states; enc: (B,N,E) encoder tokens (no mask).
+
+    The softmax over the N encoder tokens is streamed in `_ENC_CHUNK`
+    chunks (when N is a multiple of the chunk and above it; else one
+    chunk) with a running max and denominator, the online softmax of
+    `_sdpa_causal_streamed` without a mask, so the (S x N) scores of all
+    chunks never exist at once. The output is scaled by tanh(gate)."""
+    h = rms_norm(x, prm["norm"])
+    # the encoder's shape is read where the reference's sharding constraint
+    # reads it, so that enc=None fails here with the reference's error
+    N = enc.shape[1]
+    q = torch.einsum("bsd,dhk->bshk", h, prm["wq"])
+    k = promoted_einsum("bne,ehk->bnhk", enc, prm["wk"])
+    v = promoted_einsum("bne,ehk->bnhk", enc, prm["wv"])
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg = q.reshape(B, S, K, G, hd)
+    scale = 1.0 / _sqrt_hd(hd, x.device)
+    chunk = _ENC_CHUNK if (N % _ENC_CHUNK == 0 and N > _ENC_CHUNK) else N
+    m = torch.full((B, S, K, G, 1), -1e30, dtype=torch.float32,
+                   device=x.device)
+    l = torch.zeros((B, S, K, G, 1), dtype=torch.float32, device=x.device)
+    acc = torch.zeros((B, S, K, G, hd), dtype=torch.float32,
+                      device=x.device)
+    for k_c, v_c in zip(k.split(chunk, dim=1), v.split(chunk, dim=1)):
+        s = promoted_einsum("bskgh,bnkh->bskgn", qg, k_c).float() * scale
+        m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
+        pr = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = corr * l + torch.sum(pr, dim=-1, keepdim=True)
+        pv = promoted_einsum("bskgn,bnkh->bskgh", pr.to(x.dtype), v_c)
+        acc = acc * corr + pv
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)).to(x.dtype).reshape(B, S, H, hd)
+    out = torch.einsum("bshk,hkd->bsd", out, prm["wo"])
+    return torch.tanh(prm["gate"].float()).to(x.dtype) * out

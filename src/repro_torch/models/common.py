@@ -45,7 +45,6 @@ class ModelConfig:
       "mamba1"      Mamba-1 selective-scan block (attn-free)
       "mamba2"      Mamba-2 SSD block
       "shared_attn" the hybrid's weight-shared attention block (zamba2)
-    The port builds and runs all but "cross_attn" so far, which raises.
     """
 
     name: str
@@ -201,6 +200,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def promoted_einsum(eq: str, *operands: torch.Tensor) -> torch.Tensor:
+    """`jnp.einsum` of operands whose dtypes differ: each is cast to their
+    promoted dtype (bf16 with float32 gives float32, exact), as jax
+    promotes them; `torch.einsum` refuses mixed dtypes."""
+    dt = operands[0].dtype
+    for o in operands[1:]:
+        dt = torch.promote_types(dt, o.dtype)
+    return torch.einsum(eq, *(o.to(dt) for o in operands))
 
 
 def activation(x: torch.Tensor, kind: str) -> torch.Tensor:

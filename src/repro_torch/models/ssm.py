@@ -1,4 +1,4 @@
-"""State-space blocks, the port of `repro.models.ssm`'s training path:
+"""State-space blocks, the port of `repro.models.ssm`:
 Mamba-1 (the selective scan; `mamba1_init`, `_m1_scan_chunk`,
 `mamba1_mix`, `mamba1_apply`) and Mamba-2 (SSD; `mamba2_init`,
 `_ssd_chunk`, `mamba2_mix`, `mamba2_apply`), with the depthwise causal
@@ -24,8 +24,15 @@ bits (jax's threefry through `prng`), and builds Mamba-2's `A` with
 `jnp.linspace`'s float32 arithmetic under jit, as the reference's jitted
 init computes it; its `log` is correctly rounded here, where XLA's is
 not quite (a few elements 1 ulp off at zamba2's 80 heads: pinned in
-tests/test_torch_ssm.py). The one-token decode and its caches come with a
-later slice.
+tests/test_torch_ssm.py).
+
+The one-token decode (`mamba1_decode`, `mamba2_decode`, with
+`mamba1_init_cache`, `mamba2_init_cache`) updates the recurrent state
+`h` (float32) and the conv window (`_conv_step`) in place, in the cache's
+tensors, and returns them. `_conv_step` is the reference's einsum over the
+K taps: a float32 sum rounded once to the activations' dtype, which is
+not `_causal_conv`'s tap-by-tap rounding (the reference's decode and
+forward round the conv differently too).
 """
 
 from __future__ import annotations
@@ -37,7 +44,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compress import prng
-from repro_torch.models.common import ModelConfig, p, pz, rms_norm
+from repro_torch import resolve_device
+from repro_torch.models.common import (ModelConfig, p, promoted_einsum,
+                                       pz, rms_norm)
 
 PyTree = Any
 
@@ -55,6 +64,19 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     for k in range(K):
         out = out + pad[:, k:k + S, :] * w[:, k]
     return out + b
+
+
+def _conv_step(x_t: torch.Tensor, conv_state: torch.Tensor,
+               w: torch.Tensor, b: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single-token causal conv. x_t: (B,C); conv_state: (B,K-1,C). The
+    window's taps are summed in float32 and rounded once to the window's
+    (promoted) dtype, as the reference's einsum; returns (out, the next
+    window (B,K-1,C))."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)   # (B,K,C)
+    dt = torch.promote_types(window.dtype, w.dtype)
+    out = torch.einsum("bkc,ck->bc", window.float(), w.float()).to(dt) + b
+    return out, window[:, 1:, :]
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -184,6 +206,49 @@ def mamba1_apply(prm, x, cfg: ModelConfig, positions=None) -> torch.Tensor:
     xz = torch.einsum("bsd,de->bse", h, prm["in_proj"])
     y = mamba1_mix(prm, xz, cfg)
     return torch.einsum("bse,ed->bsd", y, prm["out_proj"])
+
+
+def mamba1_init_cache(cfg: ModelConfig, batch: int, dtype, device=None
+                      ) -> PyTree:
+    """The conv window (batch, conv - 1, d_inner) in `dtype` and the state
+    h (batch, d_inner, N) in float32, zeros on `device` (None: the CUDA
+    card)."""
+    device = resolve_device(device)
+    d_inner, _ = _m1_dims(cfg)
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_inner), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, d_inner, cfg.ssm_state),
+                         dtype=torch.float32, device=device),
+    }
+
+
+def mamba1_decode(prm, x, cache, cfg: ModelConfig, pos=None):
+    """One-token recurrent update. x: (B,1,D). Overwrites the cache's conv
+    window and state; returns (out (B,1,D), cache)."""
+    _, dt_rank = _m1_dims(cfg)
+    N = cfg.ssm_state
+    h_in = rms_norm(x[:, 0, :], prm["norm"])
+    xz = torch.einsum("bd,de->be", h_in, prm["in_proj"])
+    x_t, z = torch.chunk(xz, 2, dim=-1)
+    x_t, conv_state = _conv_step(x_t, cache["conv"], prm["conv_w"],
+                                 prm["conv_b"])
+    x_t = F.silu(x_t)
+    proj = promoted_einsum("bd,dk->bk", x_t, prm["x_proj"])
+    dt_r, B_, C_ = torch.split(proj, [dt_rank, N, N], dim=-1)
+    dt = softplus(promoted_einsum("br,rd->bd", dt_r, prm["dt_w"]).float()
+                  + prm["dt_b"])
+    A = -torch.exp(prm["A_log"])
+    dA = torch.exp(dt[..., None] * A)                          # (B,di,N)
+    dBx = (dt * x_t.float())[..., None] * B_[:, None, :].float()
+    h_new = dA * cache["h"] + dBx
+    y = torch.einsum("bdn,bn->bd", h_new, C_.float())
+    y = y + x_t.float() * prm["D_skip"]
+    y = y.to(x.dtype) * F.silu(z)
+    out = torch.einsum("be,ed->bd", y, prm["out_proj"])[:, None, :]
+    cache["conv"].copy_(conv_state)
+    cache["h"].copy_(h_new)
+    return out, cache
 
 
 # ---------------------------------------------------------------------------
@@ -317,3 +382,48 @@ def mamba2_apply(prm, x, cfg: ModelConfig, positions=None) -> torch.Tensor:
     zxbcdt = torch.einsum("bsd,de->bse", h, prm["in_proj"])
     y = mamba2_mix(prm, zxbcdt, cfg)
     return torch.einsum("bse,ed->bsd", y, prm["out_proj"])
+
+
+def mamba2_init_cache(cfg: ModelConfig, batch: int, dtype, device=None
+                      ) -> PyTree:
+    """The conv window over x, B and C (batch, conv - 1, d_inner + 2 N) in
+    `dtype` and the state h (batch, heads, head_dim, N) in float32, zeros
+    on `device` (None: the CUDA card)."""
+    device = resolve_device(device)
+    d_inner, nheads = _m2_dims(cfg)
+    conv_dim = d_inner + 2 * cfg.ssm_state
+    return {
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, conv_dim), dtype=dtype,
+                            device=device),
+        "h": torch.zeros((batch, nheads, cfg.ssm_head_dim, cfg.ssm_state),
+                         dtype=torch.float32, device=device),
+    }
+
+
+def mamba2_decode(prm, x, cache, cfg: ModelConfig, pos=None):
+    """One-token SSD update. x: (B,1,D). Overwrites the cache's conv window
+    and state; returns (out (B,1,D), cache)."""
+    d_inner, nheads = _m2_dims(cfg)
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    h_in = rms_norm(x[:, 0, :], prm["norm"])
+    zxbcdt = torch.einsum("bd,de->be", h_in, prm["in_proj"])
+    z, xBC, dt_raw = torch.split(zxbcdt, [d_inner, d_inner + 2 * N, nheads],
+                                 dim=-1)
+    xBC, conv_state = _conv_step(xBC, cache["conv"], prm["conv_w"],
+                                 prm["conv_b"])
+    xBC = F.silu(xBC)
+    x_t, B_, C_ = torch.split(xBC, [d_inner, N, N], dim=-1)
+    dt = softplus(dt_raw.float() + prm["dt_bias"])            # (B,H)
+    A = -torch.exp(prm["A_log"])
+    dA = torch.exp(dt * A)                                     # (B,H)
+    x_t = x_t.reshape(-1, nheads, P).float()
+    dBx = torch.einsum("bhp,bn->bhpn", x_t * dt[..., None], B_.float())
+    h_new = dA[..., None, None] * cache["h"] + dBx
+    y = torch.einsum("bhpn,bn->bhp", h_new, C_.float())
+    y = y + x_t * prm["D_skip"][:, None]
+    y = y.reshape(-1, d_inner)
+    y = rms_norm(y.to(x.dtype) * F.silu(z), prm["gate_norm"])
+    out = torch.einsum("be,ed->bd", y, prm["out_proj"])[:, None, :]
+    cache["conv"].copy_(conv_state)
+    cache["h"].copy_(h_new)
+    return out, cache

@@ -1,6 +1,7 @@
-"""Decoder assembly, the port of `repro.models.transformer`'s training path:
-embeddings + (prologue blocks + stacked superblocks) + final norm + LM
-head, with `init`, `forward` and `loss_fn`.
+"""Decoder assembly, the port of `repro.models.transformer`: embeddings +
+(prologue blocks + stacked superblocks) + final norm + LM head, with
+`init`, the training/prefill `forward` and `loss_fn`, and the one-token
+`decode_step` over the caches of `init_cache`.
 
 The layer stack is `cfg.prologue` followed by `cfg.n_super` repetitions of
 `cfg.superblock`; per-slot parameters are stacked over the repetitions, as
@@ -18,18 +19,26 @@ tensors (`launch.steps` does, so that each layer's gradient is its own
 tensor and no per-layer slice of a stacked leaf scatters into a zero
 tensor of the whole stack on the backward pass).
 
-Block kinds ported: "attn", "attn_moe", "mla" and "mla_moe" (GQA or MLA
-attention, then the dense or the MoE FFN); "mamba1" and "mamba2" (the
-state-space mixers of `models.ssm`, mixer-only: no FFN after them); and
-"shared_attn", zamba2's weight-shared attention block: ONE copy of GQA
-attention (and of the FFN after it, when the config has one) at the top
-level of the tree, `shared_attn`/`shared_mlp`, specialized per
-repetition by stacked LoRA deltas on the q and o projections. The shared
-weights are threaded through `forward` to every block as the reference
-threads them (`shared`). "cross_attn" raises `NotImplementedError`; so do
-one-token decode and its caches. They come with later slices.
-`moe_groups` is the MoE dispatch groups (`mlp.moe_apply`'s `groups`),
-threaded through `forward` and `loss_fn` as the reference threads it.
+Block kinds: "attn", "attn_moe", "mla" and "mla_moe" (GQA or MLA
+attention, then the dense or the MoE FFN); "cross_attn" (the VLM's
+tanh-gated cross-attention to the encoder states `enc`, then the dense
+FFN); "mamba1" and "mamba2" (the state-space mixers of `models.ssm`,
+mixer-only: no FFN after them); and "shared_attn", zamba2's weight-shared
+attention block: ONE copy of GQA attention (and of the FFN after it, when
+the config has one) at the top level of the tree, `shared_attn`/
+`shared_mlp`, specialized per repetition by stacked LoRA deltas on the q
+and o projections. The shared weights are threaded through `forward` and
+`decode_step` to every block as the reference threads them (`shared`),
+and so are `enc` and `moe_groups` (`mlp.moe_apply`'s `groups`).
+
+Decode: `init_cache` builds the cache tree (the prologue's as a list, each
+stacked slot's as zeros with a leading repetition axis), and
+`decode_step` writes each block's new state into it in place, the
+counterpart of the reference's donated cache, and returns the same
+tensors. A cross-attention block's cache holds the encoder's K and V,
+filled before decode (the reference fills it at prefill, outside
+`decode_step`); decode only reads it. zamba2's shared attention has one
+GQA cache a repetition, though its weights are shared.
 """
 
 from __future__ import annotations
@@ -39,37 +48,28 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import resolve_device
 from repro_torch.compress import prng
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ModelConfig, cross_entropy_loss, p,
-                                       pz, rms_norm, split_axes)
+                                       promoted_einsum, pz, rms_norm,
+                                       split_axes)
 
 PyTree = Any
 
-#: the block kinds this port builds and runs
-PORTED_KINDS = ("attn", "attn_moe", "mla", "mla_moe", "mamba1", "mamba2",
-                "shared_attn")
-
-
-def _not_ported(kind: str):
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet "
-                              f"(a later slice of the port; ported: "
-                              f"{PORTED_KINDS})")
-
-
-def check_config(cfg: ModelConfig) -> None:
-    """Raise `NotImplementedError` naming the first block kind of `cfg`
-    that the port does not build."""
-    for kind in cfg.prologue + cfg.superblock:
-        if kind not in PORTED_KINDS:
-            _not_ported(kind)
-
-
 def _block_init(kind: str, key: prng.Key, cfg: ModelConfig) -> PyTree:
-    if kind not in PORTED_KINDS:
-        _not_ported(kind)
+    if kind in ("attn", "attn_moe", "mla", "mla_moe"):
+        k1, k2 = prng.split(key)
+        mixer = attn.mla_init if kind.startswith("mla") else attn.gqa_init
+        if kind.endswith("_moe"):
+            return {"attn": mixer(k1, cfg), "moe": mlp_mod.moe_init(k2, cfg)}
+        return {"attn": mixer(k1, cfg), "mlp": mlp_mod.mlp_init(k2, cfg)}
+    if kind == "cross_attn":
+        k1, k2 = prng.split(key)
+        return {"attn": attn.cross_attn_init(k1, cfg),
+                "mlp": mlp_mod.mlp_init(k2, cfg)}
     if kind == "mamba1":
         return {"mamba": ssm_mod.mamba1_init(key, cfg)}
     if kind == "mamba2":
@@ -88,39 +88,46 @@ def _block_init(kind: str, key: prng.Key, cfg: ModelConfig) -> PyTree:
                           cfg.dtype),
             "lora_o_b": pz((r, D), ("lora", "embed"), cfg.dtype, device=dev),
         }
-    k1, k2 = prng.split(key)
-    mixer = attn.mla_init if kind.startswith("mla") else attn.gqa_init
-    if kind.endswith("_moe"):
-        return {"attn": mixer(k1, cfg), "moe": mlp_mod.moe_init(k2, cfg)}
-    return {"attn": mixer(k1, cfg), "mlp": mlp_mod.mlp_init(k2, cfg)}
+    raise ValueError(f"unknown block kind {kind!r}")
 
 
-def _mixer_apply(kind: str, prm, x, cfg: ModelConfig, positions, shared):
+def _mixer_apply(kind: str, prm, x, cfg: ModelConfig, positions, shared,
+                 enc):
     if kind in ("attn", "attn_moe"):
         return attn.gqa_apply(prm["attn"], x, cfg, positions)
     if kind in ("mla", "mla_moe"):
         return attn.mla_apply(prm["attn"], x, cfg, positions)
+    if kind == "cross_attn":
+        return attn.cross_attn_apply(prm["attn"], x, enc, cfg)
     if kind == "mamba1":
         return ssm_mod.mamba1_apply(prm["mamba"], x, cfg, positions)
     if kind == "mamba2":
         return ssm_mod.mamba2_apply(prm["mamba"], x, cfg, positions)
     if kind == "shared_attn":
         return _shared_attn_apply(prm, shared["attn"], x, cfg, positions)
-    _not_ported(kind)
+    raise ValueError(kind)
+
+
+def _ffn_apply(kind: str, prm, x, cfg: ModelConfig, shared,
+               moe_groups: int):
+    """The FFN after a block's mixer, added to the residual: MoE for the
+    "_moe" kinds, the block's dense FFN for "attn", "mla" and "cross_attn",
+    the shared FFN for "shared_attn" (when the config has one). mamba1 and
+    mamba2 blocks are mixer-only (falcon-mamba has d_ff=0); zamba2's shared
+    block carries the model's single (shared) FFN."""
+    if kind.endswith("_moe"):
+        return x + mlp_mod.moe_apply(prm["moe"], x, cfg, groups=moe_groups)
+    if kind in ("attn", "mla", "cross_attn"):
+        return x + mlp_mod.mlp_apply(prm["mlp"], x, cfg)
+    if kind == "shared_attn" and shared.get("mlp") is not None:
+        return x + mlp_mod.mlp_apply(shared["mlp"], x, cfg)
+    return x
 
 
 def _block_apply(kind: str, prm, x, cfg: ModelConfig, positions, shared,
-                 moe_groups: int):
-    x = x + _mixer_apply(kind, prm, x, cfg, positions, shared)
-    if kind.endswith("_moe"):
-        x = x + mlp_mod.moe_apply(prm["moe"], x, cfg, groups=moe_groups)
-    elif kind in ("attn", "mla"):
-        x = x + mlp_mod.mlp_apply(prm["mlp"], x, cfg)
-    elif kind == "shared_attn" and shared.get("mlp") is not None:
-        x = x + mlp_mod.mlp_apply(shared["mlp"], x, cfg)
-    # mamba1/mamba2 blocks are mixer-only (falcon-mamba has d_ff=0);
-    # zamba2's shared block carries the model's single (shared) FFN.
-    return x
+                 enc, moe_groups: int):
+    x = x + _mixer_apply(kind, prm, x, cfg, positions, shared, enc)
+    return _ffn_apply(kind, prm, x, cfg, shared, moe_groups)
 
 
 def _shared_attn_apply(lora, shared, x, cfg: ModelConfig, positions):
@@ -135,6 +142,95 @@ def _shared_attn_apply(lora, shared, x, cfg: ModelConfig, positions):
     o_delta = torch.einsum("bshk,hkr->bsr", q_delta, lora["lora_o_a"])
     o_delta = torch.einsum("bsr,rd->bsd", o_delta, lora["lora_o_b"])
     return base + o_delta
+
+
+# ---------------------------------------------------------------------------
+# Cache dispatch
+# ---------------------------------------------------------------------------
+
+
+def _block_init_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
+                      dtype, device) -> PyTree:
+    if kind in ("attn", "attn_moe", "shared_attn"):
+        return attn.gqa_init_cache(cfg, batch, max_seq, dtype, device)
+    if kind in ("mla", "mla_moe"):
+        return attn.mla_init_cache(cfg, batch, max_seq, dtype, device)
+    if kind == "cross_attn":
+        device = resolve_device(device)
+        K, hd = cfg.num_kv_heads, cfg.hd
+        n = cfg.num_encoder_tokens
+        return {"ek": torch.zeros((batch, n, K, hd), dtype=dtype,
+                                  device=device),
+                "ev": torch.zeros((batch, n, K, hd), dtype=dtype,
+                                  device=device)}
+    if kind == "mamba1":
+        return ssm_mod.mamba1_init_cache(cfg, batch, dtype, device)
+    if kind == "mamba2":
+        return ssm_mod.mamba2_init_cache(cfg, batch, dtype, device)
+    raise ValueError(kind)
+
+
+def _block_decode(kind: str, prm, x, cache, cfg: ModelConfig, pos, shared,
+                  moe_groups: int) -> torch.Tensor:
+    """One block's decode of x (B,1,D): its mixer over its cache (written in
+    place), then its FFN. Returns the residual stream."""
+    if kind in ("attn", "attn_moe"):
+        out, cache = attn.gqa_decode(prm["attn"], x, cache, cfg, pos)
+    elif kind in ("mla", "mla_moe"):
+        out, cache = attn.mla_decode(prm["attn"], x, cache, cfg, pos)
+    elif kind == "cross_attn":
+        out, cache = _cross_decode(prm["attn"], x, cache, cfg)
+    elif kind == "mamba1":
+        out, cache = ssm_mod.mamba1_decode(prm["mamba"], x, cache, cfg, pos)
+    elif kind == "mamba2":
+        out, cache = ssm_mod.mamba2_decode(prm["mamba"], x, cache, cfg, pos)
+    elif kind == "shared_attn":
+        out, cache = _shared_attn_decode(prm, shared["attn"], x, cache, cfg,
+                                         pos)
+    else:
+        raise ValueError(kind)
+    x = x + out.to(x.dtype)  # a float32 cache must not promote the carry
+    return _ffn_apply(kind, prm, x, cfg, shared, moe_groups)
+
+
+def _cross_decode(prm, x, cache, cfg: ModelConfig):
+    """Decode-time cross-attention against the encoder K and V held in the
+    cache (filled before decode). The scores are divided by sqrt(hd)
+    rounded to their own dtype (the reference divides them by `jnp.sqrt`
+    of an int, which is weakly typed, before their cast to float32), the
+    quotient in float32 and not rounded back, as XLA computes the
+    reference's jitted step; `cross_attn_apply` scales by the float32
+    root after the cast."""
+    h = rms_norm(x, prm["norm"])
+    q = torch.einsum("bsd,dhk->bshk", h, prm["wq"])
+    B, S, H, hd = q.shape
+    K = cache["ek"].shape[2]
+    G = H // K
+    qg = q.reshape(B, S, K, G, hd)
+    scores = promoted_einsum("bskgh,bnkh->bkgsn", qg, cache["ek"])
+    sqrt_hd = torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
+                                      device=x.device)).to(scores.dtype)
+    scores = scores.float() / sqrt_hd.float()
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = promoted_einsum("bkgsn,bnkh->bskgh", w, cache["ev"]).reshape(
+        B, S, H, hd)
+    out = promoted_einsum("bshk,hkd->bsd", out, prm["wo"])
+    return torch.tanh(prm["gate"].float()).to(x.dtype) * out, cache
+
+
+def _shared_attn_decode(lora, shared, x, cache, cfg: ModelConfig, pos):
+    base, cache = attn.gqa_decode(shared, x, cache, cfg, pos)
+    h = rms_norm(x, shared["norm"])
+    q_delta = torch.einsum("bsd,dr->bsr", h, lora["lora_q_a"])
+    q_delta = torch.einsum("bsr,rhk->bshk", q_delta, lora["lora_q_b"])
+    o_delta = torch.einsum("bshk,hkr->bsr", q_delta, lora["lora_o_a"])
+    o_delta = torch.einsum("bsr,rd->bsd", o_delta, lora["lora_o_b"])
+    return base + o_delta, cache
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
 
 
 def _map_leaves(fn, tree):
@@ -168,7 +264,6 @@ def init(key: prng.Key, cfg: ModelConfig) -> tuple[PyTree, PyTree]:
     LM head from key 1, the prologue from key 2's split, the shared
     attention from key 3 and its FFN from key 6, and stacked slot i's
     repetition j from `fold_in(key 4, i * 1000 + j)`."""
-    check_config(cfg)
     dev = key[0].device
     keys = prng.split(key, 8)
     pairs: dict[str, Any] = {
@@ -235,9 +330,11 @@ def _layer(tree: PyTree, j: int) -> PyTree:
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-            moe_groups: int = 1) -> torch.Tensor:
-    """Training/prefill forward -> logits (B,S,V) in `cfg.dtype`."""
-    check_config(cfg)
+            enc: torch.Tensor | None = None, moe_groups: int = 1
+            ) -> torch.Tensor:
+    """Training/prefill forward -> logits (B,S,V) in `cfg.dtype`. `enc`:
+    (B,N,E) stubbed encoder states for the VLM's cross-attention
+    (precomputed patch embeddings)."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -246,7 +343,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
               "mlp": params.get("shared_mlp")}
 
     def block(x, kind, prm):
-        return _block_apply(kind, prm, x, cfg, positions, shared, moe_groups)
+        return _block_apply(kind, prm, x, cfg, positions, shared, enc,
+                            moe_groups)
 
     for i, kind in enumerate(cfg.prologue):
         if remat:
@@ -270,7 +368,86 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     return _unembed(params, x, cfg)
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               dtype=torch.bfloat16, device=None) -> PyTree:
+    """The decode cache tree, zeros on `device` (None: the CUDA card): the
+    prologue's blocks' caches as a list, and each stacked slot's with a
+    leading axis of `cfg.n_super` repetitions (one allocation, written in
+    place by `decode_step`). Recurrent states are float32 whatever
+    `dtype`."""
+    device = resolve_device(device)
+    cache: dict[str, Any] = {}
+    if cfg.prologue:
+        cache["prologue"] = [
+            _block_init_cache(kind, cfg, batch, max_seq, dtype, device)
+            for kind in cfg.prologue]
+
+    def one_slot(kind):
+        # the n_super repetitions' caches as the cache of n_super * batch
+        # rows (each leaf's leading axis is the batch), viewed as
+        # (n_super, batch, ...)
+        c = _block_init_cache(kind, cfg, cfg.n_super * batch, max_seq,
+                              dtype, device)
+        return {k: v.view((cfg.n_super, batch) + tuple(v.shape[1:]))
+                for k, v in c.items()}
+
+    cache["stack"] = {f"slot{i}": one_slot(kind)
+                      for i, kind in enumerate(cfg.superblock)}
+    return cache
+
+
+def cache_axes(cfg: ModelConfig) -> PyTree:
+    """Logical axes of the cache tree (the reference's sharding names)."""
+    def axes_for(kind, stacked: bool):
+        lead = ("layers",) if stacked else ()
+        if kind in ("attn", "attn_moe", "shared_attn"):
+            a = ("batch", "cache_seq", "kv_heads", "head")
+            return {"k": lead + a, "v": lead + a}
+        if kind in ("mla", "mla_moe"):
+            return {"ckv": lead + ("batch", "cache_seq", "kv_lora"),
+                    "krope": lead + ("batch", "cache_seq", "head")}
+        if kind == "cross_attn":
+            a = ("batch", "enc_tokens", "kv_heads", "head")
+            return {"ek": lead + a, "ev": lead + a}
+        if kind == "mamba1":
+            return {"conv": lead + ("batch", "conv", "ssm_inner"),
+                    "h": lead + ("batch", "ssm_inner", "state")}
+        if kind == "mamba2":
+            return {"conv": lead + ("batch", "conv", "ssm_inner"),
+                    "h": lead + ("batch", "ssm_heads", "head", "state")}
+        raise ValueError(kind)
+
+    axes: dict[str, Any] = {}
+    if cfg.prologue:
+        axes["prologue"] = [axes_for(k, False) for k in cfg.prologue]
+    axes["stack"] = {f"slot{i}": axes_for(kind, True)
+                     for i, kind in enumerate(cfg.superblock)}
+    return axes
+
+
+def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig,
+                moe_groups: int = 1) -> tuple[torch.Tensor, PyTree]:
+    """One-token decode. tokens: (B,1) integers; pos: the current write
+    position, an int or a 0-d integer tensor, shared by the batch. Writes
+    every block's new state into `cache` in place and returns (logits
+    (B,1,V), cache): the same tensors."""
+    x = _embed(params, tokens, cfg)
+    shared = {"attn": params.get("shared_attn"),
+              "mlp": params.get("shared_mlp")}
+    for i, kind in enumerate(cfg.prologue):
+        x = _block_decode(kind, params["prologue"][i], x,
+                          cache["prologue"][i], cfg, pos, shared, moe_groups)
+    for j in range(cfg.n_super):
+        slots, caches = _layer(params["stack"], j), _layer(cache["stack"], j)
+        for i, kind in enumerate(cfg.superblock):
+            x = _block_decode(kind, slots[f"slot{i}"], x,
+                              caches[f"slot{i}"], cfg, pos, shared,
+                              moe_groups)
+    return _unembed(params, x, cfg), cache
+
+
 def loss_fn(params, batch, cfg: ModelConfig, moe_groups: int = 1
             ) -> torch.Tensor:
-    logits = forward(params, batch["tokens"], cfg, moe_groups=moe_groups)
+    logits = forward(params, batch["tokens"], cfg, enc=batch.get("enc"),
+                     moe_groups=moe_groups)
     return cross_entropy_loss(logits, batch["labels"])

@@ -3,8 +3,9 @@ jax's random bits (`split`, `uniform` with bounds, `truncated_normal`), the
 model init from a seed, the registry's configs, one forward, loss and
 gradient in float32 and in bf16 (the dense family; the MoE and MLA
 families are `tests/test_torch_moe.py` and `tests/test_torch_mla.py`),
-and the refusal of block kinds that are not ported yet (the state-space
-families are `tests/test_torch_ssm.py`).
+and an unknown block kind's error (the state-space families are
+`tests/test_torch_ssm.py`, cross-attention
+`tests/test_torch_cross_attn.py`).
 
 Standards (PERF.md and ROADMAP queue 3 give the observed errors):
   * `split` and bounded `uniform`: bits equal.
@@ -250,9 +251,17 @@ def test_streamed_attention_matches_reference(dtype):
 
 
 @pytest.mark.parametrize("arch,kind", [
-    ("llama-3.2-vision-90b", "cross_attn"),
+    ("llama3-8b", "cross_attention"),
 ])
-def test_unported_block_kind_raises_naming_it(arch, kind):
-    cfg = port_registry.get_config(arch, "smoke")
-    with pytest.raises(NotImplementedError, match=f"'{kind}'.*later slice"):
+def test_unknown_block_kind_raises_naming_it(arch, kind):
+    """Every block kind of the reference is ported; one it does not know
+    raises its ValueError, naming the kind, on both sides."""
+    cfg_r = dataclasses.replace(ref_registry.get_config(arch, "smoke"),
+                                superblock=("attn", kind))
+    cfg = dataclasses.replace(port_registry.get_config(arch, "smoke"),
+                              superblock=("attn", kind))
+    message = f"unknown block kind {kind!r}"
+    with pytest.raises(ValueError, match=message):
+        ref_tf.init(jax.random.PRNGKey(0), cfg_r)
+    with pytest.raises(ValueError, match=message):
         port_tf.init(prng.key(0), cfg)

@@ -2,8 +2,9 @@
 dense backend of every dense manifest, compressed and uncompressed, under
 the port's parity check (`convert.assert_results_match`: host fields exact,
 trace floats and residual norms rtol 1e-5, atol 1e-6), plus the CLI, the
-refusal of what is not ported yet (the launch backend's cross-attention
-family) and the paths that were refused before (netsim
+launch backend's VLM family, which fails as the reference's does (its
+batches carry no encoder states), with the dry-run's meta-device trace
+that finds it, and the paths that were refused before (netsim
 manifests, the dense closed loop)."""
 
 import copy
@@ -168,21 +169,49 @@ def test_parity_check_compares_the_compression_block():
         assert_results_match(other, base)
 
 
-@pytest.mark.parametrize("name,backend", [
-    ("launch_dryrun", "launch"),
-])
-def test_unported_paths_raise(name, backend):
-    """The launch backend runs the attention, MoE, MLA and state-space
-    families; the manifest's spec for a family with a kind still unported
-    (llama-3.2-vision's cross-attention blocks) raises, naming the block
-    kind."""
+@pytest.mark.parametrize("dryrun", [True, False])
+def test_vision_spec_fails_as_the_reference_fails(dryrun):
+    """llama-3.2-vision through the launch backend (the dry-run manifest's
+    spec, and a T = 2 run without the dry-run): its token batches carry no
+    encoder states, so `loss_fn`'s `batch.get("enc")` is None and the
+    reference's trace of its step programs fails at the first
+    cross-attention block. The port fails with the same exception type and
+    message: the dry-run at its meta-device trace of one pod's loss, the
+    run at its first step."""
     d = repro_torch.ExperimentSpec.from_file(
-        MANIFESTS / f"{name}.json").to_dict()
+        MANIFESTS / "launch_dryrun.json").to_dict()
     d["problem"]["params"]["arch"] = "llama-3.2-vision-90b"
-    spec = repro_torch.ExperimentSpec.from_dict(d)
-    with pytest.raises(NotImplementedError,
-                       match="'cross_attn' is not ported yet"):
-        repro_torch.run(spec, backend, device="cpu")
+    if not dryrun:
+        d["backends"][0]["params"] = {}
+        d["T"] = 2
+    errors = []
+    for pkg, kw in ((repro, {}), (repro_torch, {"device": "cpu"})):
+        with pytest.raises(Exception) as info:
+            pkg.run(pkg.ExperimentSpec.from_dict(d), "launch", **kw)
+        errors.append((type(info.value), str(info.value)))
+    assert errors[0] == errors[1] == (
+        AttributeError, "'NoneType' object has no attribute 'shape'")
+
+
+def test_dryrun_traces_one_pods_loss_on_meta(monkeypatch):
+    """The dry-run (llama3's smoke manifest) runs `transformer.loss_fn` once,
+    on meta tensors of one pod's shapes, and no step."""
+    from repro_torch.launch import train as train_mod
+
+    seen = []
+    real = train_mod.transformer.loss_fn
+
+    def spy(params, batch, cfg, moe_groups=1):
+        import torch.utils._pytree as pytree
+        seen.append({(t.device.type, t.requires_grad)
+                     for t in pytree.tree_leaves((params, batch))})
+        return real(params, batch, cfg, moe_groups)
+    monkeypatch.setattr(train_mod.transformer, "loss_fn", spy)
+    spec = repro_torch.ExperimentSpec.from_file(
+        MANIFESTS / "launch_dryrun.json")
+    result = repro_torch.run(spec, device="cpu")
+    assert seen == [{("meta", False)}]
+    assert result.extras["dryrun"] and result.trace.iters == []
 
 
 @pytest.mark.parametrize("name,backend", [

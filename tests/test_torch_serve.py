@@ -320,9 +320,14 @@ def test_submit_surfaces_run_errors():
         assert srv.stats()["server"]["errors"] == 1
 
 
+#: what the VLM family's launch runs raise in both packages: its token
+#: batches carry no encoder states (tests/test_torch_runner.py)
+VISION_ERROR = "'NoneType' object has no attribute 'shape'"
+
+
 def _unported_lm_spec():
-    """A launch spec of a family the port does not build yet
-    (cross-attention)."""
+    """A launch spec of the VLM family (cross-attention), which fails in
+    both packages: its batches carry no encoder states."""
     return _spec(name="lm", problem={"kind": "lm", "params": {
         "arch": "llama-3.2-vision-90b", "batch_per_node": 2}},
         topology={"kind": "complete", "params": {}},
@@ -334,12 +339,12 @@ def _unported_lm_spec():
 
 
 def test_unported_backend_surfaces_to_its_requester():
-    """A served LM spec of a family the launch backend does not build yet
-    gets the NotImplementedError naming its block kind, and the server
+    """A served LM spec of the VLM family gets the reference's
+    AttributeError (a run of it fails in both packages), and the server
     goes on serving."""
     spec = _unported_lm_spec()
     with ExperimentServer(workers=1, max_wait_s=0.01, device=CPU) as srv:
-        with pytest.raises(NotImplementedError, match="'cross_attn'"):
+        with pytest.raises(AttributeError, match=VISION_ERROR):
             srv.submit(spec).result(timeout=60)
         ok = srv.submit(_spec(name="after")).result(timeout=60)
         _assert_identical(ok, _solo(_spec(name="after")), "after a failure")

@@ -426,9 +426,9 @@ def test_pooled_server_inflight_survives_drain():
 @pytest.mark.chaos
 @pytest.mark.serve
 def test_pooled_unported_backend_fails_the_request_not_the_worker():
-    """A served LM spec of a family the launch backend does not build yet
-    (cross-attention) fails with the NotImplementedError in its worker,
-    which goes on serving."""
+    """A served LM spec of the VLM family (cross-attention), which fails in
+    both packages (its batches carry no encoder states), fails with the
+    reference's AttributeError in its worker, which goes on serving."""
     lm = _spec(name="lm", problem={"kind": "lm", "params": {
         "arch": "llama-3.2-vision-90b", "batch_per_node": 2}},
         topology={"kind": "complete", "params": {}},
@@ -440,7 +440,9 @@ def test_pooled_unported_backend_fails_the_request_not_the_worker():
     spec = _spec(name="after_lm")
     srv = ExperimentServer(processes=1, packing=False, device=CPU)
     try:
-        with pytest.raises(NotImplementedError, match="'cross_attn'"):
+        with pytest.raises(AttributeError,
+                           match="'NoneType' object has no attribute "
+                                 "'shape'"):
             srv.submit(lm).result(timeout=120)
         res = srv.submit(spec, backend="dense").result(timeout=120)
         assert comparable_result_dict(res) == comparable_result_dict(
