@@ -168,7 +168,22 @@ non-zero and the last line is not printed. The phases:
             the smoke width at mesh (4, 1, 1), expander k=2, on the card
             and the CPU (host fields exact, losses within LM_TRACE_RTOL,
             the loss decreasing, K1 12 times a round) and the dry-run
-            manifest, card against CPU
+            manifest, card against CPU; keeps the full-width run's losses
+            and each pod's final parameters' sha256
+  lm_ranks  the same full-width llama3-8b spec with its pods on two
+            spawned ranks, one pod a rank, through repro_torch.run under a
+            default process group of two: on two cards, one rank a card
+            over NCCL; on one card both ranks on cuda:0 over a gloo group
+            the phase creates (NCCL refuses two ranks on one device; gloo
+            takes CUDA tensors in an all-reduce), the backend and the
+            reason printed. The fused step's mix is an all-reduce in
+            float32 (launch/steps.py `_rank_mix`), so each rank's losses
+            and its pod's final parameters' sha256 must equal the stacked
+            run's (lm) bit for bit, and the host fields their closed form;
+            prints each rank's walls per local and fused step, the fused
+            step's collective seconds and float32 bytes, its peak memory,
+            and the card's name and power limit; no kernel of the port
+            launches on a rank (the mix is the collective, not K1)
   lm_k1_expert_leaf
             K1 at deepseek-v2's routed-expert leaf of two full-width pods
             (bf16, n=2, k=1, M = 160 x 5120 x 1536 = 1,258,291,200) on
@@ -2364,6 +2379,11 @@ def phase_lm() -> dict:
     def watched_steps(*a, **kw):
         local, mix, fused = real_steps(*a, **kw)
 
+        def kept_local(params, opt_state, batch):
+            out = local(params, opt_state, batch)
+            seen["params"] = out[0]
+            return out
+
         def checked_fused(params, opt_state, batch):
             seen["mixes"] += 1
             if seen["mixes"] == 2:  # the second comm step, profiled
@@ -2379,8 +2399,9 @@ def phase_lm() -> dict:
                 if not torch.equal(leaf[0], leaf[1]):
                     raise AssertionError("the two pods differ after the "
                                          "mix (complete graph, n = 2)")
+            seen["params"] = out[0]
             return out
-        return local, mix, checked_fused
+        return kept_local, mix, checked_fused
 
     spec = _lm_spec("lm_full", "full", (2, 1, 1),
                     {"kind": "complete", "params": {}}, T=6,
@@ -2400,6 +2421,8 @@ def phase_lm() -> dict:
         train_mod.make_consensus_steps = real_steps
         optim_mod.adamw = real_adamw
     peak = torch.cuda.max_memory_allocated()
+    pod_digests = [_pod_digest(seen["params"], i) for i in range(2)]
+    seen["params"] = None
     torch.cuda.empty_cache()
     rounds = result.extras["comm_rounds"]
     if counts["gossip_mix"] != LM_LEAVES * rounds or rounds != 2 or \
@@ -2433,7 +2456,8 @@ def phase_lm() -> dict:
          local_step_s=[w for w, c in zip(walls[1:], comm[1:]) if not c],
          fused_step_s_unprofiled=walls[2],
          fused_step_profiled_split_ms=seen["profile"],
-         adamw_step_ms=adamw_ms, isolated_ms=isolated)
+         adamw_step_ms=adamw_ms, isolated_ms=isolated,
+         pod_param_sha256=pod_digests)
 
     # card against CPU at the smoke width: mesh (4, 1, 1), expander k = 2
     small = _lm_spec("lm_smoke", "smoke", (4, 1, 1),
@@ -2472,7 +2496,198 @@ def phase_lm() -> dict:
          dryrun_extras=dry_card["extras"])
     if not all(math.isfinite(v) for v in card.trace.fvals):
         raise AssertionError("smoke LM losses not finite")
-    return {"launches": counts["gossip_mix"], "call": k1_call}
+    return {"launches": counts["gossip_mix"], "call": k1_call,
+            "losses": list(result.trace.fvals), "digests": pod_digests,
+            "step_comm": comm}
+
+
+def _pod_digest(params, pod: int) -> str:
+    """sha256 of pod `pod`'s slice of every leaf of a pod-stacked tree, in
+    leaf order, as raw bytes."""
+    import torch
+
+    h = hashlib.sha256()
+    for leaf in torch.utils._pytree.tree_leaves(params):
+        h.update(leaf[pod].detach().reshape(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+#: the ranks of the lm_ranks phase, one pod each, and the seconds the
+#: phase waits for them
+LM_RANKS = 2
+LM_RANKS_TIMEOUT_S = 420
+
+
+def _lm_rank_main(rank: int, backend: str, store_path: str, results) -> None:
+    """A spawned rank of lm_ranks: its card, the process group, then
+    `_lm_rank_run`; the result (or the traceback) goes to the parent."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
+        dist.init_process_group(
+            backend, store=dist.FileStore(store_path, LM_RANKS), rank=rank,
+            world_size=LM_RANKS, timeout=datetime.timedelta(seconds=300))
+        try:
+            results.put((rank, None, _lm_rank_run(rank)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 -- sent to the parent, which fails
+        results.put((rank, traceback.format_exc(), None))
+
+
+def _lm_rank_run(rank: int) -> dict:
+    """phase_lm's full-width spec through repro_torch.run with this rank's
+    pod: losses, the pod's final parameters' sha256, step walls, the
+    fused step's collective seconds and bytes, peak memory."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    import repro_torch
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import registry
+
+    full = dataclasses.replace(registry.get_config("llama3-8b", "full"),
+                               n_super=LM_N_SUPER)
+    real_get_config = registry.get_config
+    real_steps = train_mod.make_consensus_steps
+    real_mix = steps_mod._rank_mix
+    seen = {"params": None, "mix_s": [], "mix_bytes": []}
+
+    def cut_config(arch, variant="full"):
+        if (arch, variant) == ("llama3-8b", "full"):
+            return full
+        return real_get_config(arch, variant)
+
+    def timed_mix(tree, graph, mesh, float32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_mix(tree, graph, mesh, float32)
+        torch.cuda.synchronize()
+        seen["mix_s"].append(time.perf_counter() - t0)
+        seen["mix_bytes"].append(sum(
+            leaf[0].numel() * (4 if float32 else leaf.element_size())
+            for leaf in pytree.tree_leaves(tree)))
+        return out
+
+    def watched_steps(*a, **kw):
+        local, mix, fused = real_steps(*a, **kw)
+
+        def keep(step):
+            def run(*args):
+                out = step(*args)
+                seen["params"] = out[0]
+                return out
+            return run
+        return keep(local), mix, keep(fused)
+
+    spec = _lm_spec("lm_full", "full", (LM_RANKS, 1, 1),
+                    {"kind": "complete", "params": {}}, T=6,
+                    batch_per_node=1, seq_len=4096)
+    registry.get_config = cut_config
+    train_mod.make_consensus_steps = watched_steps
+    steps_mod._rank_mix = timed_mix
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts()
+        result = repro_torch.run(spec)
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+    finally:
+        registry.get_config = real_get_config
+        train_mod.make_consensus_steps = real_steps
+        steps_mod._rank_mix = real_mix
+    _lm_host_fields(result, n=LM_RANKS, k=1, r=0.05)
+    if any(counts.values()):
+        raise AssertionError(f"rank {rank} launched {counts}: a pod a rank "
+                             f"mixes by collectives, not K1")
+    walls, comm = result.extras["step_walls"], result.extras["step_comm"]
+    return {"device": str(torch.cuda.current_device()),
+            "losses": list(result.trace.fvals),
+            "pod_param_sha256": _pod_digest(seen["params"], 0),
+            "param_bytes": result.extras["param_bytes"],
+            "step_comm": comm, "step_walls_s": walls,
+            "local_step_s": [w for w, c in zip(walls, comm) if not c],
+            "fused_step_s": [w for w, c in zip(walls, comm) if c],
+            "collective_s": seen["mix_s"],
+            "collective_f32_bytes": seen["mix_bytes"],
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_lm_ranks(stacked: dict) -> None:
+    """The lm phase's full-width spec with one pod a rank, held to the
+    stacked run (`stacked`: phase_lm's losses and pod digests) bit for
+    bit."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+    import tempfile
+
+    import torch
+
+    cards = torch.cuda.device_count()
+    if cards >= LM_RANKS:
+        backend = "nccl"
+        reason = f"{cards} cards: one rank a card over NCCL"
+    else:
+        backend = "gloo"
+        reason = (f"{cards} card: NCCL refuses two ranks on one device, so "
+                  f"both ranks share cuda:0 over a gloo group (gloo takes "
+                  f"CUDA tensors in all-reduce and broadcast)")
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="lm_ranks_")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_lm_rank_main, daemon=True,
+                         args=(r, backend, f"{tmp}/store", results))
+             for r in range(LM_RANKS)]
+    t0 = time.perf_counter()
+    ranks: dict[int, dict] = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(ranks) < LM_RANKS:
+            try:
+                rank, err, value = results.get(timeout=LM_RANKS_TIMEOUT_S)
+            except queue.Empty:
+                raise AssertionError(f"lm_ranks: no result from ranks "
+                                     f"{sorted(set(range(LM_RANKS)) - set(ranks))} "
+                                     f"in {LM_RANKS_TIMEOUT_S} s") from None
+            if err is not None:
+                raise AssertionError(f"lm_ranks: rank {rank} failed:\n{err}")
+            ranks[rank] = value
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for r, out in sorted(ranks.items()):
+        if out["losses"] != stacked["losses"]:
+            raise AssertionError(f"lm_ranks: rank {r}'s losses "
+                                 f"{out['losses']} are not the stacked "
+                                 f"run's {stacked['losses']}")
+        if out["pod_param_sha256"] != stacked["digests"][r]:
+            raise AssertionError(f"lm_ranks: rank {r}'s final parameters "
+                                 f"differ from the stacked run's pod {r}")
+        if out["step_comm"] != stacked["step_comm"]:
+            raise AssertionError(f"lm_ranks: rank {r}'s comm steps "
+                                 f"{out['step_comm']}")
+    emit("lm_ranks", backend=backend, reason=reason, ranks=LM_RANKS,
+         n_super=LM_N_SUPER, seq_len=4096, phase_wall_s=wall,
+         losses_equal_stacked=True, params_equal_stacked=True,
+         per_rank={r: {k: v for k, v in out.items() if k != "losses"}
+                   for r, out in sorted(ranks.items())},
+         nvidia_smi=nvidia_smi_line())
 
 
 #: deepseek-v2's full-width cell: the dense MLA prologue layer and one of
@@ -2618,6 +2833,11 @@ def phase_lm_moe_full() -> dict:
 
     def watched_steps(*a, **kw):
         local, mix, fused = real_steps(*a, **kw)
+
+        def kept_local(params, opt_state, batch):
+            out = local(params, opt_state, batch)
+            seen["params"] = out[0]
+            return out
 
         def checked_fused(params, opt_state, batch):
             seen["mixes"] += 1
@@ -2860,6 +3080,11 @@ def _lm_ssm_cell(phase: str, arch: str, n_super: int, leaves: int,
 
     def watched_steps(*a, **kw):
         local, mix, fused = real_steps(*a, **kw)
+
+        def kept_local(params, opt_state, batch):
+            out = local(params, opt_state, batch)
+            seen["params"] = out[0]
+            return out
 
         def checked_fused(params, opt_state, batch):
             seen["mixes"] += 1
@@ -3997,6 +4222,7 @@ def main() -> int:
     lm = phase_lm()
     k1["lm_launches"] = lm["launches"]
     k1["lm_call"] = lm["call"]
+    phase_lm_ranks(lm)
     k1["lm_expert_leaf_call"] = phase_lm_k1_expert_leaf()
     lm_moe = phase_lm_moe_full()
     k1["lm_moe_launches"] = lm_moe["launches"]

@@ -44,6 +44,16 @@ def resolve_device(device=None):
     return dev
 
 
+def resolve_device_or_meta(device=None):
+    """`resolve_device`, with the meta device let through: the dry-run
+    builds trees of shapes and dtypes on it (`launch/specs.py`)."""
+    import torch
+
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 def __getattr__(name):
     if name in _EXPERIMENT_API:
         from repro_torch import experiments

@@ -55,7 +55,12 @@ def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
                  x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 hash (20 rounds) of the counter pairs (x1, x2)
     under the key (k1, k2); all uint32 values held in int64 tensors that
-    broadcast together."""
+    broadcast together. On the meta device only the shape is made."""
+    if k1.device.type == "meta":
+        shape = torch.broadcast_shapes(k1.shape, k2.shape, x1.shape,
+                                       x2.shape)
+        return (torch.empty(shape, dtype=torch.int64, device="meta"),
+                torch.empty(shape, dtype=torch.int64, device="meta"))
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x0 = (x1 + ks[0]) & _MASK32
     y0 = (x2 + ks[1]) & _MASK32
@@ -196,8 +201,12 @@ def truncated_normal(k: Key, lower: float, upper: float,
     `scale` multiplies the float32 draw and `out_dtype` is the cast after
     it, as `models.common.p` does with the result; the draw is made in
     chunks of elements, each the whole draw's, so a leaf of hundreds of
-    millions of elements never holds its int64 words at once."""
+    millions of elements never holds its int64 words at once. On the
+    meta device it returns the draw's shape and dtype alone (the
+    counterpart of `jax.eval_shape` over an init)."""
     dev = k[0].device
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=out_dtype, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     sqrt2 = torch.tensor(math.sqrt(2.0), **f32)
     lo = torch.tensor(lower, **f32)

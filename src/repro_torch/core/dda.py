@@ -46,8 +46,8 @@ the process (the experiment server's) may run and capture side by side.
 
 `DDAState`, `dda_init` and `dda_local_step` are the reference's per-node
 pytree step (a cheap iteration, z <- z + g, on nested dicts and lists of
-tensors). Its expensive twin `dda_mix_step` mixes over a shard_map axis
-across chips and comes with the multi-card slice.
+tensors). Its expensive twin `dda_mix_step` mixes z over a process
+group, one node a rank (`core.consensus.tree_mix_collective`).
 """
 
 from __future__ import annotations
@@ -79,6 +79,7 @@ __all__ = [
     "TRACE_FIELDS",
     "dda_init",
     "dda_local_step",
+    "dda_mix_step",
     "json_sanitize",
     "stepsize_sqrt",
     "trace_time_to_reach",
@@ -238,6 +239,16 @@ def dda_local_step(state: DDAState, grad, a_fn,
     """Cheap iteration: z <- z + g (no communication), then the prox and
     the running average. New tensors; the state given is left as it is."""
     z_new = _pytree.tree_map(torch.add, state.z, grad)
+    return _advance(state, z_new, a_fn, projection)
+
+
+def dda_mix_step(state: DDAState, grad, graph: CommGraph, axis_name, a_fn,
+                 projection: Callable | None = None) -> DDAState:
+    """Expensive iteration: z <- P z + g (consensus + subgradient), this
+    rank's node mixed over `axis_name` (`core.consensus.bind_axis`, or a
+    process group), one DDA node a rank."""
+    mixed = _cons.tree_mix_collective(state.z, graph, axis_name)
+    z_new = _pytree.tree_map(torch.add, mixed, grad)
     return _advance(state, z_new, a_fn, projection)
 
 

@@ -632,6 +632,8 @@ def _run_netsim(spec: ExperimentSpec, backend: ComponentSpec,
 @backends.register("launch")
 def _run_launch(spec: ExperimentSpec, backend: ComponentSpec,
                 tracer: Tracer | None = None, *, device=None) -> RunResult:
+    import torch.distributed as dist
+
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.train import train_consensus_lm
     from repro_torch.models import registry as _models
@@ -672,9 +674,18 @@ def _run_launch(spec: ExperimentSpec, backend: ComponentSpec,
                  "the launch optimizer's LR schedule is the backend's 'lr' "
                  "param; leave spec.stepsize at its default")
         n_pods = mesh_shape[0]
-        # the pods stack on one card: the mesh refuses data/model axes
+        # under a default process group the pods are one a rank, else they
+        # stack on one card; the mesh refuses data/model axes either way
+        group = None
+        if dist.is_available() and dist.is_initialized():
+            world = dist.get_world_size()
+            _require(world == n_pods,
+                     f"the default process group has {world} ranks but the "
+                     f"mesh's pod axis {n_pods}: the launch backend runs "
+                     f"one pod a rank")
+            group = dist.group.WORLD
         mesh = make_mesh(mesh_shape, ("pod", "data", "model"),
-                         device=device)
+                         device=device, group=group)
         graph = _build_topology(spec, n_pods)
         _require(isinstance(graph, CommGraph),
                  "launch backend needs a fixed CommGraph topology")

@@ -1,21 +1,51 @@
-"""Pod-stacked state, the port of `repro.launch.specs`' `pod_stack` and the
-launcher's per-pod parameter byte count.
+"""Pod-stacked state and abstract input specs, the port of
+`repro.launch.specs`.
 
 For consensus (multi-pod) training, model and optimizer state carry a
 leading `pod` replica dimension: each pod is one DDA node with its own
 parameters, and the batch is split across pods (disjoint data shards,
-paper section II). The reference builds abstract specs and shardings for
-its dry-run; those wait for the port's dry-run slice.
+paper section II). `pod_stack` stacks concrete pods on one device.
+
+The rest builds every (architecture x input-shape) cell's step arguments
+as meta tensors (shapes and dtypes, no memory: the counterpart of the
+reference's `ShapeDtypeStruct`s from `jax.eval_shape`), from the port's
+own `transformer.init`, `init_cache`, `cache_axes` and `optimizer.init`,
+each beside its spec (`runtime.sharding`: a tuple, one entry per
+dimension). The dry-run (`launch/dryrun.py`) reckons per-device bytes
+from them. The reference's `to_shardings` has no counterpart until the
+data and model axes execute.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Iterable
 
 import torch
 import torch.utils._pytree as _pytree
 
+from repro_torch.compress import prng
+from repro_torch.configs.shapes import ShapeCell
+from repro_torch.models import transformer
+from repro_torch.models.common import ModelConfig
+from repro_torch.optim import Optimizer
+from repro_torch.runtime import sharding as shrules
+
 PyTree = Any
+META = torch.device("meta")
+
+
+def is_spec_leaf(x) -> bool:
+    """A spec: a tuple whose entries are axis names, None or tuples of
+    names."""
+    return isinstance(x, tuple) and all(
+        e is None or isinstance(e, str)
+        or (isinstance(e, tuple) and all(isinstance(a, str) for a in e))
+        for e in x)
+
+
+def spec_leaves(specs: PyTree) -> list:
+    return _pytree.tree_leaves(specs, is_leaf=is_spec_leaf)
 
 
 def pod_stack(pods: Iterable[PyTree], n_pods: int) -> PyTree:
@@ -43,9 +73,169 @@ def pod_stack(pods: Iterable[PyTree], n_pods: int) -> PyTree:
     return _pytree.tree_unflatten(stacked, spec)
 
 
+def pod_stack_specs(tree: PyTree, specs: PyTree, n_pods: int
+                    ) -> tuple[PyTree, PyTree]:
+    """The spec form of `pod_stack` (the reference's `pod_stack`): every
+    meta leaf gains a leading pod dimension, sharded over 'pod'. None (the
+    state of SGD without momentum) stays None."""
+    def stack(t):
+        return torch.empty((n_pods,) + tuple(t.shape), dtype=t.dtype,
+                           device=META)
+    flat, treedef = _pytree.tree_flatten(tree)
+    stacked = _pytree.tree_unflatten(
+        [None if t is None else stack(t) for t in flat], treedef)
+    sflat, sdef = _pytree.tree_flatten(specs, is_leaf=is_spec_leaf)
+    return stacked, _pytree.tree_unflatten(
+        [None if s is None else ("pod",) + s for s in sflat], sdef)
+
+
 def param_bytes_per_pod(stacked: PyTree, n_pods: int) -> float:
     """Bytes one pod ships per gossip round per link: the pod-stacked
     parameter tree's bytes over the pods, as the reference's launcher
     divides them (a float)."""
     return sum(leaf.numel() * leaf.element_size()
                for leaf in _pytree.tree_leaves(stacked)) / max(n_pods, 1)
+
+
+def params_and_axes(cfg: ModelConfig) -> tuple[PyTree, PyTree]:
+    """Abstract params (meta tensors, no allocation) and their logical
+    axes, from `transformer.init` on a meta key."""
+    return transformer.init(prng.key(0, META), cfg)
+
+
+def param_specs(cfg: ModelConfig, mesh) -> tuple[PyTree, PyTree]:
+    """(abstract params, specs) -- no pod dimension."""
+    params, axes = params_and_axes(cfg)
+    return params, shrules.tree_specs(params, axes, mesh)
+
+
+def opt_state_specs(optimizer: Optimizer, abstract_params: PyTree,
+                    param_specs_tree: PyTree) -> tuple[PyTree, PyTree]:
+    """Abstract optimizer state + specs: moment tensors inherit the param
+    specs; scalar counters are replicated."""
+    state = optimizer.init(abstract_params)
+    leaves_s = spec_leaves(param_specs_tree)
+    n_params = len(_pytree.tree_leaves(abstract_params))
+
+    def specs_like(subtree):
+        flat, treedef = _pytree.tree_flatten(subtree)
+        if len(flat) == n_params:
+            return _pytree.tree_unflatten(leaves_s, treedef)
+        return _pytree.tree_unflatten([()] * len(flat), treedef)
+
+    if state.inner is None:
+        inner_specs = None
+    elif isinstance(state.inner, dict):
+        inner_specs = {k: specs_like(v) for k, v in state.inner.items()}
+    else:
+        inner_specs = specs_like(state.inner)
+    return state, type(state)(step=(), inner=inner_specs)
+
+
+def batch_specs(cfg: ModelConfig, cell: ShapeCell, mesh,
+                *, consensus: bool) -> tuple[PyTree, PyTree]:
+    """Training/prefill batch: tokens+labels (+enc for VLM)."""
+    sizes = shrules.mesh_axis_sizes(mesh)
+    has_pod = "pod" in mesh.axis_names
+    B, S = cell.global_batch, cell.seq_len
+    if has_pod and consensus:
+        n_pods = sizes["pod"]
+        lead, batch_spec = (n_pods,), ("pod", "data", None)
+        B = B // n_pods
+    elif has_pod:
+        lead, batch_spec = (), (("pod", "data"), None)
+    else:
+        lead, batch_spec = (), ("data", None)
+    batch = {name: torch.empty(lead + (B, S), dtype=torch.int32,
+                               device=META)
+             for name in ("tokens", "labels")}
+    spec = {"tokens": batch_spec, "labels": batch_spec}
+    if cfg.family == "vlm":
+        batch["enc"] = torch.empty(
+            lead + (B, cfg.num_encoder_tokens, cfg.encoder_dim),
+            dtype=cfg.dtype, device=META)
+        spec["enc"] = batch_spec[:len(lead) + 1] + (None, None)
+    return batch, spec
+
+
+def cache_specs(cfg: ModelConfig, cell: ShapeCell, mesh
+                ) -> tuple[PyTree, PyTree]:
+    """Decode cache: abstract tree + specs. Batch is sharded over
+    ('pod','data') jointly when a pod axis exists (serving replicates params
+    across pods; pods are extra data parallelism)."""
+    B, S = cell.global_batch, cell.seq_len
+    cache = transformer.init_cache(cfg, B, S, torch.bfloat16, device=META)
+    axes = transformer.cache_axes(cfg)
+    rules = dict(shrules.DEFAULT_RULES)
+    if "pod" in mesh.axis_names:
+        rules["batch"] = (("pod", "data"),)  # composite axis
+    return cache, _cache_tree_specs(cache, axes, mesh, rules)
+
+
+def _cache_tree_specs(cache, axes, mesh, rules):
+    mesh_shape = shrules.mesh_axis_sizes(mesh)
+
+    def size_of(cand):
+        if isinstance(cand, tuple):  # composite ('pod','data')
+            return math.prod(mesh_shape.get(c, 1) for c in cand)
+        return mesh_shape.get(cand, 1)
+
+    def one_spec(shape, ax):
+        used = set()
+        ax = list(ax)
+        shape = list(shape)
+        out = [None] * len(ax)
+        order = sorted(range(len(ax)),
+                       key=lambda i: (shrules._ASSIGN_PRIORITY.get(ax[i], 1),
+                                      i))
+        for i in order:
+            name = ax[i]
+            for cand in (rules.get(name, ()) if name else ()):
+                if cand in used:
+                    continue
+                if size_of(cand) > 1 and shape[i] % size_of(cand) == 0:
+                    out[i] = cand
+                    used.add(cand)
+                    break
+        return tuple(out)
+
+    flat_v, treedef = _pytree.tree_flatten(cache)
+    flat_a = _pytree.tree_leaves(axes, is_leaf=shrules.is_axes_leaf)
+    specs = [one_spec(v.shape, a) for v, a in zip(flat_v, flat_a)]
+    return _pytree.tree_unflatten(specs, treedef)
+
+
+def decode_token_specs(cell: ShapeCell, mesh) -> tuple[PyTree, PyTree]:
+    B = cell.global_batch
+    spec = (("pod", "data"),) if "pod" in mesh.axis_names else ("data",)
+    if B % _spec_size(spec, mesh) != 0:
+        spec = ()  # tiny batches (long_500k B=1): replicate
+    tok = torch.empty((B, 1), dtype=torch.int32, device=META)
+    pos = torch.empty((), dtype=torch.int32, device=META)
+    return {"tokens": tok, "pos": pos}, {"tokens": spec, "pos": ()}
+
+
+def _spec_size(spec: tuple, mesh) -> int:
+    mesh_shape = shrules.mesh_axis_sizes(mesh)
+    n = 1
+    for part in spec:
+        if part is None:
+            continue
+        for ax in (part if isinstance(part, tuple) else (part,)):
+            n *= mesh_shape.get(ax, 1)
+    return n
+
+
+def shard_bytes(t: torch.Tensor, spec: tuple, mesh) -> int:
+    """Bytes of one device's shard of `t` under `spec`: each sharded
+    dimension divided by its axes' size (rounded up, as XLA pads an uneven
+    shard)."""
+    mesh_shape = shrules.mesh_axis_sizes(mesh)
+    n = 1
+    for i, d in enumerate(t.shape):
+        part = spec[i] if i < len(spec) else None
+        axes = () if part is None else (
+            part if isinstance(part, tuple) else (part,))
+        n *= -(-d // math.prod(mesh_shape.get(a, 1) for a in axes))
+    return n * t.element_size()
+

@@ -16,8 +16,14 @@ state it donates.
 
 The mix is `core.consensus.tree_mix_gossip` over the pod-stacked leaves:
 kernel K1 on the card, in place of the reference's `einsum` with the
-mixing matrix over the pod dimension (`_dense_mix`) or its ppermutes
-across chips.
+mixing matrix over the pod dimension (`_dense_mix`). When the mesh's pod
+axis spans the ranks of a process group, each rank holds its pod's shard
+of the stacked state (a leading pod dimension of 1, what the reference's
+shard_map body sees), and the mix is the reference's collectives
+(`core.consensus.mix_collective`) over the group, leaf by leaf and
+written back in place: in each leaf's dtype for the mix step (the
+reference's `mix_body`), in float32 for the fused step (its `_dense_mix`:
+upcast, collective, cast back).
 
 The inference steps run where their tensors are, without autograd:
 prefill returns the last position's logits of `transformer.forward`, and
@@ -33,7 +39,7 @@ from typing import Any
 import torch
 import torch.utils._pytree as _pytree
 
-from repro_torch.core.consensus import tree_mix_gossip
+from repro_torch.core.consensus import mix_collective, tree_mix_gossip
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import Optimizer, OptState
@@ -167,12 +173,28 @@ def _pod(tree: PyTree, i: int) -> PyTree:
     return _pytree.tree_map(lambda a: a[i], tree)
 
 
+def _rank_mix(tree: PyTree, graph, mesh, float32: bool) -> PyTree:
+    """This rank's pod of every leaf of `tree` (leading pod dimension 1)
+    mixed over the mesh's process group, one leaf at a time (in float32
+    when asked, so no float32 copy of the whole tree is held), the result
+    written back into the leaf."""
+    with mesh.bind():
+        for leaf in _pytree.tree_leaves(tree):
+            pod = leaf[0]
+            mixed = mix_collective(pod.float() if float32 else pod, graph,
+                                   "pod")
+            pod.copy_(mixed)
+            del mixed
+    return tree
+
+
 def make_consensus_steps(cfg: ModelConfig, optimizer: Optimizer, graph,
                          mesh, moe_groups: int = 1,
                          mix_target: str = "params",
                          microbatches: int = 1):
     """Returns (local_step, mix_step, fused_step) for consensus training
-    on pod-stacked state (graph.n pods on `mesh.device`). Each takes and
+    on pod-stacked state (graph.n pods on `mesh.device`, or this rank's pod
+    when the mesh's pod axis spans a process group). Each takes and
     returns (params, opt_state[, batch]) and overwrites the state it is
     given (the mix returns the mixed tensors in their place), as the
     reference's jitted steps consume the state they donate.
@@ -185,8 +207,10 @@ def make_consensus_steps(cfg: ModelConfig, optimizer: Optimizer, graph,
       mixing (the paper's cheap iteration, cost 1/n); metrics "loss" and
       "grad_norm" are (n_pods,) float32 tensors.
     mix_step: consensus mixing only (the communication half of an
-      expensive iteration, cost kr): K1 on every pod-stacked leaf.
-    fused_step: local then mix (an expensive iteration, 1/n + kr).
+      expensive iteration, cost kr): K1 on every pod-stacked leaf, or the
+      collectives in each leaf's dtype across ranks.
+    fused_step: local then mix (an expensive iteration, 1/n + kr); across
+      ranks the collectives in float32.
     """
     if mix_target not in ("params", "z"):
         raise ValueError(f"mix_target must be 'params' or 'z', got "
@@ -207,17 +231,25 @@ def make_consensus_steps(cfg: ModelConfig, optimizer: Optimizer, graph,
         return params, opt_state, {"loss": torch.stack(losses),
                                    "grad_norm": torch.stack(norms)}
 
-    def mix(params, opt_state):
+    ranked = mesh.group is not None
+
+    def mixed(params, opt_state, float32: bool):
+        def one(tree):
+            if ranked:
+                return _rank_mix(tree, graph, mesh, float32)
+            return tree_mix_gossip(tree, graph, device=mesh.device)
         if mix_target == "params":
-            return tree_mix_gossip(params, graph, device=mesh.device), \
-                opt_state
+            return one(params), opt_state
         inner = dict(opt_state.inner)
-        inner["z"] = tree_mix_gossip(inner["z"], graph, device=mesh.device)
+        inner["z"] = one(inner["z"])
         return params, OptState(opt_state.step, inner)
+
+    def mix(params, opt_state):
+        return mixed(params, opt_state, float32=False)
 
     def fused(params, opt_state, batch):
         params, opt_state, metrics = local(params, opt_state, batch)
-        params, opt_state = mix(params, opt_state)
+        params, opt_state = mixed(params, opt_state, float32=True)
         return params, opt_state, metrics
 
     return local, mix, fused

@@ -1,10 +1,22 @@
 """Training driver, the port of `repro.launch.train`: consensus data-parallel
 LM training with the paper's communication schedules and checkpoint /
-restart, with a run's pods stacked on one card.
+restart, with a run's pods stacked on one card, or one pod a rank of a
+process group ("on a real cluster each pod's process group runs exactly
+this", as the reference puts it).
 
 The schedule decides per iteration whether to run the cheap `local_step`
-(no mixing) or the `fused_step` (local + consensus mixing through kernel
-K1): the paper's 1/n vs 1/n + kr cost split, as two step functions.
+(no mixing) or the `fused_step` (local + consensus mixing: kernel K1 over
+stacked pods, collectives across ranks): the paper's 1/n vs 1/n + kr cost
+split, as two step functions.
+
+Across ranks, rank r draws pod r's parameters from the stacked run's key
+and streams pod r's data, so its pod is the stacked run's pod r; each
+step's loss is the mean of the (n,) vector of pod losses in rank order,
+built by an all-reduce of a zero-filled vector in which each rank writes
+its own slot (adding zeros is exact, and gloo takes CUDA tensors in an
+all-reduce but not in an all-gather), so every rank logs the stacked
+run's float. Checkpoints are the stacked run's files: rank 0 gathers the
+pods and writes them, and a restore scatters them back from rank 0.
 """
 
 from __future__ import annotations
@@ -41,16 +53,19 @@ class TrainReport:
 
 
 def init_state(cfg: ModelConfig, optimizer: Optimizer, n_pods: int, seed: int,
-               device) -> tuple[dict, OptState]:
+               device, pods=None) -> tuple[dict, OptState]:
     """Pod-stacked (params, opt_state) from `seed`, as the reference's
     `init_all` draws them: one key per pod from `split(PRNGKey(seed),
     n_pods)`, each pod's params from `transformer.init` and its optimizer
     state from `optimizer.init` (zeros and a step of 0 for every port
-    optimizer, so it is built on the stacked params at once)."""
+    optimizer, so it is built on the stacked params at once). `pods`
+    (default: all) picks the pods stacked, e.g. one rank's `[rank]`."""
+    pods = list(range(n_pods)) if pods is None else list(pods)
     keys = prng.split(prng.key(seed, device), n_pods)
-    params = sp.pod_stack((transformer.init(k, cfg)[0] for k in keys), n_pods)
+    params = sp.pod_stack((transformer.init(keys[i], cfg)[0] for i in pods),
+                          len(pods))
     state = optimizer.init(params)
-    step = torch.zeros((n_pods,), dtype=torch.int32, device=device)
+    step = torch.zeros((len(pods),), dtype=torch.int32, device=device)
     return params, OptState(step, state.inner)
 
 
@@ -65,6 +80,89 @@ def _restore_into(state, restored) -> None:
     for dst, src in zip(_pytree.tree_leaves(state),
                         _pytree.tree_leaves(restored)):
         dst.copy_(src)
+
+
+def _gather_pods(tree, mesh: Mesh, n_pods: int):
+    """Rank 0: the pod-stacked host tree of every rank's pod (each leaf
+    broadcast from its rank in turn); other ranks: None."""
+    import torch.distributed as dist
+
+    rank, group = mesh.pod_rank, mesh.group
+    leaves, spec = _pytree.tree_flatten(tree)
+    out = []
+    for leaf in leaves:
+        if leaf is None:
+            out.append(None)
+            continue
+        host = (torch.empty((n_pods,) + tuple(leaf.shape[1:]),
+                            dtype=leaf.dtype) if rank == 0 else None)
+        for src in range(n_pods):
+            buf = leaf.clone() if src == rank else torch.empty_like(leaf)
+            dist.broadcast(buf, src=dist.get_global_rank(group, src),
+                           group=group)
+            if host is not None:
+                host[src].copy_(buf[0])
+        out.append(host)
+    return _pytree.tree_unflatten(out, spec) if rank == 0 else None
+
+
+def _scatter_pods(tree, stacked, mesh: Mesh, n_pods: int) -> None:
+    """Each rank's pod of rank 0's pod-stacked host tree `stacked` (None on
+    the other ranks), broadcast from rank 0 pod by pod, copied into
+    `tree`'s leaves (leading pod dimension 1)."""
+    import torch.distributed as dist
+
+    rank, group = mesh.pod_rank, mesh.group
+    root = dist.get_global_rank(group, 0)
+    leaves = _pytree.tree_leaves(tree)
+    sources = _pytree.tree_leaves(stacked) if rank == 0 else [None] * len(
+        leaves)
+    for leaf, src_leaf in zip(leaves, sources):
+        if leaf is None:
+            continue
+        for dst in range(n_pods):
+            buf = (src_leaf[dst:dst + 1].to(leaf.device) if rank == 0
+                   else torch.empty_like(leaf))
+            dist.broadcast(buf, src=root, group=group)
+            if rank == dst:
+                leaf.copy_(buf)
+
+
+def _restore_ranked(mgr, state, mesh: Mesh, n_pods: int) -> int | None:
+    """Rank 0 reads the latest pod-stacked checkpoint (None on the other
+    ranks, which hold no manager) and scatters it; returns its step on
+    every rank, or None."""
+    import torch.distributed as dist
+
+    got = None
+    if mesh.pod_rank == 0 and mgr is not None:
+        like = _pytree.tree_map(
+            lambda t: None if t is None else torch.empty(
+                (n_pods,) + tuple(t.shape[1:]), dtype=t.dtype,
+                device="meta"), state)
+        got = mgr.restore_latest(like)
+    flag = torch.tensor([-1 if got is None else got[0]], dtype=torch.int64,
+                        device=mesh.device)
+    dist.broadcast(flag, src=dist.get_global_rank(mesh.group, 0),
+                   group=mesh.group)
+    step = int(flag.item())
+    if step < 0:
+        return None
+    _scatter_pods(state, got[1] if got is not None else None, mesh, n_pods)
+    return step
+
+
+def _mean_loss(losses: torch.Tensor, mesh: Mesh, n_pods: int) -> float:
+    """The mean of the (n,) pod losses in pod order: across ranks, each
+    rank's loss in its own slot of a zero-filled vector, all-reduced."""
+    if mesh.group is None:
+        return float(torch.mean(losses))
+    import torch.distributed as dist
+
+    vec = torch.zeros((n_pods,), dtype=losses.dtype, device=losses.device)
+    vec[mesh.pod_rank] = losses[0]
+    dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=mesh.group)
+    return float(torch.mean(vec))
 
 
 def _meta_trace(cfg: ModelConfig, params, batch: dict,
@@ -99,7 +197,9 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
                        dryrun: bool = False,
                        tracer=None) -> TrainReport:
     """Run consensus DP training of `cfg` on `mesh` (axes pod, data, model;
-    `launch.mesh.make_mesh`: the pods stacked on the mesh's card).
+    `launch.mesh.make_mesh`: the pods stacked on the mesh's card, or one
+    pod a rank of the mesh's process group, every rank calling this with
+    the same arguments and getting the same losses).
 
     Returns per-step losses plus the simulated time-unit accounting
     (1/n per iteration + k*r per communication round, paper eq. 9/19).
@@ -137,16 +237,20 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
                                              mix_target=mix_target)
     build_s = time.perf_counter() - t0
 
-    params, opt_state = init_state(cfg, optimizer, n_pods, seed, device)
+    ranked = mesh.group is not None
+    # the pods this process holds: all of them, or its rank's
+    pods = [mesh.pod_rank] if ranked else list(range(n_pods))
+    params, opt_state = init_state(cfg, optimizer, n_pods, seed, device,
+                                   pods=pods)
     streams = [TokenStream(cfg.vocab_size, seq_len, batch_per_node,
                            node_index=i, num_nodes=n_pods, seed=seed,
                            device=device)
-               for i in range(n_pods)]
+               for i in pods]
     try:
         # bytes one pod ships per gossip round per link: the mixed payload
         # is the per-pod parameter tree, so the stacked bytes divide by
-        # n_pods
-        param_bytes_per_pod = sp.param_bytes_per_pod(params, n_pods)
+        # the pods stacked
+        param_bytes_per_pod = sp.param_bytes_per_pod(params, len(pods))
 
         if dryrun:
             _meta_trace(cfg, params, _stacked_batch(streams), moe_groups)
@@ -162,15 +266,18 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
             return TrainReport(steps=0, losses=[], comm_rounds=0,
                                sim_time_units=0.0, extras=extras)
 
-        mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
-        start_step = 0
+        # across ranks rank 0 alone writes and reads the stacked files
+        writer = ckpt_dir and (not ranked or mesh.pod_rank == 0)
+        mgr = CheckpointManager(ckpt_dir) if writer else None
         resumed = None
-        if mgr is not None:
+        if ranked and ckpt_dir:
+            resumed = _restore_ranked(mgr, (params, opt_state), mesh, n_pods)
+        elif mgr is not None:
             got = mgr.restore_latest((params, opt_state))
             if got is not None:
-                start_step, restored, _ = got
+                resumed, restored, _ = got
                 _restore_into((params, opt_state), restored)
-                resumed = start_step
+        start_step = resumed or 0
 
         losses = []
         comm_rounds = 0
@@ -185,7 +292,7 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             sim_time += 1.0 / n_pods + (k * r_estimate if comm else 0.0)
             comm_rounds += int(comm)
-            loss = float(torch.mean(metrics["loss"]))  # waits for the step
+            loss = _mean_loss(metrics["loss"], mesh, n_pods)  # waits
             wall = time.perf_counter() - t0
             step_walls.append(wall)
             step_comm.append(comm)
@@ -194,12 +301,15 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
                                      tracer.now() - wall, wall,
                                      track="launch", t=t)
             losses.append(loss)
-            if log_every and t % log_every == 0:
+            if log_every and t % log_every == 0 and pods[0] == 0:
                 print(f"[train] step {t} loss {loss:.4f} "
                       f"comm_rounds {comm_rounds} sim_time {sim_time:.2f}",
                       flush=True)
-            if mgr is not None and t % ckpt_every == 0:
-                mgr.save(t, (params, opt_state), extra={"step": t})
+            if ckpt_dir and t % ckpt_every == 0:
+                tree = (_gather_pods((params, opt_state), mesh, n_pods)
+                        if ranked else (params, opt_state))
+                if mgr is not None:
+                    mgr.save(t, tree, extra={"step": t})
         if mgr is not None:
             mgr.wait()
     finally:

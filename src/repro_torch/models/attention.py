@@ -34,7 +34,7 @@ from typing import Any
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device_or_meta
 from repro_torch.compress import prng
 from repro_torch.models.common import (ModelConfig, apply_rope, p,
                                        promoted_einsum, pz, rms_norm)
@@ -232,7 +232,7 @@ def gqa_init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
                    device=None) -> PyTree:
     """Zero K and V caches of (batch, max_seq, kv_heads, head_dim) on
     `device` (None: the CUDA card)."""
-    device = resolve_device(device)
+    device = resolve_device_or_meta(device)
     K, hd = cfg.num_kv_heads, cfg.hd
     return {
         "k": torch.zeros((batch, max_seq, K, hd), dtype=dtype, device=device),
@@ -335,7 +335,7 @@ def mla_init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
     """MLA caches only the compressed latent and the shared rope key:
     (kv_lora + rope_hd) values a token (576 for DeepSeek-V2), on `device`
     (None: the CUDA card)."""
-    device = resolve_device(device)
+    device = resolve_device_or_meta(device)
     return {
         "ckv": torch.zeros((batch, max_seq, cfg.mla_kv_lora), dtype=dtype,
                            device=device),

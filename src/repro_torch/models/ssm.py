@@ -44,7 +44,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compress import prng
-from repro_torch import resolve_device
+from repro_torch import resolve_device_or_meta
 from repro_torch.models.common import (ModelConfig, p, promoted_einsum,
                                        pz, rms_norm)
 
@@ -213,7 +213,7 @@ def mamba1_init_cache(cfg: ModelConfig, batch: int, dtype, device=None
     """The conv window (batch, conv - 1, d_inner) in `dtype` and the state
     h (batch, d_inner, N) in float32, zeros on `device` (None: the CUDA
     card)."""
-    device = resolve_device(device)
+    device = resolve_device_or_meta(device)
     d_inner, _ = _m1_dims(cfg)
     return {
         "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_inner), dtype=dtype,
@@ -389,7 +389,7 @@ def mamba2_init_cache(cfg: ModelConfig, batch: int, dtype, device=None
     """The conv window over x, B and C (batch, conv - 1, d_inner + 2 N) in
     `dtype` and the state h (batch, heads, head_dim, N) in float32, zeros
     on `device` (None: the CUDA card)."""
-    device = resolve_device(device)
+    device = resolve_device_or_meta(device)
     d_inner, nheads = _m2_dims(cfg)
     conv_dim = d_inner + 2 * cfg.ssm_state
     return {

@@ -48,7 +48,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device_or_meta
 from repro_torch.compress import prng
 from repro_torch.models import attention as attn
 from repro_torch.models import mlp as mlp_mod
@@ -156,7 +156,7 @@ def _block_init_cache(kind: str, cfg: ModelConfig, batch: int, max_seq: int,
     if kind in ("mla", "mla_moe"):
         return attn.mla_init_cache(cfg, batch, max_seq, dtype, device)
     if kind == "cross_attn":
-        device = resolve_device(device)
+        device = resolve_device_or_meta(device)
         K, hd = cfg.num_kv_heads, cfg.hd
         n = cfg.num_encoder_tokens
         return {"ek": torch.zeros((batch, n, K, hd), dtype=dtype,
@@ -375,7 +375,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
     leading axis of `cfg.n_super` repetitions (one allocation, written in
     place by `decode_step`). Recurrent states are float32 whatever
     `dtype`."""
-    device = resolve_device(device)
+    device = resolve_device_or_meta(device)
     cache: dict[str, Any] = {}
     if cfg.prologue:
         cache["prologue"] = [

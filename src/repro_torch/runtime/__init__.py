@@ -1,8 +1,8 @@
 """Runtime helpers, the port of `repro.runtime`'s host half: straggler and
 deadline math (`fault_tolerance`, numpy, which the adaptive controller's
-straggler reweighting also reads) and elastic membership (`elastic`). The
-reference's sharding rules map the LM stack onto a mesh of chips and come
-with the multi-card slice."""
+straggler reweighting also reads), elastic membership (`elastic`) and the
+logical sharding rules (`sharding`), which map the LM stack's leaves onto
+a mesh for the dry-run's per-device bytes."""
 
 from repro_torch.runtime.elastic import (RescalePlan, plan_rescale,
                                          rescale_state)

@@ -33,6 +33,8 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.core.consensus_sgd, repro_torch.launch.train\n"
         "import repro_torch.models.mlp, repro_torch.models.attention\n"
         "import repro_torch.serve, repro_torch.serve.__main__\n"
+        "import repro_torch.runtime.sharding, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.specs, repro_torch.launch.mesh\n"
         "from repro_torch.serve import ExperimentServer, Client, WorkerPool\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
