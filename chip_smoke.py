@@ -184,6 +184,25 @@ non-zero and the last line is not printed. The phases:
             step's collective seconds and float32 bytes, its peak memory,
             and the card's name and power limit; no kernel of the port
             launches on a rank (the mix is the collective, not K1)
+  lm_sharded each pod's replica sharded as DTensors: llama3-8b at full
+            width (4 of 32 layers), two pods, B = 2 and S = 4096 a pod,
+            T = 6, AdamW through train_consensus_lm, first stacked and
+            unsharded on the card, then on the layouts (2, 2, 1) (FSDP)
+            and (2, 1, 2) (tensor and sequence parallelism) with the pods
+            stacked on every rank and K1 mixing each rank's local shards
+            (launched 12 times a comm step on each rank): with two or more
+            cards one rank a card over NCCL, losses within LM_SHARDED_RTOL
+            of the stacked run's; with one card two ranks over gloo if a
+            probe finds gloo runs DTensor's all-gather on CUDA tensors,
+            else the one-card mesh (2, 1, 1) on one rank through the same
+            DTensor path (every placement Replicate), bit for bit the
+            stacked run's (losses and final parameters). The pods must be
+            equal after every mix; prints "sharded_on_card", the probe's
+            finding, each rank's walls per local and fused step, peak
+            memory and the collectives' bytes in one local and one fused
+            step, and K1 timed on the embed leaf's data shard.
+            `python3 chip_smoke.py lm_sharded` runs env, build and this
+            phase alone
   lm_k1_expert_leaf
             K1 at deepseek-v2's routed-expert leaf of two full-width pods
             (bf16, n=2, k=1, M = 160 x 5120 x 1536 = 1,258,291,200) on
@@ -2690,6 +2709,327 @@ def phase_lm_ranks(stacked: dict) -> None:
          nvidia_smi=nvidia_smi_line())
 
 
+#: the lm_sharded phase's layouts with two or more ranks: FSDP over data,
+#: then tensor and sequence parallelism over model, the pods stacked on
+#: every rank (a group of data x model ranks); with one rank, the one-card
+#: mesh (2, 1, 1) through the same DTensor path, every placement
+#: Replicate
+LM_SHARDED_LAYOUTS = ((2, 2, 1), (2, 1, 2))
+LM_SHARDED_ONE_CARD = ((2, 1, 1),)
+#: the phase's batch and sequence a pod, and the seconds it waits for its
+#: ranks
+LM_SHARDED_BATCH = 2
+LM_SHARDED_SEQ = 4096
+LM_SHARDED_TIMEOUT_S = 600
+#: the dense family's trace rtol, the sharded runs' losses against the
+#: stacked unsharded run's
+LM_SHARDED_RTOL = 5e-4
+
+
+def _gloo_probe_main(rank: int, store_path: str) -> None:
+    """A spawned rank of the gloo probe: a DTensor all-gather (Shard(0) to
+    Replicate, FSDP's gather) on cuda:0 over a two-rank gloo group."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, 2),
+                            rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=60))
+    mesh = DeviceMesh("cuda", [0, 1], mesh_dim_names=("data",))
+    x = torch.full((4, 8), float(rank), device="cuda")
+    whole = DTensor.from_local(x, mesh, [Shard(0)]).redistribute(
+        mesh, [Replicate()]).to_local()
+    torch.cuda.synchronize()
+    assert whole.shape == (8, 8) and float(whole[4:].mean()) == 1.0
+    dist.destroy_process_group()
+
+
+def _gloo_dtensor_probe() -> str:
+    """Whether gloo runs DTensor's all-gather on CUDA tensors with two
+    ranks on cuda:0: "ok", or how the ranks ended. The torch.distributed
+    calls on their own (all_gather_into_tensor, reduce_scatter_tensor,
+    all_to_all_single) take CUDA tensors there; DTensor issues them as
+    functional collectives (scripts/probe_gloo_cuda.py probes each)."""
+    import multiprocessing as mp
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="gloo_probe_")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_gloo_probe_main, args=(r, f"{tmp}/store"))
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=120)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    codes = [p.exitcode for p in procs]
+    if codes == [0, 0]:
+        return "ok"
+    return ("a DTensor all-gather (Shard to Replicate) over gloo on cuda:0 "
+            f"ended its ranks with exit codes {codes} (a negative code is "
+            f"the signal: -11 is SIGSEGV)")
+
+
+class _CollectiveBytes:
+    """Bytes the functional collectives DTensor issues take in (each input
+    counted once), by collective, while active: a TorchDispatchMode."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counts = self.counts = {}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = func.__name__.split(".")[0]
+                if func.namespace == "_c10d_functional" and not \
+                        name.startswith(("_", "wait")):
+                    first = args[0]
+                    tensors = first if isinstance(first, (list, tuple)) \
+                        else [first]
+                    counts[name] = counts.get(name, 0) + sum(
+                        t.numel() * t.element_size() for t in tensors)
+                return func(*args, **(kwargs or {}))
+        self.mode = Mode()
+
+
+def _lm_sharded_run(shape, stacked_run: bool = False) -> dict:
+    """llama3-8b at full width (LM_N_SUPER superblocks), two pods, B =
+    LM_SHARDED_BATCH and S = 4096 a pod, T = 6, periodic h = 2, AdamW,
+    through train_consensus_lm on `shape`: the stacked run on this card
+    (`stacked_run`), or this rank's part of the run over the default
+    process group. Each fused step is checked to leave the pods equal bit
+    for bit (complete graph, n = 2); one local and one fused step run
+    under a count of the collectives' bytes."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import optim
+    from repro_torch.core.schedules import Periodic
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.runtime.sharding import is_dtensor
+
+    cfg = dataclasses.replace(registry.get_config("llama3-8b", "full"),
+                              n_super=LM_N_SUPER)
+    mesh = make_mesh(shape, ("pod", "data", "model"), device="cuda",
+                     group=None if stacked_run else dist.group.WORLD)
+    real_steps = train_mod.make_consensus_steps
+    seen = {"params": None, "mixes": 0, "bytes": {}}
+
+    def local_of(t):
+        return t.to_local() if is_dtensor(t) else t
+
+    def watched_steps(*a, **kw):
+        local, mix, fused = real_steps(*a, **kw)
+
+        def counted(step, name):
+            def run(*args):
+                if name not in seen["bytes"]:
+                    coll = _CollectiveBytes()
+                    with coll.mode:
+                        out = step(*args)
+                    seen["bytes"][name] = coll.counts
+                else:
+                    out = step(*args)
+                seen["params"] = out[0]
+                return out
+            return run
+
+        def checked(*args):
+            out = counted(fused, "fused")(*args)
+            seen["mixes"] += 1
+            for leaf in torch.utils._pytree.tree_leaves(out[0]):
+                leaf = local_of(leaf)
+                if not torch.equal(leaf[0], leaf[1]):
+                    raise AssertionError("lm_sharded: the pods differ after "
+                                         "the mix (complete graph, n = 2)")
+            return out
+        return counted(local, "local"), mix, checked
+
+    train_mod.make_consensus_steps = watched_steps
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts()
+        rep = train_mod.train_consensus_lm(
+            cfg, optim.adamw(optim.cosine_lr(3e-4, 6)), mesh, steps=6,
+            schedule=Periodic(h=2), topology="complete",
+            batch_per_node=LM_SHARDED_BATCH, seq_len=LM_SHARDED_SEQ, seed=0,
+            log_every=0)
+        torch.cuda.synchronize()
+        counts = _launch_counts()
+    finally:
+        train_mod.make_consensus_steps = real_steps
+    local_params = torch.utils._pytree.tree_map(local_of, seen["params"])
+    digests = [_pod_digest(local_params, i) for i in range(2)]
+    seen["params"] = local_params = None
+    walls, comm = rep.extras["step_walls"], rep.extras["step_comm"]
+    rounds = sum(comm)
+    if counts["gossip_mix"] != LM_LEAVES * rounds or seen["mixes"] != rounds:
+        raise AssertionError(f"lm_sharded {shape}: K1 launched "
+                             f"{counts['gossip_mix']} times, {seen['mixes']} "
+                             f"checked mixes, for {rounds} comm steps of "
+                             f"{LM_LEAVES} leaves")
+    if not all(math.isfinite(v) for v in rep.losses):
+        raise AssertionError(f"lm_sharded {shape}: losses {rep.losses}")
+    return {"mesh": list(shape), "losses": list(rep.losses),
+            "pod_param_sha256_local": digests,
+            "k1_launches": counts["gossip_mix"], "step_comm": comm,
+            # the first local and fused steps ran under the byte count
+            "local_step_s": [w for w, c in zip(walls, comm) if not c][1:],
+            "fused_step_s": [w for w, c in zip(walls, comm) if c][1:],
+            "collective_bytes": seen["bytes"],
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def _lm_sharded_main(rank: int, world: int, backend: str, layouts,
+                     store_path: str, results) -> None:
+    """A spawned rank of lm_sharded: its card, the process group, then
+    `_lm_sharded_run` on each layout; the results (or the traceback) go to
+    the parent."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
+        dist.init_process_group(
+            backend, store=dist.FileStore(store_path, world), rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=300))
+        try:
+            out = []
+            for shape in layouts:
+                out.append(_lm_sharded_run(tuple(shape)))
+                torch.cuda.empty_cache()
+            results.put((rank, None, out))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 -- sent to the parent, which fails
+        results.put((rank, traceback.format_exc(), None))
+
+
+def phase_lm_sharded() -> dict:
+    """Each pod's replica sharded over data and model as DTensors: the
+    full-width llama3-8b cell (B = 2, S = 4096, 4 of 32 layers) on the
+    layouts (2, 2, 1) (FSDP) and (2, 1, 2) (tensor and sequence
+    parallelism) with the pods stacked on every rank, K1 mixing each
+    rank's local shards; held to the stacked unsharded run at the same
+    B, S and depth. Two or more cards: one rank a card over NCCL. One
+    card: two ranks over gloo when gloo runs DTensor's collectives on
+    CUDA tensors (probed first), else the one-card mesh (2, 1, 1) through
+    the same DTensor path on one rank, every placement Replicate, held to
+    the stacked run bit for bit. Returns K1's launches and its time on a
+    local shard."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+    import tempfile
+
+    import torch
+
+    torch.cuda.empty_cache()
+    stacked = _lm_sharded_run((2, 1, 1), stacked_run=True)
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    probe = _gloo_dtensor_probe() if cards < 2 else None
+    if cards >= 2:
+        backend, world, layouts = "nccl", 2, LM_SHARDED_LAYOUTS
+    elif probe == "ok":
+        backend, world, layouts = "gloo", 2, LM_SHARDED_LAYOUTS
+    else:
+        backend, world, layouts = "gloo", 1, LM_SHARDED_ONE_CARD
+    sharded_on_card = world > 1
+    tmp = tempfile.mkdtemp(prefix="lm_sharded_")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_lm_sharded_main, daemon=True,
+                         args=(r, world, backend, layouts, f"{tmp}/store",
+                               results))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    ranks: dict[int, list] = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(ranks) < world:
+            try:
+                rank, err, value = results.get(timeout=LM_SHARDED_TIMEOUT_S)
+            except queue.Empty:
+                raise AssertionError(f"lm_sharded: no result from ranks "
+                                     f"{sorted(set(range(world)) - set(ranks))}"
+                                     f" in {LM_SHARDED_TIMEOUT_S} s") from None
+            if err is not None:
+                raise AssertionError(f"lm_sharded: rank {rank} failed:\n{err}")
+            ranks[rank] = value
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    max_rel = {}
+    for r, runs in sorted(ranks.items()):
+        for run in runs:
+            key = "x".join(map(str, run["mesh"]))
+            if run["losses"] != ranks[0][layouts.index(
+                    tuple(run["mesh"]))]["losses"]:
+                raise AssertionError(f"lm_sharded {key}: rank {r}'s losses "
+                                     f"differ from rank 0's")
+            if run["step_comm"] != stacked["step_comm"]:
+                raise AssertionError(f"lm_sharded {key}: comm steps "
+                                     f"{run['step_comm']}")
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(run["losses"], stacked["losses"]))
+            max_rel[key] = rel
+            if sharded_on_card:
+                if not rel <= LM_SHARDED_RTOL:
+                    raise AssertionError(
+                        f"lm_sharded {key}: losses {rel} off the stacked "
+                        f"run's (rtol {LM_SHARDED_RTOL})")
+            elif (run["losses"] != stacked["losses"] or
+                  run["pod_param_sha256_local"] !=
+                  stacked["pod_param_sha256_local"]):
+                raise AssertionError(
+                    f"lm_sharded {key}: the one-card DTensor run is not the "
+                    f"stacked run bit for bit")
+    k1_shard = _lm_k1_call(M=128256 * 2048)  # the embed leaf's data shard
+    emit("lm_sharded", sharded_on_card=sharded_on_card, backend=backend,
+         ranks=world, gloo_dtensor_probe=probe, cards=cards,
+         layouts=[list(x) for x in layouts], n_super=LM_N_SUPER,
+         seq_len=LM_SHARDED_SEQ, batch_per_pod=LM_SHARDED_BATCH,
+         phase_wall_s=wall,
+         rtol=LM_SHARDED_RTOL, losses_max_rel_to_stacked=max_rel,
+         equal_to_stacked_bit_for_bit=not sharded_on_card,
+         stacked={k: v for k, v in stacked.items()
+                  if k != "pod_param_sha256_local"},
+         per_rank={r: runs for r, runs in sorted(ranks.items())},
+         k1_local_shard_call=k1_shard, nvidia_smi=nvidia_smi_line())
+    return {"launches": {"stacked": stacked["k1_launches"],
+                         "per_rank": [run["k1_launches"] for r in sorted(ranks)
+                                      for run in ranks[r]]},
+            "local_shard_call": k1_shard}
+
+
 #: deepseek-v2's full-width cell: the dense MLA prologue layer and one of
 #: its 59 MLA + MoE superblocks (2 of 60 layers), two pods, B = 1 and
 #: S = 4096 a pod (train_4k's sequence), T = 6, SGD without momentum
@@ -4204,6 +4544,10 @@ def main() -> int:
         return 1
     env = phase_env()
     build_s = phase_build()
+    if sys.argv[1:] == ["lm_sharded"]:  # that phase alone (no result line)
+        phase_lm_sharded()
+        print(env["nvidia_smi"], flush=True)
+        return 0
     k1 = phase_kernel()
     k2 = phase_kernel_k2()
     phase_manifests()
@@ -4223,6 +4567,9 @@ def main() -> int:
     k1["lm_launches"] = lm["launches"]
     k1["lm_call"] = lm["call"]
     phase_lm_ranks(lm)
+    sharded = phase_lm_sharded()
+    k1["lm_sharded_launches"] = sharded["launches"]
+    k1["lm_sharded_local_shard_call"] = sharded["local_shard_call"]
     k1["lm_expert_leaf_call"] = phase_lm_k1_expert_leaf()
     lm_moe = phase_lm_moe_full()
     k1["lm_moe_launches"] = lm_moe["launches"]

@@ -674,15 +674,25 @@ def _run_launch(spec: ExperimentSpec, backend: ComponentSpec,
                  "the launch optimizer's LR schedule is the backend's 'lr' "
                  "param; leave spec.stepsize at its default")
         n_pods = mesh_shape[0]
-        # under a default process group the pods are one a rank, else they
-        # stack on one card; the mesh refuses data/model axes either way
+        shards = mesh_shape[1] * mesh_shape[2]
+        # under a default process group each pod is one a rank, or its
+        # replica is sharded over data x model ranks (one pod a rank, or
+        # the pods stacked on every rank); else the pods stack on one card,
+        # each whole, and the mesh refuses data/model axes
         group = None
         if dist.is_available() and dist.is_initialized():
             world = dist.get_world_size()
-            _require(world == n_pods,
-                     f"the default process group has {world} ranks but the "
-                     f"mesh's pod axis {n_pods}: the launch backend runs "
-                     f"one pod a rank")
+            if shards == 1:
+                _require(world == n_pods,
+                         f"the default process group has {world} ranks but "
+                         f"the mesh's pod axis {n_pods}: the launch backend "
+                         f"runs one pod a rank")
+            else:
+                _require(world in (n_pods * shards, shards),
+                         f"the default process group has {world} ranks but "
+                         f"the mesh {list(mesh_shape)} needs "
+                         f"{n_pods * shards} (one pod a rank) or {shards} "
+                         f"(the pods stacked on every rank)")
             group = dist.group.WORLD
         mesh = make_mesh(mesh_shape, ("pod", "data", "model"),
                          device=device, group=group)

@@ -12,8 +12,9 @@ reference's `ShapeDtypeStruct`s from `jax.eval_shape`), from the port's
 own `transformer.init`, `init_cache`, `cache_axes` and `optimizer.init`,
 each beside its spec (`runtime.sharding`: a tuple, one entry per
 dimension). The dry-run (`launch/dryrun.py`) reckons per-device bytes
-from them. The reference's `to_shardings` has no counterpart until the
-data and model axes execute.
+from them; `placements` turns them into DTensor placements (the
+reference's `to_shardings`), by which `launch.train` places a sharded
+pod's parameters, optimizer state and batches (`train_placements`).
 """
 
 from __future__ import annotations
@@ -156,6 +157,39 @@ def batch_specs(cfg: ModelConfig, cell: ShapeCell, mesh,
             dtype=cfg.dtype, device=META)
         spec["enc"] = batch_spec[:len(lead) + 1] + (None, None)
     return batch, spec
+
+
+def placements(specs: PyTree, device_mesh) -> PyTree:
+    """The DTensor placements of a tree of specs on `device_mesh`
+    (`runtime.sharding.to_placements`, leaf for leaf; None stays None).
+    A stacked tree's "pod" entry shards the pod dimension on a (pod, data,
+    model) DeviceMesh and leaves it whole (the pods stacked on the rank)
+    on a (data, model) one."""
+    flat, treedef = _pytree.tree_flatten(
+        specs, is_leaf=lambda x: x is None or is_spec_leaf(x))
+    return _pytree.tree_unflatten(
+        [None if s is None else shrules.to_placements(s, device_mesh)
+         for s in flat], treedef)
+
+
+def train_placements(cfg: ModelConfig, optimizer: Optimizer, mesh,
+                     batch: tuple[int, int]) -> tuple[PyTree, PyTree, tuple]:
+    """(param placements, optimizer-state placements, batch placements)
+    of consensus training's pod-stacked state on `mesh.shard_mesh`: the
+    specs of `param_specs` and `opt_state_specs`, stacked
+    (`pod_stack_specs`), and of a pod-stacked (n, B, S) token batch (the
+    rows over 'data' where B divides), each through `placements`."""
+    n_pods = shrules.mesh_axis_sizes(mesh).get("pod", 1)
+    aparams, pspecs = param_specs(cfg, mesh)
+    astate, sspecs = opt_state_specs(optimizer, aparams, pspecs)
+    _, pspecs = pod_stack_specs(aparams, pspecs, n_pods)
+    _, sspecs = pod_stack_specs(astate, sspecs, n_pods)
+    bspec = ("pod",) + shrules.logical_to_spec(
+        batch, ("batch", "seq"), shrules.DEFAULT_RULES,
+        shrules.mesh_axis_sizes(mesh))
+    dm = mesh.shard_mesh
+    return (placements(pspecs, dm), placements(sspecs, dm),
+            shrules.to_placements(bspec, dm))
 
 
 def cache_specs(cfg: ModelConfig, cell: ShapeCell, mesh

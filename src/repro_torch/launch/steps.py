@@ -25,6 +25,18 @@ written back in place: in each leaf's dtype for the mix step (the
 reference's `mix_body`), in float32 for the fused step (its `_dense_mix`:
 upcast, collective, cast back).
 
+When a pod's replica is sharded (a mesh with a data or model axis above
+1, `launch.mesh.Mesh.shard_mesh`), its leaves are DTensors placed by the
+sharding rules: the forward gathers each layer's parameters over 'data'
+where it runs (FSDP) and redistributes activations at the reference's
+`constrain` points (tensor and sequence parallelism over 'model'); the
+backward hands each gradient back in its parameter's placements (the
+data axis's partial sums reduce-scattered). The optimizer's elementwise
+update then runs on each rank's own shards, and the mix on them too: K1
+over the pods stacked on the rank (every pod's slice of a leaf lies
+alike, so the mix of the shards is the shard of the mix), or the
+collectives over the DeviceMesh's `pod` sub-group with one pod a rank.
+
 The inference steps run where their tensors are, without autograd:
 prefill returns the last position's logits of `transformer.forward`, and
 the serve step is one `transformer.decode_step`, which overwrites the
@@ -34,15 +46,19 @@ the same tensors.
 
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as _pytree
 
 from repro_torch.core.consensus import mix_collective, tree_mix_gossip
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import Optimizer, OptState
+from repro_torch.runtime.sharding import is_dtensor
 
 PyTree = Any
 
@@ -78,21 +94,89 @@ def _grads_like(params: PyTree, flat_grads: list[torch.Tensor]) -> PyTree:
     return out
 
 
+def _replicated(leaves):
+    """DTensor's implicit replication of plain tensors (positions, masks)
+    beside a sharded replica's DTensors; nothing on one device."""
+    if leaves and is_dtensor(leaves[0]):
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def _placed_like(g, p):
+    """A DTensor gradient redistributed to its parameter's placements
+    (the data axis's partial sums reduce-scattered); else `g`."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def grad_fn(params: PyTree, batch: dict, cfg: ModelConfig,
             moe_groups: int = 1) -> tuple[torch.Tensor, PyTree]:
     """(loss, grads) of `transformer.loss_fn` at one pod's params: the
-    reference's `jax.value_and_grad`. Gradients are in each leaf's dtype."""
+    reference's `jax.value_and_grad`. Gradients are in each leaf's dtype;
+    on DTensor params (a sharded replica) they are DTensors with the
+    params' placements and the loss is a plain tensor, the same on every
+    rank."""
     train = _trainable(params)
     flat = _pytree.tree_leaves(train)
-    with torch.enable_grad():
+    with torch.enable_grad(), _replicated(flat):
         loss = transformer.loss_fn(train, batch, cfg, moe_groups)
         grads = torch.autograd.grad(loss, flat)
-    return loss.detach(), _grads_like(params, list(grads))
+    grads = [_placed_like(g, p) for g, p in zip(grads, flat)]
+    loss = loss.detach()
+    if is_dtensor(loss):
+        loss = loss.full_tensor()
+    return loss, _grads_like(params, grads)
 
 
 def _grad_norm(grads: PyTree) -> torch.Tensor:
+    leaves = _pytree.tree_leaves(grads)
+    if leaves and is_dtensor(leaves[0]):
+        return _sharded_norm(leaves)
     return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in _pytree.tree_leaves(grads)))
+                          for g in leaves))
+
+
+def _sharded_norm(leaves: list) -> torch.Tensor:
+    """The 2-norm of DTensor gradients, a plain tensor equal on every
+    rank: each rank's sum of squares of its shards, each divided by the
+    ranks that hold a copy of it (a power of two on these meshes, so
+    exact), summed over the DeviceMesh's ranks one mesh dimension at a
+    time."""
+    mesh = leaves[0].device_mesh
+    total = None
+    for g in leaves:
+        copies = math.prod(mesh.size(d) for d, pl in enumerate(g.placements)
+                           if pl.is_replicate())
+        part = torch.sum(torch.square(g.to_local().float())) / copies
+        total = part if total is None else total + part
+    for d in range(mesh.ndim):
+        if mesh.size(d) > 1:
+            dist.all_reduce(total, group=mesh.get_group(d))
+    return torch.sqrt(total)
+
+
+def _local(tree: PyTree) -> PyTree:
+    """Each DTensor leaf's local shard (a view of its storage), plain
+    leaves as they are."""
+    if tree is None:
+        return None
+    return _pytree.tree_map(lambda t: t.to_local() if is_dtensor(t) else t,
+                            tree)
+
+
+def _like(local: PyTree, tree: PyTree) -> PyTree:
+    """New local shards `local` as DTensors placed as `tree`'s leaves."""
+    from torch.distributed.tensor import DTensor
+
+    def one(new, old):
+        if not is_dtensor(old):
+            return new
+        return DTensor.from_local(new, old.device_mesh, old.placements,
+                                  run_check=False, shape=old.shape,
+                                  stride=old.stride())
+    return _pytree.tree_map(one, local, tree)
 
 
 def _loss_and_grads(params, batch, cfg: ModelConfig, moe_groups: int,
@@ -216,6 +300,11 @@ def make_consensus_steps(cfg: ModelConfig, optimizer: Optimizer, graph,
         raise ValueError(f"mix_target must be 'params' or 'z', got "
                          f"{mix_target!r}")
 
+    sharded = mesh.shard_mesh is not None
+    if sharded and microbatches != 1:
+        raise ValueError("gradient accumulation (microbatches > 1) is not "
+                         "ported for a sharded replica")
+
     def local(params, opt_state, batch):
         n = batch["tokens"].shape[0]
         losses, norms = [], []
@@ -224,20 +313,28 @@ def make_consensus_steps(cfg: ModelConfig, optimizer: Optimizer, graph,
             st_i = OptState(opt_state.step[i], _pod(opt_state.inner, i))
             loss, grads = _loss_and_grads(p_i, _pod(batch, i), cfg,
                                           moe_groups, microbatches)
-            optimizer.update_(grads, st_i, p_i)
-            losses.append(loss)
             norms.append(_grad_norm(grads))
+            # sharded: the elementwise update on each rank's own shards
+            grads = _pytree.tree_map(lambda g: g.contiguous(),
+                                     _local(grads))
+            optimizer.update_(grads, OptState(st_i.step, _local(st_i.inner)),
+                              _local(p_i))
+            losses.append(loss)
             del grads
         return params, opt_state, {"loss": torch.stack(losses),
                                    "grad_norm": torch.stack(norms)}
 
-    ranked = mesh.group is not None
+    ranked = mesh.pod_group is not None
 
     def mixed(params, opt_state, float32: bool):
         def one(tree):
-            if ranked:
-                return _rank_mix(tree, graph, mesh, float32)
-            return tree_mix_gossip(tree, graph, device=mesh.device)
+            if ranked:  # in place on each rank's shards
+                _rank_mix(_local(tree), graph, mesh, float32)
+                return tree
+            # the mix of the local shards is the shard of the mix: every
+            # pod's slice of a leaf lies alike
+            return _like(tree_mix_gossip(_local(tree), graph,
+                                         device=mesh.device), tree)
         if mix_target == "params":
             return one(params), opt_state
         inner = dict(opt_state.inner)

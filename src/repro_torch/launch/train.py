@@ -17,6 +17,17 @@ its own slot (adding zeros is exact, and gloo takes CUDA tensors in an
 all-reduce but not in an all-gather), so every rank logs the stacked
 run's float. Checkpoints are the stacked run's files: rank 0 gathers the
 pods and writes them, and a restore scatters them back from rank 0.
+
+With a data or model axis above 1 each pod's replica is sharded
+(`launch.mesh`): every rank draws its pods whole (the same bits) and keeps
+its shards (`init_state`; one pod is whole on each rank while it is
+drawn), streams its pods' full batches, cut by their placements (the rows
+over 'data'), and runs the steps under the sharding rules
+(`runtime.sharding.use_rules`), as the reference runs its program. Each
+rank returns the same report: the losses are whole on every rank.
+Checkpoints gather every leaf whole (`full_tensor`) and rank 0 writes the
+stacked run's files; a restore cuts the shards again, so a run resumes
+across layouts.
 """
 
 from __future__ import annotations
@@ -25,6 +36,7 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as _pytree
 
 from repro_torch.checkpoint import CheckpointManager
@@ -38,6 +50,26 @@ from repro_torch.launch.steps import make_consensus_steps
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import Optimizer, OptState
+from repro_torch.runtime import sharding as shrules
+from repro_torch.runtime.sharding import is_dtensor
+
+
+#: the model families whose replica trains sharded over data and model
+#: (the reference's layouts, held to it in tests/test_torch_sharded*.py);
+#: the rest are refused on such a mesh (ROADMAP queue 1)
+SHARDED_FAMILIES = ("dense", "audio", "ssm", "hybrid")
+
+
+def check_sharded_family(cfg: ModelConfig, mesh: Mesh) -> None:
+    """Raise `ValueError`, naming the family, when `mesh` has a data or
+    model axis above 1 and `cfg`'s family does not train sharded yet."""
+    sizes = mesh_shape(mesh)
+    if (max(sizes.get("data", 1), sizes.get("model", 1)) > 1
+            and cfg.family not in SHARDED_FAMILIES):
+        raise ValueError(
+            f"the {cfg.family} family ({cfg.name}) does not train with a "
+            f"pod sharded over data/model yet (mesh {sizes}); the families "
+            f"that do: {', '.join(SHARDED_FAMILIES)}")
 
 
 @dataclasses.dataclass
@@ -53,20 +85,69 @@ class TrainReport:
 
 
 def init_state(cfg: ModelConfig, optimizer: Optimizer, n_pods: int, seed: int,
-               device, pods=None) -> tuple[dict, OptState]:
+               device, pods=None, mesh: Mesh | None = None
+               ) -> tuple[dict, OptState]:
     """Pod-stacked (params, opt_state) from `seed`, as the reference's
     `init_all` draws them: one key per pod from `split(PRNGKey(seed),
     n_pods)`, each pod's params from `transformer.init` and its optimizer
     state from `optimizer.init` (zeros and a step of 0 for every port
     optimizer, so it is built on the stacked params at once). `pods`
-    (default: all) picks the pods stacked, e.g. one rank's `[rank]`."""
+    (default: all) picks the pods stacked, e.g. one rank's `[rank]`.
+
+    On a mesh whose pods are sharded (`mesh.shard_mesh`) the stacked
+    params are drawn whole, as above (the same bits), then each leaf is
+    cut to this rank's shard by its placements (`specs.train_placements`)
+    and the whole dropped; the optimizer state is built on the shards.
+    The step counter stays a plain tensor."""
     pods = list(range(n_pods)) if pods is None else list(pods)
     keys = prng.split(prng.key(seed, device), n_pods)
     params = sp.pod_stack((transformer.init(keys[i], cfg)[0] for i in pods),
                           len(pods))
-    state = optimizer.init(params)
     step = torch.zeros((len(pods),), dtype=torch.int32, device=device)
-    return params, OptState(step, state.inner)
+    if mesh is None or mesh.shard_mesh is None:
+        return params, OptState(step, optimizer.init(params).inner)
+    from torch.distributed.tensor import DTensor
+
+    p_pl, s_pl, _ = sp.train_placements(cfg, optimizer, mesh, (1, 1))
+    flat, treedef = _pytree.tree_flatten(params)
+    del params  # each whole leaf goes as its shard is cut
+    placed = []
+    for i, pl in enumerate(_placement_leaves(p_pl)):
+        placed.append(_cut(flat[i], mesh.shard_mesh, pl))
+        flat[i] = None
+    params = _pytree.tree_unflatten(placed, treedef)
+    # every optimizer state tree mirrors the params leaf for leaf
+    inner = optimizer.init(_pytree.tree_map(lambda t: t.to_local(),
+                                            params)).inner
+    flat_s, sdef = _pytree.tree_flatten(inner)
+    wrapped = [DTensor.from_local(t, mesh.shard_mesh, pl, run_check=False,
+                                  shape=placed[i % len(placed)].shape,
+                                  stride=placed[i % len(placed)].stride())
+               for i, (t, pl) in enumerate(zip(
+                   flat_s, _placement_leaves(s_pl.inner)))]
+    return params, OptState(step, _pytree.tree_unflatten(wrapped, sdef))
+
+
+def _cut(t: torch.Tensor, device_mesh, placements):
+    """This rank's shard of a whole tensor `t` (the same on every rank) as
+    a DTensor, without communication; a shard that is a view of `t` is
+    copied, so that `t` can be freed."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    local = distribute_tensor(t, device_mesh, placements,
+                              src_data_rank=None).to_local()
+    if local.numel() < t.numel():
+        local = local.clone()
+    return DTensor.from_local(local, device_mesh, placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def _placement_leaves(tree) -> list:
+    """The placements tuples of a tree of them, in leaf order."""
+    return _pytree.tree_leaves(
+        tree, is_leaf=lambda x: isinstance(x, tuple) and all(
+            hasattr(pl, "is_shard") for pl in x))
 
 
 def _stacked_batch(streams) -> dict:
@@ -85,9 +166,7 @@ def _restore_into(state, restored) -> None:
 def _gather_pods(tree, mesh: Mesh, n_pods: int):
     """Rank 0: the pod-stacked host tree of every rank's pod (each leaf
     broadcast from its rank in turn); other ranks: None."""
-    import torch.distributed as dist
-
-    rank, group = mesh.pod_rank, mesh.group
+    rank, group = mesh.pod_rank, mesh.pod_group
     leaves, spec = _pytree.tree_flatten(tree)
     out = []
     for leaf in leaves:
@@ -110,9 +189,7 @@ def _scatter_pods(tree, stacked, mesh: Mesh, n_pods: int) -> None:
     """Each rank's pod of rank 0's pod-stacked host tree `stacked` (None on
     the other ranks), broadcast from rank 0 pod by pod, copied into
     `tree`'s leaves (leading pod dimension 1)."""
-    import torch.distributed as dist
-
-    rank, group = mesh.pod_rank, mesh.group
+    rank, group = mesh.pod_rank, mesh.pod_group
     root = dist.get_global_rank(group, 0)
     leaves = _pytree.tree_leaves(tree)
     sources = _pytree.tree_leaves(stacked) if rank == 0 else [None] * len(
@@ -132,8 +209,6 @@ def _restore_ranked(mgr, state, mesh: Mesh, n_pods: int) -> int | None:
     """Rank 0 reads the latest pod-stacked checkpoint (None on the other
     ranks, which hold no manager) and scatters it; returns its step on
     every rank, or None."""
-    import torch.distributed as dist
-
     got = None
     if mesh.pod_rank == 0 and mgr is not None:
         like = _pytree.tree_map(
@@ -143,8 +218,8 @@ def _restore_ranked(mgr, state, mesh: Mesh, n_pods: int) -> int | None:
         got = mgr.restore_latest(like)
     flag = torch.tensor([-1 if got is None else got[0]], dtype=torch.int64,
                         device=mesh.device)
-    dist.broadcast(flag, src=dist.get_global_rank(mesh.group, 0),
-                   group=mesh.group)
+    dist.broadcast(flag, src=dist.get_global_rank(mesh.pod_group, 0),
+                   group=mesh.pod_group)
     step = int(flag.item())
     if step < 0:
         return None
@@ -152,16 +227,67 @@ def _restore_ranked(mgr, state, mesh: Mesh, n_pods: int) -> int | None:
     return step
 
 
-def _mean_loss(losses: torch.Tensor, mesh: Mesh, n_pods: int) -> float:
-    """The mean of the (n,) pod losses in pod order: across ranks, each
-    rank's loss in its own slot of a zero-filled vector, all-reduced."""
-    if mesh.group is None:
-        return float(torch.mean(losses))
-    import torch.distributed as dist
+def _gather_sharded(tree, mesh: Mesh, n_pods: int):
+    """Rank 0 of the mesh's group: the pod-stacked host tree of a sharded
+    run's state (each DTensor leaf gathered whole, then, with one pod a
+    rank, the pods gathered over the pod axis); other ranks: None."""
+    whole = _pytree.tree_map(
+        lambda t: t.full_tensor() if is_dtensor(t) else t, tree)
+    if mesh.pod_group is not None:
+        return _gather_pods(whole, mesh, n_pods)
+    if dist.get_rank(mesh.group) != 0:
+        return None
+    return _pytree.tree_map(lambda t: t.cpu(), whole)
 
+
+def _restore_sharded(mgr, state, mesh: Mesh, n_pods: int,
+                     pods: list[int]) -> int | None:
+    """Rank 0 of the mesh's group reads the latest pod-stacked checkpoint
+    and broadcasts it leaf by leaf to every rank, which keeps its pods'
+    shards (each DTensor leaf cut by its placements, as `init_state`
+    cuts them): a run resumes from a checkpoint of any layout. Returns
+    its step on every rank, or None."""
+    group = mesh.group
+    root = dist.get_global_rank(group, 0)
+    got = None
+    if dist.get_rank(group) == 0 and mgr is not None:
+        like = _pytree.tree_map(
+            lambda t: None if t is None else torch.empty(
+                (n_pods,) + tuple(t.shape[1:]), dtype=t.dtype,
+                device="meta"), state)
+        got = mgr.restore_latest(like)
+    flag = torch.tensor([-1 if got is None else got[0]], dtype=torch.int64,
+                        device=mesh.device)
+    dist.broadcast(flag, src=root, group=group)
+    step = int(flag.item())
+    if step < 0:
+        return None
+    leaves = _pytree.tree_leaves(state)
+    sources = (_pytree.tree_leaves(got[1]) if got is not None
+               else [None] * len(leaves))
+    index = torch.tensor(pods, device=mesh.device)
+    for leaf, src in zip(leaves, sources):
+        buf = (src.to(mesh.device) if src is not None else torch.empty(
+            (n_pods,) + tuple(leaf.shape[1:]), dtype=leaf.dtype,
+            device=mesh.device))
+        dist.broadcast(buf, src=root, group=group)
+        part = buf.index_select(0, index)
+        if is_dtensor(leaf):
+            part = _cut(part, leaf.device_mesh, leaf.placements).to_local()
+            leaf = leaf.to_local()
+        leaf.copy_(part)
+    return step
+
+
+def _mean_loss(losses: torch.Tensor, mesh: Mesh, n_pods: int) -> float:
+    """The mean of the (n,) pod losses in pod order: with one pod a rank,
+    each rank's loss in its own slot of a zero-filled vector, all-reduced
+    over the pod axis."""
+    if mesh.pod_group is None:
+        return float(torch.mean(losses))
     vec = torch.zeros((n_pods,), dtype=losses.dtype, device=losses.device)
     vec[mesh.pod_rank] = losses[0]
-    dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=mesh.group)
+    dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=mesh.pod_group)
     return float(torch.mean(vec))
 
 
@@ -217,6 +343,7 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
     per training step / build; the per-step walls and comm flags are also
     returned in `extras["step_walls"]` / `extras["step_comm"]`.
     """
+    check_sharded_family(cfg, mesh)
     schedule = schedule or EveryIteration()
     axis_sizes = mesh_shape(mesh)
     n_pods = axis_sizes.get("pod", 1)
@@ -237,11 +364,16 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
                                              mix_target=mix_target)
     build_s = time.perf_counter() - t0
 
-    ranked = mesh.group is not None
+    ranked = mesh.pod_group is not None
+    sharded = mesh.shard_mesh is not None
     # the pods this process holds: all of them, or its rank's
     pods = [mesh.pod_rank] if ranked else list(range(n_pods))
     params, opt_state = init_state(cfg, optimizer, n_pods, seed, device,
-                                   pods=pods)
+                                   pods=pods,
+                                   mesh=None if dryrun else mesh)
+    batch_pl = (sp.train_placements(cfg, optimizer, mesh,
+                                    (batch_per_node, seq_len))[2]
+                if sharded and not dryrun else None)
     streams = [TokenStream(cfg.vocab_size, seq_len, batch_per_node,
                            node_index=i, num_nodes=n_pods, seed=seed,
                            device=device)
@@ -267,10 +399,14 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
                                sim_time_units=0.0, extras=extras)
 
         # across ranks rank 0 alone writes and reads the stacked files
-        writer = ckpt_dir and (not ranked or mesh.pod_rank == 0)
+        writer = ckpt_dir and (mesh.group is None
+                               or dist.get_rank(mesh.group) == 0)
         mgr = CheckpointManager(ckpt_dir) if writer else None
         resumed = None
-        if ranked and ckpt_dir:
+        if sharded and ckpt_dir:
+            resumed = _restore_sharded(mgr, (params, opt_state), mesh,
+                                       n_pods, pods)
+        elif ranked and ckpt_dir:
             resumed = _restore_ranked(mgr, (params, opt_state), mesh, n_pods)
         elif mgr is not None:
             got = mgr.restore_latest((params, opt_state))
@@ -286,10 +422,15 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
         step_comm: list[bool] = []
         for t in range(start_step + 1, steps + 1):
             batch = _stacked_batch(streams)
+            if sharded:
+                batch = {k: _cut(v, mesh.shard_mesh, batch_pl)
+                         for k, v in batch.items()}
             comm = schedule.is_comm_step(t)
             step_fn = fused if comm else local
             t0 = time.perf_counter()
-            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            with shrules.use_rules(shrules.DEFAULT_RULES, mesh):
+                params, opt_state, metrics = step_fn(params, opt_state,
+                                                     batch)
             sim_time += 1.0 / n_pods + (k * r_estimate if comm else 0.0)
             comm_rounds += int(comm)
             loss = _mean_loss(metrics["loss"], mesh, n_pods)  # waits
@@ -301,13 +442,18 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
                                      tracer.now() - wall, wall,
                                      track="launch", t=t)
             losses.append(loss)
-            if log_every and t % log_every == 0 and pods[0] == 0:
+            if log_every and t % log_every == 0 and (
+                    mesh.group is None or dist.get_rank(mesh.group) == 0):
                 print(f"[train] step {t} loss {loss:.4f} "
                       f"comm_rounds {comm_rounds} sim_time {sim_time:.2f}",
                       flush=True)
             if ckpt_dir and t % ckpt_every == 0:
-                tree = (_gather_pods((params, opt_state), mesh, n_pods)
-                        if ranked else (params, opt_state))
+                if sharded:
+                    tree = _gather_sharded((params, opt_state), mesh, n_pods)
+                elif ranked:
+                    tree = _gather_pods((params, opt_state), mesh, n_pods)
+                else:
+                    tree = (params, opt_state)
                 if mgr is not None:
                     mgr.save(t, tree, extra={"step": t})
         if mgr is not None:

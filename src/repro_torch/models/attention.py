@@ -17,6 +17,14 @@ not the reference's: the scores are rounded to the activations' dtype by
 their einsum and then taken to float32, the softmax weights cast back
 before P·V, as the reference casts.
 
+On a sharded pod (DTensor parameters and activations) GQA takes the
+reference's sharding constraints (`runtime.sharding.constrain`: q, k and
+v sequence-parallel, then k and v over their heads), the projections
+gathered over 'model', and `_sdpa_causal_sharded` runs the attention on
+each rank's own rows and kv heads under `local_map`; on one device none
+of this changes a bit. MLA and cross-attention take no constraints yet
+(their families are refused on a sharded mesh).
+
 Decode writes the new token's keys (or latent) into the cache at `pos` in
 place, the counterpart of the reference's donated cache, and returns the
 same tensors. Its scores are contracted in float32 from the operands as
@@ -38,6 +46,8 @@ from repro_torch import resolve_device_or_meta
 from repro_torch.compress import prng
 from repro_torch.models.common import (ModelConfig, apply_rope, p,
                                        promoted_einsum, pz, rms_norm)
+from repro_torch.runtime.sharding import (constrain, gather_axis, is_dtensor,
+                                          rules_active)
 
 PyTree = Any
 
@@ -66,6 +76,12 @@ def gqa_init(key: prng.Key, cfg: ModelConfig) -> PyTree:
 
 
 def _qkv(prm, x, cfg: ModelConfig, positions):
+    if rules_active():
+        # sharded: the projections gathered over 'model' as well, so each
+        # rank projects its own tokens (q, k and v come out
+        # sequence-parallel)
+        prm = gather_axis({k: prm[k] for k in ("wq", "wk", "wv", "bq", "bk",
+                                               "bv") if k in prm}, "model")
     q = torch.einsum("bsd,dhk->bshk", x, prm["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, prm["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, prm["wv"])
@@ -73,6 +89,15 @@ def _qkv(prm, x, cfg: ModelConfig, positions):
         q, k, v = q + prm["bq"], k + prm["bk"], v + prm["bv"]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    # q stays sequence-parallel; k and v are computed sequence-sharded and
+    # then gathered over the sequence (the reference's two constraints;
+    # the redistributes run in the order written, so its barrier between
+    # them has no counterpart)
+    q = constrain(q, ("batch", "seq_sp", "q_heads", "head"))
+    k = constrain(k, ("batch", "seq_sp", "kv_heads", "head"))
+    v = constrain(v, ("batch", "seq_sp", "kv_heads", "head"))
+    k = constrain(k, ("batch", None, "kv_heads", "head"))
+    v = constrain(v, ("batch", None, "kv_heads", "head"))
     return q, k, v
 
 
@@ -140,11 +165,33 @@ def _sdpa_causal(q, k, v):
     """Grouped causal attention. q: (B,S,H,hd); k, v: (B,T,K,hd).
 
     The reference's launcher takes the streamed form where T is above one
-    KV chunk and a multiple of it, else the whole score matrix."""
+    KV chunk and a multiple of it, else the whole score matrix. DTensors
+    (a sharded replica) take `_sdpa_causal_sharded`."""
+    if is_dtensor(q):
+        return _sdpa_causal_sharded(q, k, v)
     T = k.shape[1]
     if T > _KV_CHUNK and T % _KV_CHUNK == 0:
         return _sdpa_causal_streamed(q, k, v)
     return _sdpa_causal_whole(q, k, v)
+
+
+def _sdpa_causal_sharded(q, k, v):
+    """`_sdpa_causal` of DTensors, on each rank's own shards: every rank
+    attends its batch rows and its kv heads (with their q heads) over the
+    whole sequence, as one device would. k and v keep the batch and head
+    placements `_qkv`'s constraints gave them (a head-dim or sequence
+    shard, where the heads do not divide, is gathered); q is taken to the
+    same layout. The output keeps it (heads over 'model'), for the output
+    projection's reduce-scatter."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = k.device_mesh
+    kv = tuple(pl if pl.is_shard() and pl.dim in (0, 2) else Replicate()
+               for pl in k.placements)
+    q, k, v = (t.redistribute(mesh, kv) for t in (q, k, v))
+    return local_map(_sdpa_causal, out_placements=(kv,),
+                     in_placements=(kv, kv, kv), device_mesh=mesh)(q, k, v)
 
 
 def gqa_apply(prm, x, cfg: ModelConfig, positions) -> torch.Tensor:
@@ -152,7 +199,8 @@ def gqa_apply(prm, x, cfg: ModelConfig, positions) -> torch.Tensor:
     h = rms_norm(x, prm["norm"])
     q, k, v = _qkv(prm, h, cfg, positions)
     out = _sdpa_causal(q, k, v)
-    return torch.einsum("bshk,hkd->bsd", out, prm["wo"])
+    out = torch.einsum("bshk,hkd->bsd", out, prm["wo"])
+    return constrain(out, ("batch", "seq_sp", "embed_act"))
 
 
 def _decode_positions(x: torch.Tensor, pos) -> torch.Tensor:

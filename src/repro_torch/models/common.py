@@ -4,8 +4,8 @@ embeddings, activations and the loss.
 
 Every parameter is built through `p(key, shape, axes)` which returns a
 `(tensor, axes)` pair; `split_axes` separates the two parallel trees. The
-logical axis names stay as data: the port stacks a run's pods on one card,
-and mapping them to mesh axes waits for the multi-card slice.
+logical axis names map to mesh axes through `runtime.sharding`: a sharded
+pod's leaves are DTensors placed by them (`launch/specs.py`).
 
 Rounding follows the reference's casts: weights in `cfg.dtype` (bf16),
 norm scales float32, `rms_norm`, `apply_rope` and the loss computed in
@@ -227,7 +227,9 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1,
-                        torch.clamp(labels, min=0)[..., None].long())[..., 0]
-    nll = logz - gold
+                        torch.clamp(labels, min=0)[..., None].long())
+    # subtracted before the trailing dimension goes, so a vocab-sharded
+    # DTensor's masked partial gold is reduced at the gather's own shape
+    nll = (logz[..., None] - gold)[..., 0]
     mask = (labels >= 0).float()
     return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -2,9 +2,11 @@
 (SwiGLU / squared-ReLU / GELU; `mlp_init`, `_ffn`, `mlp_apply`) and the
 Mixture-of-Experts FFN with shared experts and top-k token-choice routing
 (`moe_init`, `_dispatch_indices`, `_moe_grouped`, `moe_apply`,
-`moe_aux_loss`). The reference's sequence-parallel and Megatron TP splits
-(`cfg.mlp_tp`) and its expert and data sharding constraints are sharding
-choices of one function; on one card each is this.
+`moe_aux_loss`). The dense FFN takes the reference's sequence-parallel
+and Megatron TP layouts (`cfg.mlp_tp`) through `runtime.sharding.constrain`
+when its tensors are DTensors (a sharded pod) and is unchanged on one
+device; the MoE's expert and data constraints are not ported (a sharded
+mesh refuses the MoE family, `launch/train.py` `check_sharded_family`).
 
 MoE dispatch is the reference's sort-based fixed-capacity scheme: flatten
 the token assignments (token-major, `n * K + k`), sort them stably by
@@ -32,6 +34,7 @@ import torch
 from repro_torch.compress import prng
 from repro_torch.compress.base import _top_indices
 from repro_torch.models.common import ModelConfig, p, pz, rms_norm
+from repro_torch.runtime.sharding import constrain, gather_axis
 
 PyTree = Any
 
@@ -52,6 +55,16 @@ def mlp_init(key: prng.Key, cfg: ModelConfig, d_ff: int | None = None
 
 
 def _ffn(prm, h, cfg: ModelConfig):
+    # sequence-parallel by default (each rank runs the full d_ff for its
+    # token shard), or, under cfg.mlp_tp, the Megatron split: d_ff over
+    # 'model', the tokens gathered (the reference's two layouts)
+    tok_axes = (("batch", "seq", "embed_act") if cfg.mlp_tp
+                else ("batch", "seq_sp", "embed_act"))
+    act_axes = (("batch", "seq", "mlp") if cfg.mlp_tp
+                else ("batch", "seq_sp", None))
+    h = constrain(h, tok_axes)
+    if not cfg.mlp_tp:  # sharded: each rank holds the whole FFN
+        prm = gather_axis(prm, "model")
     up = torch.einsum("bsd,df->bsf", h, prm["w_up"])
     if cfg.mlp_act == "swiglu":
         gate = torch.einsum("bsd,df->bsf", h, prm["w_gate"])
@@ -61,13 +74,14 @@ def _ffn(prm, h, cfg: ModelConfig):
         act = r * r
     else:
         act = torch.nn.functional.gelu(up, approximate="tanh")
+    act = constrain(act, act_axes)
     return torch.einsum("bsf,fd->bsd", act, prm["w_down"])
 
 
 def mlp_apply(prm, x, cfg: ModelConfig, d_ff: int | None = None
               ) -> torch.Tensor:
     h = rms_norm(x, prm["norm"])
-    return _ffn(prm, h, cfg)
+    return constrain(_ffn(prm, h, cfg), ("batch", "seq_sp", "embed_act"))
 
 
 # ---------------------------------------------------------------------------

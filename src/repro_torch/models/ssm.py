@@ -47,6 +47,7 @@ from repro_torch.compress import prng
 from repro_torch import resolve_device_or_meta
 from repro_torch.models.common import (ModelConfig, p, promoted_einsum,
                                        pz, rms_norm)
+from repro_torch.runtime.sharding import constrain
 
 PyTree = Any
 
@@ -184,6 +185,7 @@ def mamba1_mix(prm, xz: torch.Tensor, cfg: ModelConfig,
     N = cfg.ssm_state
     x, z = torch.chunk(xz, 2, dim=-1)
     x = F.silu(_causal_conv(x, prm["conv_w"], prm["conv_b"]))
+    x = constrain(x, ("batch", "seq", "ssm_inner"))
 
     proj = torch.einsum("bsd,dk->bsk", x, prm["x_proj"])
     dt_r, B_, C_ = torch.split(proj, [dt_rank, N, N], dim=-1)
@@ -204,8 +206,10 @@ def mamba1_mix(prm, xz: torch.Tensor, cfg: ModelConfig,
 def mamba1_apply(prm, x, cfg: ModelConfig, positions=None) -> torch.Tensor:
     h = rms_norm(x, prm["norm"])
     xz = torch.einsum("bsd,de->bse", h, prm["in_proj"])
+    xz = constrain(xz, ("batch", "seq", "ssm_inner"))
     y = mamba1_mix(prm, xz, cfg)
-    return torch.einsum("bse,ed->bsd", y, prm["out_proj"])
+    out = torch.einsum("bse,ed->bsd", y, prm["out_proj"])
+    return constrain(out, ("batch", "seq", "embed_act"))
 
 
 def mamba1_init_cache(cfg: ModelConfig, batch: int, dtype, device=None
@@ -380,8 +384,10 @@ def mamba2_mix(prm, zxbcdt: torch.Tensor, cfg: ModelConfig,
 def mamba2_apply(prm, x, cfg: ModelConfig, positions=None) -> torch.Tensor:
     h = rms_norm(x, prm["norm"])
     zxbcdt = torch.einsum("bsd,de->bse", h, prm["in_proj"])
+    zxbcdt = constrain(zxbcdt, ("batch", "seq", "ssm_inner"))
     y = mamba2_mix(prm, zxbcdt, cfg)
-    return torch.einsum("bse,ed->bsd", y, prm["out_proj"])
+    out = torch.einsum("bse,ed->bsd", y, prm["out_proj"])
+    return constrain(out, ("batch", "seq", "embed_act"))
 
 
 def mamba2_init_cache(cfg: ModelConfig, batch: int, dtype, device=None

@@ -19,6 +19,12 @@ tensors (`launch.steps` does, so that each layer's gradient is its own
 tensor and no per-layer slice of a stacked leaf scatters into a zero
 tensor of the whole stack on the backward pass).
 
+A sharded pod's leaves are DTensors: each block's parameters are
+gathered over 'data' where it runs (`runtime.sharding.gather_axis`,
+FSDP; again in the checkpoint's recomputation), and the embedding, the
+block outputs (sequence-parallel) and the logits take the reference's
+constraints. On one device these are the identity.
+
 Block kinds: "attn", "attn_moe", "mla" and "mla_moe" (GQA or MLA
 attention, then the dense or the MoE FFN); "cross_attn" (the VLM's
 tanh-gated cross-attention to the encoder states `enc`, then the dense
@@ -56,6 +62,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ModelConfig, cross_entropy_loss, p,
                                        promoted_einsum, pz, rms_norm,
                                        split_axes)
+from repro_torch.runtime.sharding import constrain, gather_axis
 
 PyTree = Any
 
@@ -127,7 +134,9 @@ def _ffn_apply(kind: str, prm, x, cfg: ModelConfig, shared,
 def _block_apply(kind: str, prm, x, cfg: ModelConfig, positions, shared,
                  enc, moe_groups: int):
     x = x + _mixer_apply(kind, prm, x, cfg, positions, shared, enc)
-    return _ffn_apply(kind, prm, x, cfg, shared, moe_groups)
+    x = _ffn_apply(kind, prm, x, cfg, shared, moe_groups)
+    # the residual stream between blocks is sequence-parallel
+    return constrain(x, ("batch", "seq_sp", "embed_act"))
 
 
 def _shared_attn_apply(lora, shared, x, cfg: ModelConfig, positions):
@@ -314,13 +323,17 @@ def _sorted(tree: PyTree) -> PyTree:
 
 
 def _embed(params, tokens, cfg: ModelConfig):
-    return params["embed"][tokens.long()].to(cfg.dtype)
+    x = gather_axis(params["embed"])[tokens.long()]
+    return constrain(x.to(cfg.dtype), ("batch", "seq", "embed_act"))
 
 
 def _unembed(params, x, cfg: ModelConfig):
-    x = rms_norm(x, params["final_norm"])
-    head = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    return torch.einsum("bsd,dv->bsv", x, head)
+    x = constrain(x, ("batch", "seq", "embed_act"))  # one sequence gather
+    x = rms_norm(x, gather_axis(params["final_norm"]))
+    head = gather_axis(params["embed"].T if cfg.tie_embeddings
+                       else params["lm_head"])
+    logits = torch.einsum("bsd,dv->bsv", x, head)
+    return constrain(logits, ("batch", "seq", "vocab"))
 
 
 def _layer(tree: PyTree, j: int) -> PyTree:
@@ -343,8 +356,10 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
               "mlp": params.get("shared_mlp")}
 
     def block(x, kind, prm):
-        return _block_apply(kind, prm, x, cfg, positions, shared, enc,
-                            moe_groups)
+        # FSDP: a layer's parameters gathered over 'data' where it runs
+        # (again in the backward's recomputation)
+        return _block_apply(kind, gather_axis(prm), x, cfg, positions,
+                            gather_axis(shared), enc, moe_groups)
 
     for i, kind in enumerate(cfg.prologue):
         if remat:

@@ -13,17 +13,22 @@ A logical axis is only sharded if the dimension is divisible by the mesh
 axis size (e.g. llama3's 8 KV heads stay replicated on a model=16 mesh and
 the KV cache is sharded over sequence instead -- see DEFAULT_RULES).
 
-The port reckons with these specs (the dry-run's per-device bytes,
-`launch/specs.py`); it does not yet place tensors by them. Only the `pod`
-axis spans processes, as one pod per rank, so `constrain` returns its
-input unchanged, and the reference's `tree_shardings` (`NamedSharding`s
-for `in_shardings`) has no counterpart until the data and model axes
-execute as DTensor placements.
+The port places tensors by these specs as DTensor placements
+(`to_placements`: one `Shard(dim)` per mesh dimension a spec entry names,
+`Replicate()` on the others; `tree_placements`, the counterpart of the
+reference's `tree_shardings`) on the `torch.distributed` DeviceMesh of
+the axes that span ranks (`launch.mesh.Mesh.shard_mesh`). A spec entry
+naming an axis the DeviceMesh lacks (the pod axis when the pods stack on
+every rank) leaves that dimension whole. `constrain` redistributes a
+DTensor activation to its spec under the installed rules (the reference's
+`with_sharding_constraint`) and returns anything else unchanged, so a
+one-device run never sees it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 import threading
 from typing import Any, Sequence
 
@@ -145,13 +150,72 @@ def rules_active() -> bool:
     return _CTX.rules is not None and _CTX.mesh is not None
 
 
+def is_dtensor(x) -> bool:
+    """True for a `torch.distributed.tensor.DTensor` (imported only when
+    torch.distributed is, so a one-device run never loads it)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def to_placements(spec: Spec, device_mesh) -> tuple:
+    """DTensor placements of a spec on `device_mesh` (a DeviceMesh, or its
+    dimension names): `Shard(dim)` on each mesh dimension that spec entry
+    `dim` names, `Replicate()` on the others. A composite entry such as
+    ("pod", "data") shards its dimension over both mesh dimensions, which
+    must come in the mesh's order; an axis the mesh lacks is left out."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(getattr(device_mesh, "mesh_dim_names", device_mesh))
+    out: list = [Replicate()] * len(names)
+    for dim, entry in enumerate(spec):
+        axes = entry if isinstance(entry, tuple) else (
+            () if entry is None else (entry,))
+        last = -1
+        for a in axes:
+            if a not in names:
+                continue
+            m = names.index(a)
+            if m < last:
+                raise ValueError(f"spec entry {entry} shards dimension {dim} "
+                                 f"against the mesh's order {names}")
+            out[m], last = Shard(dim), m
+    return tuple(out)
+
+
 def constrain(x, axes: Sequence[str | None]):
-    """The reference's activation sharding constraint. Returns `x`
-    unchanged: no axis but `pod` spans processes yet, and a pod's tensors
-    lie whole on its rank. Once the data and model axes execute it
-    becomes a DTensor redistribute to `spec_for(x, axes)` when rules are
-    active."""
-    return x
+    """The reference's activation sharding constraint: under installed
+    rules a DTensor is redistributed to `spec_for(x, axes)`'s placements
+    on its own DeviceMesh (a no-op when it lies so already); a plain
+    tensor, or any tensor without rules, comes back unchanged."""
+    if not rules_active() or not is_dtensor(x):
+        return x
+    placements = to_placements(spec_for(x, axes), x.device_mesh)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def gather_axis(tree: PyTree, axis: str = "data") -> PyTree:
+    """Every DTensor leaf of `tree` gathered over the mesh dimension `axis`
+    (its placement there made `Replicate()`, the others kept), anything
+    else as it is: the FSDP gather of a layer's parameters before use.
+    Its backward reduce-scatters the gradients back to the parameters'
+    placements. Without installed rules the tree comes back as it is."""
+    if not rules_active():
+        return tree
+    from torch.distributed.tensor import Replicate
+
+    def one(t):
+        if not is_dtensor(t) or axis not in (t.device_mesh.mesh_dim_names
+                                             or ()):
+            return t
+        m = t.device_mesh.mesh_dim_names.index(axis)
+        if t.placements[m].is_replicate():
+            return t
+        placements = list(t.placements)
+        placements[m] = Replicate()
+        return t.redistribute(t.device_mesh, placements)
+    return _pytree.tree_map(one, tree)
 
 
 def is_axes_leaf(x) -> bool:
@@ -173,3 +237,16 @@ def tree_specs(abstract_tree: PyTree, axes_tree: PyTree, mesh,
     specs = [logical_to_spec(v.shape, a, rules, mesh_shape)
              for v, a in zip(flat_v, flat_a)]
     return _pytree.tree_unflatten(specs, treedef)
+
+
+def tree_placements(abstract_tree: PyTree, axes_tree: PyTree, mesh,
+                    device_mesh,
+                    rules: dict[str, tuple[str, ...]] | None = None
+                    ) -> PyTree:
+    """DTensor placements on `device_mesh` for a whole tree, from
+    `tree_specs` on `mesh` (the reference's `tree_shardings`)."""
+    specs = tree_specs(abstract_tree, axes_tree, mesh, rules)
+    return _pytree.tree_map(
+        lambda s: to_placements(s, device_mesh), specs,
+        is_leaf=lambda x: isinstance(x, tuple) and all(
+            e is None or isinstance(e, (str, tuple)) for e in x))

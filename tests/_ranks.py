@@ -182,3 +182,69 @@ def stacked_inputs(n: int, d: int, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     return {"z": rng.normal(size=(n, d)).astype(np.float32).tolist(),
             "acc": rng.normal(size=(n, d)).astype(np.float32).tolist()}
+
+
+def sharded(rank, n, payload):
+    """The sharded layouts' work (`tests/test_torch_sharded*.py`): each of
+    the payload's specs through `run`; the (2, 2, 2) checkpoint run written
+    to 4 steps, then a stacked run's files resumed to 6; `constrain` on a
+    DTensor under the rules; qwen1.5-110b's Megatron FFN (`mlp_tp`)
+    through `train_consensus_lm`."""
+    import dataclasses
+
+    import repro_torch
+    from repro_torch import optim
+    from repro_torch.core.schedules import Periodic
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train_consensus_lm
+    from repro_torch.models import registry
+
+    out = {name: repro_torch.run(repro_torch.ExperimentSpec.from_dict(spec),
+                                 device="cpu").to_dict()
+           for name, spec in payload.get("specs", {}).items()}
+    if payload.get("constrain"):
+        out["constrain"] = _constrain_case(payload["constrain"])
+    if payload.get("write"):
+        mesh = make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu",
+                         group=dist.group.WORLD)
+        out["written"] = train(mesh, 4, payload["write"]).losses
+        if payload.get("resume"):
+            rep = train(mesh, 6, payload["resume"])
+            out["resume"] = {"resumed_from": rep.resumed_from,
+                             "losses": rep.losses}
+    if payload.get("mlp_tp"):
+        cfg = dataclasses.replace(registry.get_config("qwen1.5-110b",
+                                                      "smoke"), mlp_tp=True)
+        mesh = make_mesh(tuple(payload["mlp_tp"]), ("pod", "data", "model"),
+                         device="cpu", group=dist.group.WORLD)
+        out["mlp_tp"] = train_consensus_lm(
+            cfg, optim.adamw(optim.cosine_lr(3e-4, 6)), mesh, steps=6,
+            schedule=Periodic(h=2), batch_per_node=2, seq_len=32, seed=0,
+            log_every=0).losses
+    return out
+
+
+def _constrain_case(shape):
+    """A replicated DTensor constrained to ("batch", "seq_sp",
+    "embed_act") on a mesh of `shape` (this process group's ranks): its
+    placements, `spec_for`'s, and whether its values are the input's."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import sharding as sh
+
+    mesh = make_mesh(tuple(shape), ("pod", "data", "model"), device="cpu",
+                     group=dist.group.WORLD)
+    dm = mesh.shard_mesh
+    x = torch.arange(4 * 8 * 6, dtype=torch.float32).reshape(4, 8, 6)
+    d = distribute_tensor(x, dm, [Replicate()] * dm.ndim)
+    axes = ("batch", "seq_sp", "embed_act")
+    with sh.use_rules(sh.DEFAULT_RULES, mesh):
+        y = sh.constrain(d, axes)
+        spec = sh.spec_for(d, axes)
+        kept = sh.constrain(y, axes) is y
+    return {"placements": [str(p) for p in y.placements],
+            "want": [str(p) for p in sh.to_placements(spec, dm)],
+            "spec": list(spec), "equal": bool(torch.equal(y.full_tensor(), x)),
+            "local": list(y.to_local().shape), "kept": kept,
+            "without_rules": sh.constrain(d, axes) is d}

@@ -371,15 +371,42 @@ def test_dryrun_manifest_extras_are_exact():
     assert ours["trace"]["iters"] == []
 
 
-@pytest.mark.parametrize("shape", [(2, 2, 1), (1, 1, 2)])
-def test_mesh_refuses_sharded_pods(shape):
-    with pytest.raises(ValueError, match="one card.*multi-card slice"):
-        make_mesh(shape, AXES, device=CPU)
-    spec = repro_torch.ExperimentSpec.from_dict(
-        {**SPEC, "backends": [{"kind": "launch",
-                               "params": {"mesh": list(shape)}}]})
-    with pytest.raises(ValueError, match="multi-card slice"):
-        repro_torch.run(spec, device=CPU)
+@pytest.mark.parametrize("shape,case", [
+    ((2, 2, 1), "no group"), ((1, 1, 2), "no group"),
+    ((2, 2, 2), "wrong group"), ((1, 2, 2), "family")],
+    ids=["shape0", "shape1", "wrong_group", "family"])
+def test_mesh_refuses_sharded_pods(shape, case):
+    """A sharded mesh without a process group names the groups it takes
+    (`make_mesh` and `run`); a group of another size is refused; a family
+    that does not train sharded yet is refused by name."""
+    if case == "no group":
+        shards = shape[1] * shape[2]
+        with pytest.raises(ValueError, match=f"group=.*{shape[0] * shards} "
+                                             f"ranks.*{shards} ranks"):
+            make_mesh(shape, AXES, device=CPU)
+        spec = repro_torch.ExperimentSpec.from_dict(
+            {**SPEC, "backends": [{"kind": "launch",
+                                   "params": {"mesh": list(shape)}}]})
+        with pytest.raises(ValueError, match="needs a process group"):
+            repro_torch.run(spec, device=CPU)
+    elif case == "wrong group":
+        import torch.distributed as dist
+
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            with pytest.raises(ValueError, match="1 ranks but the mesh"):
+                make_mesh(shape, AXES, device=CPU, group=dist.group.WORLD)
+        finally:
+            dist.destroy_process_group()
+    else:
+        from repro_torch.launch.mesh import Mesh
+
+        cfg = port_registry.get_config("deepseek-v2-236b", "smoke")
+        with pytest.raises(ValueError, match="the moe family"):
+            train_consensus_lm(cfg, port_optim.adamw(
+                port_optim.cosine_lr(3e-4, 6)), Mesh(AXES, shape, CPU),
+                steps=1)
 
 
 def test_served_lm_spec_runs_solo_with_the_reference_reason():
