@@ -200,9 +200,9 @@ non-zero and the last line is not printed. The phases:
             equal after every mix; prints "sharded_on_card", the probe's
             finding, each rank's walls per local and fused step, peak
             memory and the collectives' bytes in one local and one fused
-            step, and K1 timed on the embed leaf's data shard.
-            `python3 chip_smoke.py lm_sharded` runs env, build and this
-            phase alone
+            step, the first step's wall, and K1 timed on the embed leaf's
+            data shard. `python3 chip_smoke.py lm_sharded` runs env,
+            build and this phase alone
   lm_k1_expert_leaf
             K1 at deepseek-v2's routed-expert leaf of two full-width pods
             (bf16, n=2, k=1, M = 160 x 5120 x 1536 = 1,258,291,200) on
@@ -236,6 +236,26 @@ non-zero and the last line is not printed. The phases:
             the card and the CPU: host fields exact, losses within
             LM_MOE_TRACE_RTOL, K1 once a leaf a comm round; prints the
             router's top-K choices that differ between card and CPU
+  lm_sharded_moe
+            the MoE and MLA family and the VLM's cross-attention as
+            DTensors: lm_moe_full's deepseek-v2 cell (2 of 60 layers, two
+            pods, B = 1, S = 4096, T = 6, SGD) stacked on the card, then
+            through the DTensor path, both under torch's deterministic
+            algorithms (the MoE gathers' backward then adds in a fixed
+            order): with one card the one-rank mesh (2, 1, 1), bit for
+            bit the stacked run (losses and both pods' bit checksums), K1
+            launched 66 times on local shards; with two or more cards
+            (2, 2, 1) and (2, 1, 2) over NCCL, each within
+            LM_MOE_TRACE_RTOL of a stacked run at its dispatch groups,
+            the first step's router choices that differ counted. Then
+            lm_vlm's vision-90b cell (4 of 20 superblocks, 6400 encoder
+            tokens), one pod's loss_fn at B = 1, S = 2048 forward and
+            backward, plain and as DTensors on the one-rank mesh: the
+            loss and every gradient's bit checksum equal. Prints each
+            run's first step (DTensor's planning), local and fused step
+            walls, peak memory, the collectives' bytes by kind and K1's
+            launches. `python3 chip_smoke.py lm_sharded_moe` runs env,
+            build and this phase alone
   lm_ssm_full
             falcon-mamba-7b at its published widths (d_model 4096,
             d_inner 8192, dt_rank 256, N 16, conv 4, vocab 65024, bf16),
@@ -370,6 +390,7 @@ limit as nvidia-smi prints them, and the result line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -2805,14 +2826,41 @@ class _CollectiveBytes:
         self.mode = Mode()
 
 
-def _lm_sharded_run(shape, stacked_run: bool = False) -> dict:
-    """llama3-8b at full width (LM_N_SUPER superblocks), two pods, B =
-    LM_SHARDED_BATCH and S = 4096 a pod, T = 6, periodic h = 2, AdamW,
-    through train_consensus_lm on `shape`: the stacked run on this card
+def _sharded_cell(arch: str) -> tuple:
+    """The sharded phases' cells, each two pods, S = 4096 a pod, T = 6,
+    periodic h = 2: (layers kept, batch a pod, leaves mixed a comm step,
+    optimizer) of llama3-8b (lm_sharded) and of deepseek-v2 (lm_sharded_moe,
+    lm_moe_full's cell)."""
+    if arch == "llama3-8b":
+        return LM_N_SUPER, LM_SHARDED_BATCH, LM_LEAVES, "adamw"
+    return LM_MOE_N_SUPER, 1, LM_MOE_LEAVES, "sgd"
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic algorithms (warnings where an op has none):
+    the MoE gathers' backward on the card then adds a token's gradients
+    in a fixed order, so two runs can be held bit for bit."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _lm_sharded_run(shape, stacked_run: bool = False,
+                    arch: str = "llama3-8b", moe_groups: int | None = None
+                    ) -> dict:
+    """`arch`'s sharded cell at full width (LM_SHARDED_CELLS), through
+    train_consensus_lm on `shape`: the stacked run on this card
     (`stacked_run`), or this rank's part of the run over the default
-    process group. Each fused step is checked to leave the pods equal bit
-    for bit (complete graph, n = 2); one local and one fused step run
-    under a count of the collectives' bytes."""
+    process group; `moe_groups` overrides the MoE dispatch groups (a
+    stacked run at a sharded run's groups). Each fused step is checked to
+    leave the pods equal bit for bit (complete graph, n = 2); the first
+    local and fused steps run under a count of the collectives' bytes; a
+    MoE cell's router choices of the first step are kept."""
     import math
 
     import torch
@@ -2822,20 +2870,34 @@ def _lm_sharded_run(shape, stacked_run: bool = False) -> dict:
     from repro_torch.core.schedules import Periodic
     from repro_torch.launch import train as train_mod
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import mlp as mlp_mod
     from repro_torch.models import registry
     from repro_torch.runtime.sharding import is_dtensor
 
-    cfg = dataclasses.replace(registry.get_config("llama3-8b", "full"),
-                              n_super=LM_N_SUPER)
+    n_super, batch, leaves, opt_name = _sharded_cell(arch)
+    cfg = dataclasses.replace(registry.get_config(arch, "full"),
+                              n_super=n_super)
+    optimizer = (optim.adamw if opt_name == "adamw" else optim.sgd)(
+        optim.cosine_lr(3e-4, 6))
     mesh = make_mesh(shape, ("pod", "data", "model"), device="cuda",
                      group=None if stacked_run else dist.group.WORLD)
     real_steps = train_mod.make_consensus_steps
+    real_top = mlp_mod._top_indices
     seen = {"params": None, "mixes": 0, "bytes": {}}
+    choices = []
 
     def local_of(t):
         return t.to_local() if is_dtensor(t) else t
 
+    def top(probs, k):  # the first step's choices (both pods, recompute)
+        ids = real_top(probs, k)
+        if len(choices) < 4 * n_super:
+            choices.append(ids.cpu())
+        return ids
+
     def watched_steps(*a, **kw):
+        if moe_groups is not None:
+            kw["moe_groups"] = moe_groups
         local, mix, fused = real_steps(*a, **kw)
 
         def counted(step, name):
@@ -2863,45 +2925,196 @@ def _lm_sharded_run(shape, stacked_run: bool = False) -> dict:
         return counted(local, "local"), mix, checked
 
     train_mod.make_consensus_steps = watched_steps
+    mlp_mod._top_indices = top
     try:
+        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         _zero_launch_counts()
         rep = train_mod.train_consensus_lm(
-            cfg, optim.adamw(optim.cosine_lr(3e-4, 6)), mesh, steps=6,
-            schedule=Periodic(h=2), topology="complete",
-            batch_per_node=LM_SHARDED_BATCH, seq_len=LM_SHARDED_SEQ, seed=0,
-            log_every=0)
+            cfg, optimizer, mesh, steps=6, schedule=Periodic(h=2),
+            topology="complete", batch_per_node=batch,
+            seq_len=LM_SHARDED_SEQ, seed=0, log_every=0)
         torch.cuda.synchronize()
         counts = _launch_counts()
     finally:
         train_mod.make_consensus_steps = real_steps
+        mlp_mod._top_indices = real_top
     local_params = torch.utils._pytree.tree_map(local_of, seen["params"])
-    digests = [_pod_digest(local_params, i) for i in range(2)]
+    if arch == "llama3-8b":
+        digests = [_pod_digest(local_params, i) for i in range(2)]
+    else:  # ten GB a pod: checksums on the card
+        digests = [_pod_checksum(local_params, i) for i in range(2)]
     seen["params"] = local_params = None
     walls, comm = rep.extras["step_walls"], rep.extras["step_comm"]
     rounds = sum(comm)
-    if counts["gossip_mix"] != LM_LEAVES * rounds or seen["mixes"] != rounds:
-        raise AssertionError(f"lm_sharded {shape}: K1 launched "
+    if counts["gossip_mix"] != leaves * rounds or seen["mixes"] != rounds:
+        raise AssertionError(f"lm_sharded {arch} {shape}: K1 launched "
                              f"{counts['gossip_mix']} times, {seen['mixes']} "
                              f"checked mixes, for {rounds} comm steps of "
-                             f"{LM_LEAVES} leaves")
+                             f"{leaves} leaves")
     if not all(math.isfinite(v) for v in rep.losses):
-        raise AssertionError(f"lm_sharded {shape}: losses {rep.losses}")
-    return {"mesh": list(shape), "losses": list(rep.losses),
-            "pod_param_sha256_local": digests,
+        raise AssertionError(f"lm_sharded {arch} {shape}: losses "
+                             f"{rep.losses}")
+    return {"arch": arch, "mesh": list(shape), "losses": list(rep.losses),
+            "moe_groups": moe_groups, "pod_param_digests_local": digests,
             "k1_launches": counts["gossip_mix"], "step_comm": comm,
             # the first local and fused steps ran under the byte count
+            "first_step_s": walls[0],
             "local_step_s": [w for w, c in zip(walls, comm) if not c][1:],
             "fused_step_s": [w for w, c in zip(walls, comm) if c][1:],
             "collective_bytes": seen["bytes"],
+            "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "choices": [c.tolist() for c in choices]}
+
+
+#: the int64 weights of `_bits_checksum`: odd, by position
+_CHECKSUM_MUL, _CHECKSUM_ADD = 6364136223846793005, 1442695040888963407
+_CHECKSUM_CHUNK = 1 << 24
+
+
+def _bits_checksum(t) -> int:
+    """A checksum of a tensor's bits on its device: the sum, wrapping in
+    int64, of each element's bits times an odd weight of its position, so
+    that any one element that differs changes it."""
+    import torch
+
+    flat = t.detach().contiguous().reshape(-1)
+    bits = flat.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[flat.element_size()])
+    total = torch.zeros((), dtype=torch.int64, device=t.device)
+    for c0 in range(0, bits.numel(), _CHECKSUM_CHUNK):
+        part = bits[c0:c0 + _CHECKSUM_CHUNK].to(torch.int64)
+        pos = torch.arange(c0, c0 + part.numel(), dtype=torch.int64,
+                           device=t.device)
+        total += (part * ((pos * _CHECKSUM_MUL + _CHECKSUM_ADD) | 1)).sum()
+    return int(total)
+
+
+def _pod_checksum(params, pod: int) -> list:
+    """`_bits_checksum` of pod `pod`'s slice of every leaf, in leaf
+    order."""
+    import torch
+
+    return [_bits_checksum(leaf[pod])
+            for leaf in torch.utils._pytree.tree_leaves(params)]
+
+
+def _fingerprinted_backward(params, batch: dict, cfg) -> dict:
+    """One pod's `transformer.loss_fn` forward and backward (its layers as
+    leaves of their own, as `launch.steps.grad_fn` lays them out), each
+    gradient reduced to `_bits_checksum` and freed as it is accumulated,
+    so only the parameters are held whole: the loss, the checksums in
+    leaf order, the walls of the forward and the backward, the peak."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    from repro_torch.runtime.sharding import is_dtensor
+
+    train = steps._trainable(params)
+    flat = torch.utils._pytree.tree_leaves(train)
+    sums: list = [None] * len(flat)
+
+    def hook(i):
+        def done(p):
+            g = p.grad
+            sums[i] = _bits_checksum(g.to_local() if is_dtensor(g) else g)
+            p.grad = None
+        return done
+    for i, t in enumerate(flat):
+        t.register_post_accumulate_grad_hook(hook(i))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.enable_grad(), steps._replicated(flat):
+        loss = transformer.loss_fn(train, batch, cfg)
+        value = float((loss.full_tensor() if is_dtensor(loss)
+                       else loss).detach())
+        t1 = time.perf_counter()
+        loss.backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if any(s is None for s in sums):
+        raise AssertionError("a leaf of the VLM got no gradient")
+    return {"loss": value, "checksums": sums, "forward_s": t1 - t0,
+            "backward_s": t2 - t1,
             "peak_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
 
 
-def _lm_sharded_main(rank: int, world: int, backend: str, layouts,
+#: the sequence of the VLM's loss check: at lm_vlm's 4096 the backward's
+#: recomputation of one five-block superblock holds its attention score
+#: chunks (above 37 GiB) beside the 35.8 GiB of parameters, past the card
+LM_VLM_TRAIN_SEQ = 2048
+
+
+def _lm_vlm_dtensor_check(mesh) -> dict:
+    """vision-90b's lm_vlm cell (4 of 20 superblocks, 6400 encoder tokens;
+    the port's init from seed 1, the gates at LM_VLM_GATE), one pod's loss
+    on a batch of B = 1, S = LM_VLM_TRAIN_SEQ with `enc` (the streamed
+    self-attention and cross-attention both): forward and backward plain,
+    then as DTensors on `mesh` (one rank: every placement Replicate, the
+    same storage) under the sharding rules; the loss and every gradient's
+    checksum must be equal."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.compress import prng
+    from repro_torch.models import registry, transformer
+    from repro_torch.runtime import sharding as shrules
+
+    torch.cuda.empty_cache()
+    held_before = torch.cuda.memory_allocated() / 2 ** 30
+    cfg = dataclasses.replace(
+        registry.get_config("llama-3.2-vision-90b", "full"),
+        n_super=LM_VLM_N_SUPER)
+    params, _ = transformer.init(prng.key(1, "cuda"), cfg)
+    for i, kind in enumerate(cfg.superblock):
+        if kind == "cross_attn":
+            params["stack"][f"slot{i}"]["attn"]["gate"].fill_(LM_VLM_GATE)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    V, S = cfg.vocab_size, LM_VLM_TRAIN_SEQ
+    batch = {"tokens": torch.randint(0, V, (1, S), generator=gen,
+                                     device="cuda"),
+             "labels": torch.randint(0, V, (1, S), generator=gen,
+                                     device="cuda"),
+             "enc": torch.randn((1, cfg.num_encoder_tokens, cfg.encoder_dim),
+                                generator=gen, device="cuda").to(cfg.dtype)}
+    with _deterministic():
+        plain = _fingerprinted_backward(params, batch, cfg)
+        dm = mesh.shard_mesh
+        rep = [Replicate()] * dm.ndim
+
+        def placed(t):
+            return DTensor.from_local(t, dm, rep, run_check=False)
+        dparams = torch.utils._pytree.tree_map(placed, params)
+        with shrules.use_rules(shrules.DEFAULT_RULES, mesh):
+            dtensor = _fingerprinted_backward(
+                dparams, {k: placed(v) for k, v in batch.items()}, cfg)
+    if (dtensor["loss"] != plain["loss"]
+            or dtensor["checksums"] != plain["checksums"]):
+        raise AssertionError(
+            f"lm_sharded_moe: the VLM's DTensor loss {dtensor['loss']} or "
+            f"gradients differ from the plain ones ({plain['loss']}, "
+            f"{sum(a != b for a, b in zip(plain['checksums'], dtensor['checksums']))}"
+            f" of {len(plain['checksums'])} leaves)")
+    del params, dparams, batch
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "n_super": cfg.n_super,
+            "enc_tokens": cfg.num_encoder_tokens, "seq_len": S,
+            "allocated_before_gib": held_before,
+            "loss": plain["loss"], "leaves": len(plain["checksums"]),
+            "equal_bit_for_bit": True,
+            **{f"{side}_{k}": run[k] for side, run in (("plain", plain),
+                                                       ("dtensor", dtensor))
+               for k in ("forward_s", "backward_s", "peak_allocated_gib")}}
+
+
+def _lm_sharded_main(rank: int, world: int, backend: str, jobs,
                      store_path: str, results) -> None:
-    """A spawned rank of lm_sharded: its card, the process group, then
-    `_lm_sharded_run` on each layout; the results (or the traceback) go to
-    the parent."""
+    """A spawned rank of the sharded phases: its card, the process group,
+    then each job: ("run", arch, shape) is `_lm_sharded_run` on that
+    layout, ("vlm",) the VLM's DTensor check on the one-rank mesh; the
+    results (or the traceback) go to the parent."""
     import datetime
     import traceback
 
@@ -2915,14 +3128,69 @@ def _lm_sharded_main(rank: int, world: int, backend: str, layouts,
             world_size=world, timeout=datetime.timedelta(seconds=300))
         try:
             out = []
-            for shape in layouts:
-                out.append(_lm_sharded_run(tuple(shape)))
+            for job in jobs:
+                if job[0] == "vlm":
+                    from repro_torch.launch.mesh import make_mesh
+
+                    mesh = make_mesh((2, 1, 1), ("pod", "data", "model"),
+                                     device="cuda", group=dist.group.WORLD)
+                    out.append(_lm_vlm_dtensor_check(mesh))
+                    continue
+                _, arch, shape = job
+                if arch == "llama3-8b":
+                    out.append(_lm_sharded_run(tuple(shape)))
+                else:
+                    with _deterministic():
+                        out.append(_lm_sharded_run(tuple(shape), arch=arch))
                 torch.cuda.empty_cache()
             results.put((rank, None, out))
         finally:
             dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 -- sent to the parent, which fails
         results.put((rank, traceback.format_exc(), None))
+
+
+def _spawn_sharded(world: int, backend: str, jobs, label: str) -> tuple:
+    """`_lm_sharded_main` on `world` spawned ranks; (each rank's results
+    by rank, the phase's wall). Raises with a rank's traceback, or when a
+    rank gives nothing within LM_SHARDED_TIMEOUT_S; every rank is stopped
+    before this returns."""
+    import multiprocessing as mp
+    import queue
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="lm_sharded_")
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_lm_sharded_main, daemon=True,
+                         args=(r, world, backend, jobs, f"{tmp}/store",
+                               results))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    ranks: dict[int, list] = {}
+    try:
+        for p in procs:
+            p.start()
+        while len(ranks) < world:
+            try:
+                rank, err, value = results.get(timeout=LM_SHARDED_TIMEOUT_S)
+            except queue.Empty:
+                raise AssertionError(f"{label}: no result from ranks "
+                                     f"{sorted(set(range(world)) - set(ranks))}"
+                                     f" in {LM_SHARDED_TIMEOUT_S} s") from None
+            if err is not None:
+                raise AssertionError(f"{label}: rank {rank} failed:\n{err}")
+            ranks[rank] = value
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ranks, time.perf_counter() - t0
 
 
 def phase_lm_sharded() -> dict:
@@ -2937,11 +3205,6 @@ def phase_lm_sharded() -> dict:
     the same DTensor path on one rank, every placement Replicate, held to
     the stacked run bit for bit. Returns K1's launches and its time on a
     local shard."""
-    import multiprocessing as mp
-    import queue
-    import shutil
-    import tempfile
-
     import torch
 
     torch.cuda.empty_cache()
@@ -2956,37 +3219,9 @@ def phase_lm_sharded() -> dict:
     else:
         backend, world, layouts = "gloo", 1, LM_SHARDED_ONE_CARD
     sharded_on_card = world > 1
-    tmp = tempfile.mkdtemp(prefix="lm_sharded_")
-    ctx = mp.get_context("spawn")
-    results = ctx.Queue()
-    procs = [ctx.Process(target=_lm_sharded_main, daemon=True,
-                         args=(r, world, backend, layouts, f"{tmp}/store",
-                               results))
-             for r in range(world)]
-    t0 = time.perf_counter()
-    ranks: dict[int, list] = {}
-    try:
-        for p in procs:
-            p.start()
-        while len(ranks) < world:
-            try:
-                rank, err, value = results.get(timeout=LM_SHARDED_TIMEOUT_S)
-            except queue.Empty:
-                raise AssertionError(f"lm_sharded: no result from ranks "
-                                     f"{sorted(set(range(world)) - set(ranks))}"
-                                     f" in {LM_SHARDED_TIMEOUT_S} s") from None
-            if err is not None:
-                raise AssertionError(f"lm_sharded: rank {rank} failed:\n{err}")
-            ranks[rank] = value
-        for p in procs:
-            p.join(timeout=60)
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.terminate()
-                p.join(timeout=30)
-        shutil.rmtree(tmp, ignore_errors=True)
-    wall = time.perf_counter() - t0
+    ranks, wall = _spawn_sharded(
+        world, backend, [("run", "llama3-8b", s) for s in layouts],
+        "lm_sharded")
     max_rel = {}
     for r, runs in sorted(ranks.items()):
         for run in runs:
@@ -3007,8 +3242,8 @@ def phase_lm_sharded() -> dict:
                         f"lm_sharded {key}: losses {rel} off the stacked "
                         f"run's (rtol {LM_SHARDED_RTOL})")
             elif (run["losses"] != stacked["losses"] or
-                  run["pod_param_sha256_local"] !=
-                  stacked["pod_param_sha256_local"]):
+                  run["pod_param_digests_local"] !=
+                  stacked["pod_param_digests_local"]):
                 raise AssertionError(
                     f"lm_sharded {key}: the one-card DTensor run is not the "
                     f"stacked run bit for bit")
@@ -3021,13 +3256,112 @@ def phase_lm_sharded() -> dict:
          rtol=LM_SHARDED_RTOL, losses_max_rel_to_stacked=max_rel,
          equal_to_stacked_bit_for_bit=not sharded_on_card,
          stacked={k: v for k, v in stacked.items()
-                  if k != "pod_param_sha256_local"},
-         per_rank={r: runs for r, runs in sorted(ranks.items())},
+                  if k not in ("pod_param_digests_local", "choices")},
+         per_rank={r: [{k: v for k, v in run.items() if k != "choices"}
+                       for run in runs] for r, runs in sorted(ranks.items())},
          k1_local_shard_call=k1_shard, nvidia_smi=nvidia_smi_line())
     return {"launches": {"stacked": stacked["k1_launches"],
                          "per_rank": [run["k1_launches"] for r in sorted(ranks)
                                       for run in ranks[r]]},
             "local_shard_call": k1_shard}
+
+
+def _flips(a: list, b: list) -> int:
+    """Router choices that differ between two runs' recorded calls."""
+    import torch
+
+    return sum(int((torch.as_tensor(x) != torch.as_tensor(y)).sum())
+               for x, y in zip(a, b))
+
+
+def phase_lm_sharded_moe() -> dict:
+    """The MoE and MLA family sharded as DTensors, and the VLM's
+    cross-attention: deepseek-v2's full-width cell (lm_moe_full's: the MLA
+    prologue and one MLA + MoE superblock, two pods, B = 1, S = 4096,
+    T = 6, periodic h = 2, SGD) stacked on the card, then through the
+    DTensor path, both under torch's deterministic algorithms. One card:
+    the one-rank mesh (2, 1, 1), held to the stacked run bit for bit
+    (losses and both pods' checksums), K1 launched on local shards. Two or
+    more cards: (2, 2, 1) and (2, 1, 2) over NCCL, each held to a stacked
+    run at its dispatch groups (the data size) within LM_MOE_TRACE_RTOL,
+    the first step's router choices that differ counted. Then the VLM's
+    DTensor loss and gradients on the one-rank mesh against the plain
+    ones (`_lm_vlm_dtensor_check`). Returns K1's launches."""
+    import torch
+
+    torch.cuda.empty_cache()
+    arch = "deepseek-v2-236b"
+    with _deterministic():
+        stacked = {1: _lm_sharded_run((2, 1, 1), stacked_run=True,
+                                      arch=arch)}
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        backend, world, layouts = "nccl", 2, LM_SHARDED_LAYOUTS
+        with _deterministic():
+            stacked[2] = _lm_sharded_run((2, 1, 1), stacked_run=True,
+                                         arch=arch, moe_groups=2)
+        torch.cuda.empty_cache()
+    else:
+        backend, world, layouts = "gloo", 1, LM_SHARDED_ONE_CARD
+    ranks, wall = _spawn_sharded(
+        world, backend, [("run", arch, s) for s in layouts]
+        + ([("vlm",)] if world == 1 else []), "lm_sharded_moe")
+    if world > 1:  # the VLM check on a one-rank mesh of its own
+        vlm = _spawn_sharded(1, "gloo", [("vlm",)], "lm_sharded_moe")[0][0][0]
+    else:
+        vlm = ranks[0].pop()
+    checks = {}
+    for r, runs in sorted(ranks.items()):
+        for run in runs:
+            key = "x".join(map(str, run["mesh"]))
+            ref = stacked[run["mesh"][1]]  # the same dispatch groups
+            if run["losses"] != ranks[0][layouts.index(
+                    tuple(run["mesh"]))]["losses"]:
+                raise AssertionError(f"lm_sharded_moe {key}: rank {r}'s "
+                                     f"losses differ from rank 0's")
+            if run["step_comm"] != ref["step_comm"]:
+                raise AssertionError(f"lm_sharded_moe {key}: comm steps "
+                                     f"{run['step_comm']}")
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(run["losses"], ref["losses"]))
+            checks[key] = {"losses_max_rel_to_stacked": rel}
+            if world > 1:
+                # each data rank routes its own groups: the layout's
+                # choices are the model-rank-0 ranks' in data order
+                i, m = layouts.index(tuple(run["mesh"])), run["mesh"][2]
+                mine = [torch.cat([torch.as_tensor(ranks[q][i]["choices"][c])
+                                   for q in sorted(ranks) if q % m == 0])
+                        for c in range(len(ref["choices"]))]
+                checks[key]["first_step_choices_flipped"] = _flips(
+                    mine, ref["choices"])
+                if not rel <= LM_MOE_TRACE_RTOL:
+                    raise AssertionError(
+                        f"lm_sharded_moe {key}: losses {rel} off the "
+                        f"stacked run's (rtol {LM_MOE_TRACE_RTOL})")
+            elif (run["losses"] != ref["losses"] or
+                  run["pod_param_digests_local"] !=
+                  ref["pod_param_digests_local"]):
+                raise AssertionError(
+                    f"lm_sharded_moe {key}: the one-card DTensor run is not "
+                    f"the stacked run bit for bit")
+    emit("lm_sharded_moe", arch=arch, sharded_on_card=world > 1,
+         backend=backend, ranks=world, cards=cards,
+         layouts=[list(x) for x in layouts], n_super=1,
+         seq_len=LM_SHARDED_SEQ, batch_per_pod=1, optimizer="sgd",
+         deterministic_algorithms=True, phase_wall_s=wall,
+         rtol=LM_MOE_TRACE_RTOL, checks=checks,
+         equal_to_stacked_bit_for_bit=world == 1,
+         stacked={g: {k: v for k, v in run.items()
+                      if k not in ("pod_param_digests_local", "choices")}
+                  for g, run in stacked.items()},
+         per_rank={r: [{k: v for k, v in run.items()
+                        if k not in ("pod_param_digests_local", "choices")}
+                       for run in runs] for r, runs in sorted(ranks.items())},
+         vlm=vlm, nvidia_smi=nvidia_smi_line())
+    return {"stacked": stacked[1]["k1_launches"],
+            "per_rank": [run["k1_launches"] for r in sorted(ranks)
+                         for run in ranks[r]]}
 
 
 #: deepseek-v2's full-width cell: the dense MLA prologue layer and one of
@@ -4544,8 +4878,10 @@ def main() -> int:
         return 1
     env = phase_env()
     build_s = phase_build()
-    if sys.argv[1:] == ["lm_sharded"]:  # that phase alone (no result line)
-        phase_lm_sharded()
+    alone = {"lm_sharded": phase_lm_sharded,
+             "lm_sharded_moe": phase_lm_sharded_moe}
+    if len(sys.argv) == 2 and sys.argv[1] in alone:
+        alone[sys.argv[1]]()  # that phase alone (no result line)
         print(env["nvidia_smi"], flush=True)
         return 0
     k1 = phase_kernel()
@@ -4575,6 +4911,7 @@ def main() -> int:
     k1["lm_moe_launches"] = lm_moe["launches"]
     k1["lm_moe_comm_step_ms"] = lm_moe["k1_comm_step_ms"]
     k1["lm_moe_smoke_launches"] = phase_lm_moe_smoke()
+    k1["lm_sharded_moe_launches"] = phase_lm_sharded_moe()
     lm_ssm = phase_lm_ssm_full()
     k1["lm_ssm_launches"] = lm_ssm["launches"]
     k1["lm_ssm_comm_step_ms"] = lm_ssm["k1_comm_step_ms"]

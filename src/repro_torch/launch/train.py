@@ -54,24 +54,6 @@ from repro_torch.runtime import sharding as shrules
 from repro_torch.runtime.sharding import is_dtensor
 
 
-#: the model families whose replica trains sharded over data and model
-#: (the reference's layouts, held to it in tests/test_torch_sharded*.py);
-#: the rest are refused on such a mesh (ROADMAP queue 1)
-SHARDED_FAMILIES = ("dense", "audio", "ssm", "hybrid")
-
-
-def check_sharded_family(cfg: ModelConfig, mesh: Mesh) -> None:
-    """Raise `ValueError`, naming the family, when `mesh` has a data or
-    model axis above 1 and `cfg`'s family does not train sharded yet."""
-    sizes = mesh_shape(mesh)
-    if (max(sizes.get("data", 1), sizes.get("model", 1)) > 1
-            and cfg.family not in SHARDED_FAMILIES):
-        raise ValueError(
-            f"the {cfg.family} family ({cfg.name}) does not train with a "
-            f"pod sharded over data/model yet (mesh {sizes}); the families "
-            f"that do: {', '.join(SHARDED_FAMILIES)}")
-
-
 @dataclasses.dataclass
 class TrainReport:
     steps: int
@@ -119,6 +101,8 @@ def init_state(cfg: ModelConfig, optimizer: Optimizer, n_pods: int, seed: int,
     # every optimizer state tree mirrors the params leaf for leaf
     inner = optimizer.init(_pytree.tree_map(lambda t: t.to_local(),
                                             params)).inner
+    if inner is None:  # SGD without momentum keeps no state
+        return params, OptState(step, None)
     flat_s, sdef = _pytree.tree_flatten(inner)
     wrapped = [DTensor.from_local(t, mesh.shard_mesh, pl, run_check=False,
                                   shape=placed[i % len(placed)].shape,
@@ -343,7 +327,6 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
     per training step / build; the per-step walls and comm flags are also
     returned in `extras["step_walls"]` / `extras["step_comm"]`.
     """
-    check_sharded_family(cfg, mesh)
     schedule = schedule or EveryIteration()
     axis_sizes = mesh_shape(mesh)
     n_pods = axis_sizes.get("pod", 1)

@@ -17,13 +17,14 @@ not the reference's: the scores are rounded to the activations' dtype by
 their einsum and then taken to float32, the softmax weights cast back
 before P·V, as the reference casts.
 
-On a sharded pod (DTensor parameters and activations) GQA takes the
-reference's sharding constraints (`runtime.sharding.constrain`: q, k and
-v sequence-parallel, then k and v over their heads), the projections
-gathered over 'model', and `_sdpa_causal_sharded` runs the attention on
-each rank's own rows and kv heads under `local_map`; on one device none
-of this changes a bit. MLA and cross-attention take no constraints yet
-(their families are refused on a sharded mesh).
+On a sharded pod (DTensor parameters and activations) GQA, MLA and the
+cross-attention take the reference's sharding constraints
+(`runtime.sharding.constrain`: q, k and v sequence-parallel, then k and v
+over their heads; the encoder over its tokens), the projections gathered
+over 'model' (MLA's on each rank's own tokens under `local_map`,
+`_mla_qkv_sharded`), and the causal attention and the cross-attention's
+softmax run on each rank's own rows and kv heads under `local_map`
+(`_on_local_heads`); on one device none of this changes a bit.
 
 Decode writes the new token's keys (or latent) into the cache at `pos` in
 place, the counterpart of the reference's donated cache, and returns the
@@ -166,22 +167,22 @@ def _sdpa_causal(q, k, v):
 
     The reference's launcher takes the streamed form where T is above one
     KV chunk and a multiple of it, else the whole score matrix. DTensors
-    (a sharded replica) take `_sdpa_causal_sharded`."""
+    (a sharded replica) run it on local shards (`_on_local_heads`)."""
     if is_dtensor(q):
-        return _sdpa_causal_sharded(q, k, v)
+        return _on_local_heads(_sdpa_causal, q, k, v)
     T = k.shape[1]
     if T > _KV_CHUNK and T % _KV_CHUNK == 0:
         return _sdpa_causal_streamed(q, k, v)
     return _sdpa_causal_whole(q, k, v)
 
 
-def _sdpa_causal_sharded(q, k, v):
-    """`_sdpa_causal` of DTensors, on each rank's own shards: every rank
-    attends its batch rows and its kv heads (with their q heads) over the
-    whole sequence, as one device would. k and v keep the batch and head
-    placements `_qkv`'s constraints gave them (a head-dim or sequence
-    shard, where the heads do not divide, is gathered); q is taken to the
-    same layout. The output keeps it (heads over 'model'), for the output
+def _on_local_heads(core, q, k, v, *args):
+    """`core(q, k, v, *args)` of DTensors on each rank's own shards: every
+    rank attends its batch rows and its kv heads (with their q heads) over
+    all keys, as one device would. k and v keep the batch and head
+    placements their constraints gave them (a head-dim or sequence shard,
+    where the heads do not divide, is gathered); q is taken to the same
+    layout. The output keeps it (heads over 'model'), for the output
     projection's reduce-scatter."""
     from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
@@ -190,8 +191,9 @@ def _sdpa_causal_sharded(q, k, v):
     kv = tuple(pl if pl.is_shard() and pl.dim in (0, 2) else Replicate()
                for pl in k.placements)
     q, k, v = (t.redistribute(mesh, kv) for t in (q, k, v))
-    return local_map(_sdpa_causal, out_placements=(kv,),
-                     in_placements=(kv, kv, kv), device_mesh=mesh)(q, k, v)
+    return local_map(core, out_placements=(kv,),
+                     in_placements=(kv,) * 3 + (None,) * len(args),
+                     device_mesh=mesh)(q, k, v, *args)
 
 
 def gqa_apply(prm, x, cfg: ModelConfig, positions) -> torch.Tensor:
@@ -360,12 +362,10 @@ def _mla_kv_latent(prm, h, cfg: ModelConfig, positions):
     return c_kv, k_rope
 
 
-def mla_apply(prm, x, cfg: ModelConfig, positions) -> torch.Tensor:
-    """Prefill/training forward: the latent expanded per head, then the
-    causal attention with the rope dims concatenated onto q and k (the
-    shared rope key broadcast to every head), so the softmax scale is
-    1/sqrt(nope + rope), as DeepSeek-V2's. v has its own head dim."""
-    h = rms_norm(x, prm["norm"])
+def _mla_qkv(prm, h, cfg: ModelConfig, positions):
+    """q, k and v of the causal attention from the normed input h: the
+    latent expanded per head, the rope dims concatenated onto q and k (the
+    shared rope key broadcast to every head)."""
     q_nope, q_rope = _mla_q(prm, h, cfg, positions)
     c_kv, k_rope = _mla_kv_latent(prm, h, cfg, positions)
     k_nope = torch.einsum("bsq,qhk->bshk", c_kv, prm["wk_b"])
@@ -374,8 +374,62 @@ def mla_apply(prm, x, cfg: ModelConfig, positions) -> torch.Tensor:
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, cfg.mla_rope_head_dim)], dim=-1)
+    return q_full, k_full, v
+
+
+#: the MLA projections' leaves, in `_mla_qkv_sharded`'s argument order
+_MLA_PROJ = ("wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wk_b", "wv_b")
+
+
+def _mla_qkv_sharded(prm, h, cfg: ModelConfig, positions):
+    """`_mla_qkv` of a sequence-parallel DTensor h on each rank's own
+    tokens (`local_map`): the projections gathered whole (over 'model' as
+    well, as `_qkv` gathers GQA's), so q, k and v come out
+    sequence-parallel, as h lies. Each rank's weight gradients are its
+    tokens' share, a partial sum over the mesh dims h is sharded over."""
+    from torch.distributed.tensor import Partial, Replicate, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = h.device_mesh
+    h_pl = tuple(h.placements)
+    rep = (Replicate(),) * mesh.ndim
+    w_grad = tuple(Partial() if p.is_shard() else Replicate() for p in h_pl)
+    weights = gather_axis(gather_axis([prm[k] for k in _MLA_PROJ], "data"),
+                          "model")
+    positions = distribute_tensor(positions, mesh, h_pl, src_data_rank=None)
+    n = len(_MLA_PROJ)
+
+    def local(h, positions, *w):
+        return _mla_qkv(dict(zip(_MLA_PROJ, w)), h, cfg, positions)
+    return local_map(local, out_placements=(h_pl,) * 3,
+                     in_placements=(h_pl, h_pl) + (rep,) * n,
+                     in_grad_placements=(h_pl, h_pl) + (w_grad,) * n,
+                     device_mesh=mesh)(h, positions, *weights)
+
+
+def mla_apply(prm, x, cfg: ModelConfig, positions) -> torch.Tensor:
+    """Prefill/training forward: the latent expanded per head, then the
+    causal attention with the rope dims concatenated onto q and k (the
+    shared rope key broadcast to every head), so the softmax scale is
+    1/sqrt(nope + rope), as DeepSeek-V2's. v has its own head dim.
+
+    Sharded (DTensors), q, k and v are projected on each rank's own tokens
+    (`_mla_qkv_sharded`), k and v then gathered over the sequence with
+    their heads over 'model' (the reference's constraints), and the
+    attention runs on local shards (`_on_local_heads`)."""
+    h = rms_norm(x, prm["norm"])
+    if is_dtensor(h):
+        q_full, k_full, v = _mla_qkv_sharded(prm, h, cfg, positions)
+    else:
+        q_full, k_full, v = _mla_qkv(prm, h, cfg, positions)
+    q_full = constrain(q_full, ("batch", "seq_sp", "q_heads", "head"))
+    k_full = constrain(k_full, ("batch", "seq_sp", "q_heads", "head"))
+    v = constrain(v, ("batch", "seq_sp", "q_heads", "head"))
+    k_full = constrain(k_full, ("batch", None, "q_heads", "head"))
+    v = constrain(v, ("batch", None, "q_heads", "head"))
     out = _sdpa_causal(q_full, k_full, v)
-    return torch.einsum("bshk,hkd->bsd", out, prm["wo"])
+    out = torch.einsum("bshk,hkd->bsd", out, prm["wo"])
+    return constrain(out, ("batch", "seq_sp", "embed_act"))
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
@@ -453,34 +507,60 @@ def cross_attn_apply(prm, x, enc, cfg: ModelConfig) -> torch.Tensor:
     chunks (when N is a multiple of the chunk and above it; else one
     chunk) with a running max and denominator, the online softmax of
     `_sdpa_causal_streamed` without a mask, so the (S x N) scores of all
-    chunks never exist at once. The output is scaled by tanh(gate)."""
+    chunks never exist at once. The output is scaled by tanh(gate).
+
+    Sharded (DTensors), the reference's constraints: enc over its tokens
+    ('model'), k and v projected on each rank's encoder shard and then
+    gathered over the tokens with their heads over 'model', q
+    sequence-parallel (the projections gathered whole, as `_qkv` gathers
+    GQA's); the softmax runs on each rank's rows and kv heads
+    (`_on_local_heads`)."""
     h = rms_norm(x, prm["norm"])
     # the encoder's shape is read where the reference's sharding constraint
     # reads it, so that enc=None fails here with the reference's error
-    N = enc.shape[1]
+    enc.shape
+    enc = constrain(enc, ("batch", "enc_tokens", "enc_embed"))
+    if rules_active():
+        prm = dict(prm, **gather_axis({k: prm[k] for k in ("wq", "wk", "wv")},
+                                      "model"))
     q = torch.einsum("bsd,dhk->bshk", h, prm["wq"])
+    q = constrain(q, ("batch", "seq_sp", "q_heads", "head"))
     k = promoted_einsum("bne,ehk->bnhk", enc, prm["wk"])
     v = promoted_einsum("bne,ehk->bnhk", enc, prm["wv"])
+    k = constrain(k, ("batch", "enc_tokens", "kv_heads", "head"))
+    v = constrain(v, ("batch", "enc_tokens", "kv_heads", "head"))
+    k = constrain(k, ("batch", None, "kv_heads", "head"))
+    v = constrain(v, ("batch", None, "kv_heads", "head"))
+    if is_dtensor(q):
+        out = _on_local_heads(_cross_softmax, q, k, v, x.dtype)
+    else:
+        out = _cross_softmax(q, k, v, x.dtype)
+    out = torch.einsum("bshk,hkd->bsd", out, prm["wo"])
+    out = torch.tanh(prm["gate"].float()).to(x.dtype) * out
+    return constrain(out, ("batch", "seq_sp", "embed_act"))
+
+
+def _cross_softmax(q, k, v, dtype):
+    """The streamed softmax of q (B,S,H,hd) over the N encoder keys of k
+    and v (B,N,K,hd), unmasked: (B,S,H,hd) in `dtype`."""
     B, S, H, hd = q.shape
-    K = k.shape[2]
+    N, K = k.shape[1], k.shape[2]
     G = H // K
     qg = q.reshape(B, S, K, G, hd)
-    scale = 1.0 / _sqrt_hd(hd, x.device)
+    scale = 1.0 / _sqrt_hd(hd, q.device)
     chunk = _ENC_CHUNK if (N % _ENC_CHUNK == 0 and N > _ENC_CHUNK) else N
     m = torch.full((B, S, K, G, 1), -1e30, dtype=torch.float32,
-                   device=x.device)
-    l = torch.zeros((B, S, K, G, 1), dtype=torch.float32, device=x.device)
+                   device=q.device)
+    l = torch.zeros((B, S, K, G, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, S, K, G, hd), dtype=torch.float32,
-                      device=x.device)
+                      device=q.device)
     for k_c, v_c in zip(k.split(chunk, dim=1), v.split(chunk, dim=1)):
         s = promoted_einsum("bskgh,bnkh->bskgn", qg, k_c).float() * scale
         m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
         pr = torch.exp(s - m_new)
         corr = torch.exp(m - m_new)
         l = corr * l + torch.sum(pr, dim=-1, keepdim=True)
-        pv = promoted_einsum("bskgn,bnkh->bskgh", pr.to(x.dtype), v_c)
+        pv = promoted_einsum("bskgn,bnkh->bskgh", pr.to(dtype), v_c)
         acc = acc * corr + pv
         m = m_new
-    out = (acc / torch.clamp(l, min=1e-30)).to(x.dtype).reshape(B, S, H, hd)
-    out = torch.einsum("bshk,hkd->bsd", out, prm["wo"])
-    return torch.tanh(prm["gate"].float()).to(x.dtype) * out
+    return (acc / torch.clamp(l, min=1e-30)).to(dtype).reshape(B, S, H, hd)

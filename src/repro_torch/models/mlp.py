@@ -5,8 +5,10 @@ Mixture-of-Experts FFN with shared experts and top-k token-choice routing
 `moe_aux_loss`). The dense FFN takes the reference's sequence-parallel
 and Megatron TP layouts (`cfg.mlp_tp`) through `runtime.sharding.constrain`
 when its tensors are DTensors (a sharded pod) and is unchanged on one
-device; the MoE's expert and data constraints are not ported (a sharded
-mesh refuses the MoE family, `launch/train.py` `check_sharded_family`).
+device. So does the MoE: its dispatch groups go over 'data' and its
+experts over 'model' (the reference's constraints), the integer routing
+and each rank's experts run on local shards (`_moe_grouped_sharded`), and
+the output goes back to ("batch", "seq", "embed_act").
 
 MoE dispatch is the reference's sort-based fixed-capacity scheme: flatten
 the token assignments (token-major, `n * K + k`), sort them stably by
@@ -21,8 +23,9 @@ them outside any Pallas kernel.
 
 On the card the dispatch gather's backward adds a token's gradients from
 its K slots with atomics, in an order that may vary from run to run (the
-reference's XLA scatter-add has its own order); the combine is a gather
-whose backward does the same for the expert outputs.
+reference's XLA scatter-add has its own order), unless torch's
+deterministic algorithms are on; the combine is a gather whose backward
+does the same for the expert outputs.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ import torch
 from repro_torch.compress import prng
 from repro_torch.compress.base import _top_indices
 from repro_torch.models.common import ModelConfig, p, pz, rms_norm
-from repro_torch.runtime.sharding import constrain, gather_axis
+from repro_torch.runtime.sharding import constrain, gather_axis, is_dtensor
 
 PyTree = Any
 
@@ -154,40 +157,122 @@ def _moe_grouped(tokens, router, w_up, w_gate, w_down, cfg: ModelConfig,
     Dispatch is a gather: a 1-D index scatter per group builds the inverse
     map slot -> source assignment (every real slot is written exactly
     once; the drops all land in the overflow slot, which is sliced away),
-    then the (G, E, C, D) expert inputs are gathered from the tokens."""
+    then the (G, E, C, D) expert inputs are gathered from the tokens.
+    DTensor tokens (a sharded pod) take `_moe_grouped_sharded`."""
+    if is_dtensor(tokens):
+        return _moe_grouped_sharded(tokens, router, w_up, w_gate, w_down,
+                                    cfg, capacity)
+    gates, ids = _route(tokens, router, cfg.moe_top_k)
+    dest, expert_out = _dispatch_experts(tokens, ids, w_up, w_gate, w_down,
+                                         cfg, capacity, 0)
+    return _combine(expert_out, gates, dest, tokens.dtype)
+
+
+def _dispatch_experts(tokens, ids, w_up, w_gate, w_down, cfg: ModelConfig,
+                      capacity: int, first: int):
+    """(dest, expert_out): each assignment's slot (G, Nl*K), and the
+    (G, El, C, D) outputs of the El experts `first`, `first + 1`, ... that
+    `w_up` holds (all E on one device; a rank's own over 'model'), from
+    their slots' tokens."""
     G, Nl, D = tokens.shape
     E, K = cfg.moe_experts, cfg.moe_top_k
-    C = capacity
+    El, C = w_up.shape[0], capacity
     A = Nl * K
-    gates, ids = _route(tokens, router, K)
     dest = _dispatch_indices(ids.reshape(G, A), E, C)          # (G, A)
     # inverse map per group: which assignment fills expert slot s
     slot_src = torch.full((G, E * C + 1), A, dtype=torch.int64,
                           device=tokens.device)
     slot_src.scatter_(1, dest, torch.arange(A, device=tokens.device)
                       .expand(G, A))
-    slot_src = slot_src[:, :E * C]                             # (G, E*C)
+    slot_src = slot_src[:, first * C:(first + El) * C]         # (G, El*C)
     slot_valid = slot_src < A
     token_src = torch.where(slot_valid, slot_src // K, 0)
     expert_in = torch.gather(tokens, 1,
-                             token_src[..., None].expand(G, E * C, D))
+                             token_src[..., None].expand(G, El * C, D))
     expert_in = expert_in.masked_fill(~slot_valid[..., None], 0)
-    expert_in = expert_in.reshape(G, E, C, D)
+    expert_in = expert_in.reshape(G, El, C, D)
 
     up = torch.einsum("gecd,edf->gecf", expert_in, w_up)
     gate = torch.einsum("gecd,edf->gecf", expert_in, w_gate)
     act = torch.nn.functional.silu(gate) * up
-    expert_out = torch.einsum("gecf,efd->gecd", act, w_down)
+    return dest, torch.einsum("gecf,efd->gecd", act, w_down)
 
+
+def _combine(expert_out, gates, dest, dtype):
+    """Each token's K picked expert outputs (an overflow slot gives 0),
+    weighted by their gates and summed in float32 one k at a time, in
+    order; cast to `dtype`."""
+    G, E, C, D = expert_out.shape
+    Nl, K = gates.shape[1], gates.shape[2]
     flat_out = torch.cat([expert_out.reshape(G, E * C, D),
                           expert_out.new_zeros((G, 1, D))], dim=1)
     slots = dest.reshape(G, Nl, K)
-    out = torch.zeros((G, Nl, D), dtype=torch.float32, device=tokens.device)
+    out = torch.zeros((G, Nl, D), dtype=torch.float32,
+                      device=expert_out.device)
     for k in range(K):  # accumulate per assignment; no (G,Nl,K,D) tensor
         picked = torch.gather(flat_out, 1,
                               slots[:, :, k, None].expand(G, Nl, D))
         out = out + picked.float() * gates[:, :, k:k + 1]
-    return out.to(tokens.dtype)
+    return out.to(dtype)
+
+
+def _moe_grouped_sharded(tokens, router, w_up, w_gate, w_down,
+                         cfg: ModelConfig, capacity: int):
+    """`_moe_grouped` of DTensors: tokens (G, Nl, D) with the groups over
+    'data' and whole over 'model' (the reference's ("batch", None,
+    "embed_act")), the experts' weights over 'model' ("experts").
+
+    Three steps run on each rank's local shards (`local_map`), each
+    declaring its gradients' placements: the routing (the router gathered
+    whole, the same on every model rank; its gradient a partial sum over
+    the data ranks' groups), the dispatch and the rank's own experts (the
+    expert inputs gathered from the rank's slots alone, so the tokens'
+    gradient is a partial sum over 'model' and the weights' over 'data'),
+    and the combine, after the expert outputs are gathered over 'model'
+    (the reference's float32 sum of the K picks, in order, on every
+    rank)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = tokens.device_mesh
+    t_pl = tuple(tokens.placements)
+    rep = (Replicate(),) * mesh.ndim
+    # a gradient summed over the mesh dims whose ranks hold other groups
+    over_groups = tuple(Partial() if p.is_shard() else Replicate()
+                        for p in t_pl)
+    router = gather_axis(gather_axis(router, "data"), "model")
+    gates, ids = local_map(
+        _route, out_placements=(t_pl, t_pl), in_placements=(t_pl, rep, None),
+        in_grad_placements=(t_pl, over_groups, None),
+        device_mesh=mesh)(tokens, router, cfg.moe_top_k)
+
+    weights = gather_axis((w_up, w_gate, w_down), "data")
+    w_pl = tuple(weights[0].placements)
+    m = mesh.mesh_dim_names.index("model")
+    E = cfg.moe_experts
+    first = 0
+    if w_pl[m].is_shard():
+        first = mesh.get_local_rank(m) * (E // mesh.size(m))
+    # the tokens' gradient from this rank's experts alone: a partial sum
+    # over 'model' when the experts are sharded there
+    tok_grad = tuple(Partial() if w.is_shard() else t
+                     for t, w in zip(t_pl, w_pl))
+    w_grad = tuple(Partial() if t.is_shard() else w
+                   for t, w in zip(t_pl, w_pl))
+    out_pl = tuple(Shard(1) if w.is_shard() else t
+                   for t, w in zip(t_pl, w_pl))
+    dest, expert_out = local_map(
+        lambda t, i, a, b, c: _dispatch_experts(t, i, a, b, c, cfg,
+                                                capacity, first),
+        out_placements=(t_pl, out_pl),
+        in_placements=(t_pl, t_pl) + (w_pl,) * 3,
+        in_grad_placements=(tok_grad, t_pl) + (w_grad,) * 3,
+        device_mesh=mesh)(tokens, ids, *weights)
+    # every expert's output on every model rank, for the combine
+    expert_out = expert_out.redistribute(mesh, t_pl)
+    return local_map(
+        _combine, out_placements=(t_pl,), in_placements=(t_pl,) * 3 + (None,),
+        device_mesh=mesh)(expert_out, gates, dest, tokens.dtype)
 
 
 def moe_capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
@@ -209,13 +294,37 @@ def moe_apply(prm, x, cfg: ModelConfig, groups: int = 1) -> torch.Tensor:
     N = B * S
     G = groups if N % groups == 0 else 1
     Nl = N // G
-    combined = _moe_grouped(h.reshape(G, Nl, D), prm["router"], prm["w_up"],
+    tokens = _regroup(h, (G, Nl, D), ("batch", "seq", "embed_act"))
+    tokens = constrain(tokens, ("batch", None, "embed_act"))
+    combined = _moe_grouped(tokens, prm["router"], prm["w_up"],
                             prm["w_gate"], prm["w_down"], cfg,
                             moe_capacity(cfg, Nl))
-    out = combined.reshape(B, S, D)
+    out = _regroup(combined, (B, S, D), ("batch", None, "embed_act"))
     if "shared" in prm:
         out = out + _ffn(prm["shared"], h, cfg)
-    return out
+    return constrain(out, ("batch", "seq", "embed_act"))
+
+
+def _regroup(x, shape: tuple, axes: tuple):
+    """`x.reshape(shape)` with the leading dims regrouped (tokens into
+    dispatch groups and back). A DTensor is first constrained to `axes`
+    (whole over 'model') and, where its leading dim and the result's are
+    both sharded over 'data' (each rank's rows are then its groups'
+    tokens), reshaped on its local shard; else gathered over 'data' as
+    well and reshaped whole."""
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    from torch.distributed.tensor.experimental import local_map
+
+    x = constrain(x, axes)  # `axes` leave 'model' whole
+    mesh = x.device_mesh
+    d = mesh.mesh_dim_names.index("data")
+    if not (x.placements[d].is_shard() and shape[0] % mesh.size(d) == 0):
+        x = gather_axis(x, "data")
+    pl = tuple(x.placements)
+    local = (-1,) + tuple(shape[1:])
+    return local_map(lambda t: t.reshape(local), out_placements=(pl,),
+                     in_placements=(pl,), device_mesh=mesh)(x)
 
 
 def moe_aux_loss(prm, x, cfg: ModelConfig) -> torch.Tensor:

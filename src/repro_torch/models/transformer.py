@@ -23,7 +23,10 @@ A sharded pod's leaves are DTensors: each block's parameters are
 gathered over 'data' where it runs (`runtime.sharding.gather_axis`,
 FSDP; again in the checkpoint's recomputation), and the embedding, the
 block outputs (sequence-parallel) and the logits take the reference's
-constraints. On one device these are the identity.
+constraints; `enc` is then a DTensor too, placed as the batch's "enc"
+field (its rows over 'data'), and the blocks take their own constraints
+(the MoE's, MLA's and the cross-attention's included). On one device
+these are the identity.
 
 Block kinds: "attn", "attn_moe", "mla" and "mla_moe" (GQA or MLA
 attention, then the dense or the MoE FFN); "cross_attn" (the VLM's

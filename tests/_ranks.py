@@ -7,6 +7,7 @@ those of a one-thread run in the test process), joined to the others by a
 rank's result in rank order, or raises with the first rank's traceback.
 """
 
+import contextlib
 import datetime
 import multiprocessing as mp
 import os
@@ -18,6 +19,7 @@ import traceback
 import numpy as np
 import torch
 import torch.distributed as dist
+import torch.utils._pytree as _pytree
 
 #: seconds a rank waits in a collective before gloo gives up
 COLLECTIVE_TIMEOUT_S = 120
@@ -199,9 +201,26 @@ def sharded(rank, n, payload):
     from repro_torch.launch.train import train_consensus_lm
     from repro_torch.models import registry
 
-    out = {name: repro_torch.run(repro_torch.ExperimentSpec.from_dict(spec),
-                                 device="cpu").to_dict()
-           for name, spec in payload.get("specs", {}).items()}
+    out = {"choices": {}}
+    for name, spec in payload.get("specs", {}).items():
+        with _recorded_choices() as choices:
+            out[name] = repro_torch.run(repro_torch.ExperimentSpec.from_dict(
+                spec), device="cpu").to_dict()
+        out["choices"][name] = [c.tolist() for c in choices]
+    for name, spec in payload.get("failing", {}).items():
+        try:
+            repro_torch.run(repro_torch.ExperimentSpec.from_dict(spec),
+                            device="cpu")
+            out.setdefault("errors", {})[name] = None
+        except Exception as e:  # noqa: BLE001 -- the error is the result
+            out.setdefault("errors", {})[name] = [type(e).__name__, str(e)]
+    if payload.get("blocks"):
+        out["blocks"] = {case: _block_case(case, payload["blocks"])
+                         for case in payload["blocks"]["cases"]}
+    if payload.get("sgd"):
+        mesh = make_mesh(tuple(payload["sgd"]), ("pod", "data", "model"),
+                         device="cpu", group=dist.group.WORLD)
+        out["sgd"] = sgd_run(mesh)
     if payload.get("constrain"):
         out["constrain"] = _constrain_case(payload["constrain"])
     if payload.get("write"):
@@ -222,6 +241,144 @@ def sharded(rank, n, payload):
             schedule=Periodic(h=2), batch_per_node=2, seq_len=32, seed=0,
             log_every=0).losses
     return out
+
+
+@contextlib.contextmanager
+def _recorded_choices():
+    """A list that gets each of this rank's MoE calls' router choices
+    (its local groups), in call order, while `repro_torch.models.mlp.
+    _top_indices` is wrapped."""
+    from repro_torch.models import mlp
+
+    calls = []
+    real = mlp._top_indices
+
+    def top(probs, k):
+        ids = real(probs, k)
+        calls.append(ids.numpy().copy())
+        return ids
+    mlp._top_indices = top
+    try:
+        yield calls
+    finally:
+        mlp._top_indices = real
+
+
+def tree_names(tree, prefix: str = "") -> dict:
+    """{path: leaf} of a tree of dicts and lists, each path its keys and
+    indices joined by "/" (the block cases' names for their arrays)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(tree_names(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _filled(tree, arrays, prefix: str):
+    """`tree` with every leaf replaced by `arrays[prefix/path]`."""
+    if isinstance(tree, dict):
+        return {k: _filled(v, arrays, f"{prefix}/{k}") for k, v in
+                tree.items()}
+    if isinstance(tree, list):
+        return [_filled(v, arrays, f"{prefix}/{i}") for i, v in
+                enumerate(tree)]
+    return torch.from_numpy(arrays[prefix].copy())
+
+
+def _block_case(case: str, payload: dict) -> dict:
+    """One block case of `tests/test_torch_sharded_launch.py` at mesh (1, 2,
+    2) on this process group's four ranks, in float32: the parameters
+    (named arrays of the payload's file, placed by their specs) and the
+    input as DTensors under the sharding rules, the block's output (or the
+    loss) and the gradients of sum(out * w) (or of the loss), each
+    gathered whole. MoE cases also return this rank's router choices."""
+    import dataclasses
+
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.compress import prng
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import grad_fn
+    from repro_torch.models import attention, mlp, registry, transformer
+    from repro_torch.models.common import split_axes
+    from repro_torch.runtime import sharding as sh
+
+    arch, kind = payload["cases"][case]
+    arrays = np.load(payload["path"])
+    cfg = dataclasses.replace(registry.get_config(arch, "smoke"),
+                              dtype=torch.float32)
+    mesh = make_mesh((1, 2, 2), ("pod", "data", "model"), device="cpu",
+                     group=dist.group.WORLD)
+    dm = mesh.shard_mesh
+
+    def placed(t, axes):
+        return distribute_tensor(t, dm, sh.to_placements(
+            sh.spec_for(t, axes, sh.DEFAULT_RULES, mesh), dm))
+
+    key = prng.key(0, "cpu")
+    if kind == "loss":
+        prm, axes = transformer.init(key, cfg)
+    else:
+        init = {"moe": mlp.moe_init, "mla": attention.mla_init}[kind]
+        prm, axes = split_axes(init(key, cfg))
+    prm = _filled(prm, arrays, f"{case}/params")
+    prm = _pytree.tree_map(placed, prm, axes)
+    out = {}
+    with sh.use_rules(sh.DEFAULT_RULES, mesh):
+        if kind == "loss":
+            batch = {k: placed(torch.from_numpy(arrays[f"{case}/{k}"].copy()),
+                               ("batch", None, None)[:arrays[
+                                   f"{case}/{k}"].ndim])
+                     for k in ("tokens", "labels", "enc")}
+            loss, grads = grad_fn(prm, batch, cfg)
+            out["loss"] = float(loss)
+        else:
+            x = placed(torch.from_numpy(arrays[f"{case}/x"].copy()),
+                       ("batch", "seq_sp", "embed_act")).requires_grad_()
+            leaves, spec = _pytree.tree_flatten(prm)
+            leaves = [t.detach().requires_grad_() for t in leaves]
+            block = _pytree.tree_unflatten(leaves, spec)
+            if kind == "moe":
+                with _recorded_choices() as choices:
+                    y = mlp.moe_apply(sh.gather_axis(block), x, cfg,
+                                      groups=2)
+                out["choices"] = [c.tolist() for c in choices]
+            else:
+                S = x.shape[1]
+                y = attention.mla_apply(sh.gather_axis(block), x, cfg,
+                                        torch.arange(S).expand(x.shape[0],
+                                                               S))
+            w = distribute_tensor(torch.from_numpy(
+                arrays[f"{case}/w"].copy()), dm, y.placements)
+            got = torch.autograd.grad((y * w).sum(), leaves + [x])
+            got = [g.redistribute(t.device_mesh, t.placements)
+                   for g, t in zip(got, leaves + [x])]
+            out["out"] = y.full_tensor().detach().numpy()
+            out["x"] = got[-1].full_tensor().numpy()
+            grads = _pytree.tree_unflatten(got[:-1], spec)
+    out["grads"] = {k: v.full_tensor().numpy()
+                    for k, v in tree_names(grads).items()}
+    return out
+
+
+def sgd_run(mesh) -> list:
+    """llama3-8b smoke through `train_consensus_lm` with SGD without
+    momentum (no optimizer state), T = 4, periodic h = 2: its losses."""
+    from repro_torch import optim
+    from repro_torch.core.schedules import Periodic
+    from repro_torch.launch.train import train_consensus_lm
+    from repro_torch.models import registry
+
+    return train_consensus_lm(
+        registry.get_config("llama3-8b", "smoke"),
+        optim.sgd(optim.cosine_lr(3e-2, 4)), mesh, steps=4,
+        schedule=Periodic(h=2), batch_per_node=2, seq_len=32, seed=0,
+        log_every=0).losses
 
 
 def _constrain_case(shape):

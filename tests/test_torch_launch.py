@@ -377,8 +377,10 @@ def test_dryrun_manifest_extras_are_exact():
     ids=["shape0", "shape1", "wrong_group", "family"])
 def test_mesh_refuses_sharded_pods(shape, case):
     """A sharded mesh without a process group names the groups it takes
-    (`make_mesh` and `run`); a group of another size is refused; a family
-    that does not train sharded yet is refused by name."""
+    (`make_mesh` and `run`); a group of another size is refused; no
+    family is refused (every one trains sharded,
+    tests/test_torch_sharded_launch.py): the MoE family's dry-run on such
+    a mesh traces its loss."""
     if case == "no group":
         shards = shape[1] * shape[2]
         with pytest.raises(ValueError, match=f"group=.*{shape[0] * shards} "
@@ -403,10 +405,10 @@ def test_mesh_refuses_sharded_pods(shape, case):
         from repro_torch.launch.mesh import Mesh
 
         cfg = port_registry.get_config("deepseek-v2-236b", "smoke")
-        with pytest.raises(ValueError, match="the moe family"):
-            train_consensus_lm(cfg, port_optim.adamw(
-                port_optim.cosine_lr(3e-4, 6)), Mesh(AXES, shape, CPU),
-                steps=1)
+        rep = train_consensus_lm(cfg, port_optim.adamw(
+            port_optim.cosine_lr(3e-4, 6)), Mesh(AXES, shape, CPU),
+            steps=1, dryrun=True)
+        assert rep.extras["dryrun"] and rep.steps == 0
 
 
 def test_served_lm_spec_runs_solo_with_the_reference_reason():
