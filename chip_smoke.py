@@ -303,7 +303,17 @@ non-zero and the last line is not printed. The phases:
             torch.profiler, the peak (under LM_PEAK_CAP_GIB), and the
             card's decode scores (cuBLAS, bf16 in, float32 out), GQA's
             at the cell and MLA's at deepseek-v2's latent width, held to
-            the operands-upcast form (LM_DECODE_SCORES_TOL)
+            the operands-upcast form (LM_DECODE_SCORES_TOL). Then the
+            same prefill and decode steps through the DTensor path
+            (launch.mesh.make_serve_mesh at (data 1, model 1) over a
+            one-rank NCCL group; the parameters and the same cache,
+            zeroed, placed by launch.specs.serve_placements, each a
+            DTensor over its own storage, no copy; the steps given the
+            mesh): logits and the cache's bit checksums equal to the
+            plain run's; the DTensor prefill ms, first and median step
+            wall, a step's kernels and busy share and the peak printed
+            beside the plain run's. `python3 chip_smoke.py lm_decode`
+            runs env, build and this phase alone
   lm_vlm    llama-3.2-vision-90b at its published widths (d_model 8192,
             64 heads (8 kv) of 128, d_ff 28672, vocab 128256, 6400
             encoder tokens of 7680), 4 of its 20 superblocks, the
@@ -316,7 +326,10 @@ non-zero and the last line is not printed. The phases:
             the ten archs at smoke width in float32 (every block kind;
             the gates and LoRA factors perturbed off zero): 8 decode
             steps on the card against the CPU, logits and caches within
-            LM_DECODE_SMOKE_TOL of their largest magnitude
+            LM_DECODE_SMOKE_TOL of their largest magnitude; and on the
+            card through the DTensor path on the one-rank serving mesh,
+            logits and caches equal to the plain card run's bit for bit.
+            `python3 chip_smoke.py lm_decode_smoke` runs it alone
   kernel_k3 K3 (the flat per-node mix, `kernels.ops.gossip_mix`) against
             its plain version over M in {1, 3, 130, 4099, 8192, 65537,
             2^20} (and a misaligned view), k in {1, 4, 8}, fp32 and bf16
@@ -4164,6 +4177,126 @@ def _no_kernel_launched(label: str) -> dict:
     return counts
 
 
+@contextlib.contextmanager
+def _one_rank_group():
+    """A process group of this process alone (NCCL on cuda:0) for the
+    DTensor path on one card: its collectives span one rank."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve_mesh_one_card(group):
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    return make_serve_mesh((1, 1), ("data", "model"), group=group,
+                           device="cuda")
+
+
+def _placed_in_place(tree, placements, mesh) -> object:
+    """`tree` placed by `runtime.sharding.place` on the one-rank mesh,
+    each DTensor's local tensor checked to be the leaf itself (no copy)."""
+    import torch.utils._pytree as pytree
+
+    from repro_torch.runtime import sharding as sh
+
+    placed = sh.place(tree, placements, mesh.device_mesh)
+    for d, t in zip(pytree.tree_leaves(placed), pytree.tree_leaves(tree)):
+        if d.to_local().data_ptr() != t.data_ptr():
+            raise AssertionError("placing a leaf on the one-rank mesh "
+                                 "copied it")
+    return placed
+
+
+def _local_logits(serve):
+    """`serve` with its logits taken to their local tensor (the whole on
+    one rank)."""
+    def step(params, cache, tokens, pos):
+        logits, cache = serve(params, cache, tokens, pos)
+        return logits.to_local(), cache
+    return step
+
+
+def _cache_checksums(cache) -> list:
+    import torch.utils._pytree as pytree
+
+    return [_bits_checksum(t.to_local() if hasattr(t, "to_local") else t)
+            for t in pytree.tree_leaves(cache)]
+
+
+def _lm_decode_dtensor(cfg, params, cache, batch, tokens, plain) -> dict:
+    """lm_decode's prefill and decode again through the DTensor path: the
+    one-rank serving mesh (data 1, model 1), the parameters and the same
+    cache (zeroed first) placed by `serve_placements`, no copy; the steps
+    given the mesh, so they run under its rules with every tensor a
+    DTensor. The prefill's logits, each decode step's and the cache's bit
+    checksums must equal the plain run's (`plain`); returns the times,
+    the first step's wall (DTensor's planning), a step's kernels and
+    busy share, and the peak."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch import steps
+    from repro_torch.runtime import sharding as sh
+
+    for t in torch.utils._pytree.tree_leaves(cache):
+        t.zero_()
+    torch.cuda.reset_peak_memory_stats()
+    B, T = tokens.shape
+    S = batch["tokens"].shape[1]
+    with _one_rank_group() as group:
+        mesh = _serve_mesh_one_card(group)
+        dm = mesh.device_mesh
+        pre_pl = sp.serve_placements(cfg, mesh, 1, S, S)
+        dec_pl = sp.serve_placements(cfg, mesh, B, S, LM_DECODE_CACHE)
+        d_params = _placed_in_place(params, pre_pl["params"], mesh)
+        d_cache = _placed_in_place(cache, dec_pl["cache"], mesh)
+        d_batch = {"tokens": sh.cut(batch["tokens"], dm,
+                                    pre_pl["batch"]["tokens"])}
+        d_tokens = sh.cut(tokens, dm, dec_pl["tokens"])
+        _zero_launch_counts()
+        prefill = steps.make_prefill_step(cfg, mesh=mesh)
+        t0 = time.perf_counter()
+        last = prefill(d_params, d_batch).to_local()
+        torch.cuda.synchronize()
+        first_prefill_s = time.perf_counter() - t0
+        prefill_ms = _prefill_ms(prefill, d_params, d_batch)
+        serve = _local_logits(steps.make_serve_step(cfg, mesh=mesh))
+        run = _decode_teacher_forced(serve, d_params, d_cache, d_tokens)
+        counts = _no_kernel_launched("lm_decode (DTensor)")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        checksums = _cache_checksums(d_cache)
+        equal = {"prefill": bool(torch.equal(last, plain["last"])),
+                 "logits": bool(torch.equal(run["logits"], plain["logits"])),
+                 "cache": checksums == plain["cache_checksums"]}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            serve(d_params, d_cache, d_tokens[:, :1], T)
+            torch.cuda.synchronize()
+        split = _kernel_split(prof)
+    if not all(equal.values()):
+        raise AssertionError(f"lm_decode: the DTensor path is not the plain "
+                             f"path bit for bit: {equal}")
+    wall_ms = statistics.median(run["walls"]) * 1e3
+    return {"mesh": [1, 1], "equal_bit_for_bit": equal,
+            "first_prefill_s": first_prefill_s, "prefill_ms": prefill_ms,
+            "step_wall_ms_first": run["walls"][0] * 1e3,
+            "step_wall_ms_median": wall_ms,
+            "step_walls_ms": [w * 1e3 for w in run["walls"]],
+            "step_device_ms_median": statistics.median(run["device_ms"]),
+            "step_kernels": split["kernels"],
+            "step_kernel_ms": split["total"],
+            "step_busy_share": split["total"] / wall_ms,
+            "peak_allocated_gib": peak, "launches": counts}
+
+
 def phase_lm_decode() -> None:
     """llama3-8b at full width and depth (32 layers, bf16, the port's init
     from seed 0): `make_prefill_step` at B = 1, S = 4096, timed; then
@@ -4216,7 +4349,6 @@ def phase_lm_decode() -> None:
     prefill_flops = (2 * matmul_params * S
                      + 2 * 2 * L * H * hd * S * (S + 1) / 2)
     prefill_bound = _bound(param_bytes, prefill_flops, BF16_FLOPS)
-    del batch, last
 
     B, T = LM_DECODE_BATCH, LM_DECODE_STEPS
     cache = transformer.init_cache(cfg, B, LM_DECODE_CACHE, device="cuda")
@@ -4230,11 +4362,14 @@ def phase_lm_decode() -> None:
         full = transformer.forward(params, tokens, cfg)
     held = _hold_to_forward("lm_decode", run["logits"], full)
     del full
+    plain = {"last": last, "logits": run["logits"],
+             "cache_checksums": _cache_checksums(cache)}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         serve(params, cache, tokens[:, :1], T)
         torch.cuda.synchronize()
     split = _kernel_split(prof)
-    del params, cache, run["logits"]
+    dtensor = _lm_decode_dtensor(cfg, params, cache, batch, tokens, plain)
+    del params, cache, run["logits"], plain, batch, last
     torch.cuda.empty_cache()
     scores_err = _decode_scores_check(gen, cfg, B)
     wall_ms = statistics.median(run["walls"]) * 1e3
@@ -4255,9 +4390,14 @@ def phase_lm_decode() -> None:
          step_split_ms={k: split[k] for k in ("matmul", "other")},
          tokens_per_s=B / (wall_ms / 1e3), peak_allocated_gib=peak,
          scores_vs_upcast_max_rel=scores_err,
-         scores_tol=LM_DECODE_SCORES_TOL, launches=counts, **held)
-    if peak > LM_PEAK_CAP_GIB:
-        raise AssertionError(f"lm_decode peaked at {peak:.2f} GiB")
+         scores_tol=LM_DECODE_SCORES_TOL, launches=counts,
+         step_wall_ms_first=run["walls"][0] * 1e3, dtensor=dtensor,
+         nvidia_smi=nvidia_smi_line(), **held)
+    for label, gib in (("plain", peak), ("DTensor",
+                                         dtensor["peak_allocated_gib"])):
+        if gib > LM_PEAK_CAP_GIB:
+            raise AssertionError(f"lm_decode ({label}) peaked at "
+                                 f"{gib:.2f} GiB")
     if not max(scores_err.values()) <= LM_DECODE_SCORES_TOL:
         raise AssertionError(f"decode's scores on the card are off the "
                              f"upcast form's: {scores_err}")
@@ -4357,57 +4497,82 @@ def phase_lm_decode_smoke() -> None:
     the card and the same on the CPU, every launch count set to 0 just
     before the card's and read just after: each step's logits and the
     whole cache after the last within LM_DECODE_SMOKE_TOL of their largest
-    magnitude; every block kind exercised."""
+    magnitude; every block kind exercised. The card's run again through
+    the DTensor path on the one-rank serving mesh (parameters and cache
+    placed by `serve_placements`, no copy), equal to the plain card run
+    bit for bit."""
     import torch
     import torch.utils._pytree as pytree
 
     from repro_torch.compress import prng
+    from repro_torch.launch import specs as sp
     from repro_torch.launch import steps
     from repro_torch.models import registry, transformer
+    from repro_torch.runtime import sharding as sh
 
     kinds = set()
-    for arch in registry.ARCH_IDS:
-        cfg = dataclasses.replace(registry.get_config(arch, "smoke"),
-                                  dtype=torch.float32)
-        kinds.update(cfg.blocks)
-        gen = torch.Generator().manual_seed(31)
-        params = transformer.init(prng.key(0, "cpu"), cfg)[0]
-        params = pytree.tree_map(lambda t: t + 0.2 * (
-            t.std() if t.numel() > 1 and bool(t.std() > 0) else 1.0)
-            * torch.randn(t.shape, generator=gen), params)
-        tokens = torch.randint(0, cfg.vocab_size,
-                               (2, LM_DECODE_SMOKE_STEPS), generator=gen)
-        enc = (torch.randn((2, cfg.num_encoder_tokens, cfg.encoder_dim),
-                           generator=gen) if cfg.family == "vlm" else None)
-        serve = steps.make_serve_step(cfg)
-        runs = {}
-        for dev in ("cuda", "cpu"):
-            p_dev = pytree.tree_map(lambda t: t.to(dev), params)
-            cache = transformer.init_cache(cfg, 2, LM_DECODE_SMOKE_STEPS,
-                                           torch.float32, device=dev)
-            if enc is not None:
-                _fill_cross_cache(cache, p_dev, cfg, enc.to(dev))
-            if dev == "cuda":
-                _zero_launch_counts()
-            outs = [serve(p_dev, cache, tokens[:, t:t + 1].to(dev), t)[0]
-                    for t in range(LM_DECODE_SMOKE_STEPS)]
-            if dev == "cuda":
-                torch.cuda.synchronize()
-                counts = _no_kernel_launched(f"lm_decode_smoke {arch}")
-            runs[dev] = (torch.cat(outs, dim=1).cpu(),
-                         [t.cpu() for t in pytree.tree_leaves(cache)])
-        (card, card_cache), (cpu, cpu_cache) = runs["cuda"], runs["cpu"]
-        errs = [float((card - cpu).abs().max() / cpu.abs().max())]
-        errs += [float((a - b).abs().max() / max(float(b.abs().max()),
-                                                 1e-30))
-                 for a, b in zip(card_cache, cpu_cache)]
-        emit("lm_decode_smoke", arch=arch, blocks=sorted(set(cfg.blocks)),
-             steps=LM_DECODE_SMOKE_STEPS, logits_max_rel=errs[0],
-             cache_max_rel=max(errs[1:]), tol=LM_DECODE_SMOKE_TOL,
-             launches=counts)
-        if not max(errs) <= LM_DECODE_SMOKE_TOL:
-            raise AssertionError(f"{arch}: decode on the card is "
-                                 f"{max(errs)} off the CPU's")
+    with _one_rank_group() as group:
+        mesh = _serve_mesh_one_card(group)
+        for arch in registry.ARCH_IDS:
+            cfg = dataclasses.replace(registry.get_config(arch, "smoke"),
+                                      dtype=torch.float32)
+            kinds.update(cfg.blocks)
+            gen = torch.Generator().manual_seed(31)
+            params = transformer.init(prng.key(0, "cpu"), cfg)[0]
+            params = pytree.tree_map(lambda t: t + 0.2 * (
+                t.std() if t.numel() > 1 and bool(t.std() > 0) else 1.0)
+                * torch.randn(t.shape, generator=gen), params)
+            tokens = torch.randint(0, cfg.vocab_size,
+                                   (2, LM_DECODE_SMOKE_STEPS), generator=gen)
+            enc = (torch.randn((2, cfg.num_encoder_tokens, cfg.encoder_dim),
+                               generator=gen) if cfg.family == "vlm" else None)
+            serve = steps.make_serve_step(cfg)
+            runs = {}
+            for dev in ("cuda", "dtensor", "cpu"):
+                on = "cpu" if dev == "cpu" else "cuda"
+                p_dev = pytree.tree_map(lambda t: t.to(on), params)
+                cache = transformer.init_cache(cfg, 2, LM_DECODE_SMOKE_STEPS,
+                                               torch.float32, device=on)
+                if enc is not None:
+                    _fill_cross_cache(cache, p_dev, cfg, enc.to(on))
+                step, toks = serve, tokens.to(on)
+                if dev == "dtensor":  # the same on the one-rank mesh
+                    n = LM_DECODE_SMOKE_STEPS
+                    pl = sp.serve_placements(cfg, mesh, 2, n, n)
+                    p_dev = _placed_in_place(p_dev, pl["params"], mesh)
+                    cache = _placed_in_place(cache, pl["cache"], mesh)
+                    toks = sh.cut(toks, mesh.device_mesh, pl["tokens"])
+                    step = _local_logits(steps.make_serve_step(cfg, mesh=mesh))
+                if dev != "cpu":
+                    _zero_launch_counts()
+                outs = [step(p_dev, cache, toks[:, t:t + 1], t)[0]
+                        for t in range(LM_DECODE_SMOKE_STEPS)]
+                if dev != "cpu":
+                    torch.cuda.synchronize()
+                    counts = _no_kernel_launched(f"lm_decode_smoke {arch} "
+                                                 f"({dev})")
+                runs[dev] = (torch.cat(outs, dim=1).cpu(),
+                             [(t.to_local() if dev == "dtensor" else t).cpu()
+                              for t in pytree.tree_leaves(cache)])
+            (card, card_cache), (cpu, cpu_cache) = runs["cuda"], runs["cpu"]
+            dt_logits, dt_cache = runs["dtensor"]
+            dtensor_equal = bool(torch.equal(dt_logits, card)) and all(
+                torch.equal(a, b) for a, b in zip(dt_cache, card_cache))
+            errs = [float((card - cpu).abs().max() / cpu.abs().max())]
+            errs += [float((a - b).abs().max() / max(float(b.abs().max()),
+                                                     1e-30))
+                     for a, b in zip(card_cache, cpu_cache)]
+            emit("lm_decode_smoke", arch=arch, blocks=sorted(set(cfg.blocks)),
+                 steps=LM_DECODE_SMOKE_STEPS, logits_max_rel=errs[0],
+                 cache_max_rel=max(errs[1:]), tol=LM_DECODE_SMOKE_TOL,
+                 dtensor_equal_bit_for_bit=dtensor_equal, launches=counts)
+            if not max(errs) <= LM_DECODE_SMOKE_TOL:
+                raise AssertionError(f"{arch}: decode on the card is "
+                                     f"{max(errs)} off the CPU's")
+            if not dtensor_equal:
+                raise AssertionError(f"{arch}: the DTensor decode on the "
+                                     f"card is not the plain one bit for "
+                                     f"bit")
     every = {"attn", "attn_moe", "mla", "mla_moe", "cross_attn", "mamba1",
              "mamba2", "shared_attn"}
     if kinds != every:
@@ -4879,7 +5044,9 @@ def main() -> int:
     env = phase_env()
     build_s = phase_build()
     alone = {"lm_sharded": phase_lm_sharded,
-             "lm_sharded_moe": phase_lm_sharded_moe}
+             "lm_sharded_moe": phase_lm_sharded_moe,
+             "lm_decode": phase_lm_decode,
+             "lm_decode_smoke": phase_lm_decode_smoke}
     if len(sys.argv) == 2 and sys.argv[1] in alone:
         alone[sys.argv[1]]()  # that phase alone (no result line)
         print(env["nvidia_smi"], flush=True)

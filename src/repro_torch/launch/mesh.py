@@ -19,6 +19,10 @@ each pod's replica (FSDP and tensor parallelism). The port's layouts:
     data x model ranks the pods stack on every rank and K1 mixes each
     rank's local shards.
 
+`make_serve_mesh` lays inference out over a process group: every axis
+spans ranks, the pods as further data ranks (the reference's serving
+replicates the parameters across pods and splits the batch over them).
+
 `make_production_mesh` gives the reference's production layouts on the
 `meta` device, to reckon per-device bytes on (the dry-run), not to run on.
 """
@@ -163,6 +167,46 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
     ranks = torch.tensor(dist.get_process_group_ranks(group)).reshape(dims)
     return Mesh(axes, shape, device, group,
                 DeviceMesh(device.type, ranks, mesh_dim_names=names))
+
+
+def make_serve_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
+                    group, device=None) -> Mesh:
+    """The mesh inference runs on: every axis spans the ranks of `group`,
+    whose size must be the mesh's, the pods as further data ranks
+    (serving replicates the parameters over them and splits the batch
+    and the caches' rows over ('pod', 'data'), `launch.specs.
+    serve_placements`). Its DeviceMesh is (data, model) with the pods
+    folded into the data dim, pod-major: two mesh dims, over which
+    DTensor plans its first calls in seconds (over three, with the rows
+    sharded over two of them, its search took minutes). Pods beside a
+    data axis of several ranks are refused: the folded dim would spread
+    the parameters' data shards over the pods, which the reference
+    replicates. Every rank makes it (the DeviceMesh builds its
+    sub-groups collectively); one rank serves on (data 1, model 1).
+    `device` is this rank's (None: the current CUDA device)."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes) or not set(axes) <= {"pod", *_SHARD_AXES}:
+        raise ValueError(f"a serving mesh's axes are among pod, data and "
+                         f"model, one size each: {axes}, {shape}")
+    sizes = dict(zip(axes, shape))
+    pods, data, model = (sizes.get(a, 1) for a in ("pod", *_SHARD_AXES))
+    if pods > 1 and data > 1:
+        raise ValueError(
+            f"a serving mesh folds its {pods} pods into the data ranks, "
+            f"which keeps the reference's placements (the parameters "
+            f"replicated over the pods) only where the data axis has one "
+            f"rank: {sizes}")
+    size = dist.get_world_size(group)
+    if size != math.prod(shape):
+        raise ValueError(f"the process group has {size} ranks but the "
+                         f"serving mesh {sizes} needs {math.prod(shape)}")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    device = resolve_device(device)
+    ranks = torch.tensor(dist.get_process_group_ranks(group)).reshape(
+        pods * data, model)
+    return Mesh(axes, shape, device, group,
+                DeviceMesh(device.type, ranks, mesh_dim_names=_SHARD_AXES))
 
 
 def mesh_shape(mesh: Mesh) -> dict[str, int]:

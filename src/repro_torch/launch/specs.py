@@ -14,7 +14,9 @@ each beside its spec (`runtime.sharding`: a tuple, one entry per
 dimension). The dry-run (`launch/dryrun.py`) reckons per-device bytes
 from them; `placements` turns them into DTensor placements (the
 reference's `to_shardings`), by which `launch.train` places a sharded
-pod's parameters, optimizer state and batches (`train_placements`).
+pod's parameters, optimizer state and batches (`train_placements`), and
+inference its parameters, batches, caches and tokens
+(`serve_placements`, under `serve_rules`).
 """
 
 from __future__ import annotations
@@ -192,51 +194,53 @@ def train_placements(cfg: ModelConfig, optimizer: Optimizer, mesh,
             shrules.to_placements(bspec, dm))
 
 
-def cache_specs(cfg: ModelConfig, cell: ShapeCell, mesh
-                ) -> tuple[PyTree, PyTree]:
-    """Decode cache: abstract tree + specs. Batch is sharded over
-    ('pod','data') jointly when a pod axis exists (serving replicates params
-    across pods; pods are extra data parallelism)."""
-    B, S = cell.global_batch, cell.seq_len
-    cache = transformer.init_cache(cfg, B, S, torch.bfloat16, device=META)
-    axes = transformer.cache_axes(cfg)
+def serve_rules(mesh) -> dict:
+    """The rules inference runs under: the defaults, with the batch over
+    ('pod', 'data') jointly when the mesh has a pod axis (serving
+    replicates the parameters across pods; pods are extra data
+    parallelism)."""
     rules = dict(shrules.DEFAULT_RULES)
     if "pod" in mesh.axis_names:
         rules["batch"] = (("pod", "data"),)  # composite axis
-    return cache, _cache_tree_specs(cache, axes, mesh, rules)
+    return rules
 
 
-def _cache_tree_specs(cache, axes, mesh, rules):
-    mesh_shape = shrules.mesh_axis_sizes(mesh)
+def serve_placements(cfg: ModelConfig, mesh, batch: int, seq: int,
+                     max_seq: int) -> dict:
+    """DTensor placements on `mesh.device_mesh` (`launch.mesh.
+    make_serve_mesh`) of inference's arguments, as the reference's dry-run
+    places its prefill and decode cells (its `in_shardings`): "params"
+    (`param_specs`: no pod dimension, so replicated over the pods),
+    "batch" (the prefill batch of `batch` rows of `seq` tokens,
+    `batch_specs(consensus=False)`, "enc" included for the VLM), "cache"
+    (`cache_specs` at `max_seq`), "tokens" and "pos"
+    (`decode_token_specs`). Rows go over ('pod', 'data') with a pod axis,
+    else over 'data'; a batch whose rows do not divide over them is
+    replicated, as `decode_token_specs` replicates B = 1."""
+    prefill = ShapeCell("serve_prefill", seq, batch, "prefill")
+    decode = ShapeCell("serve_decode", max_seq, batch, "decode")
+    _, pspecs = param_specs(cfg, mesh)
+    _, bspecs = batch_specs(cfg, prefill, mesh, consensus=False)
+    if batch % _spec_size(bspecs["tokens"][:1], mesh) != 0:
+        bspecs = {k: (None,) * len(v) for k, v in bspecs.items()}
+    _, cspecs = cache_specs(cfg, decode, mesh)
+    _, tspecs = decode_token_specs(decode, mesh)
+    dm = mesh.device_mesh
+    return {"params": placements(pspecs, dm),
+            "batch": placements(bspecs, dm),
+            "cache": placements(cspecs, dm),
+            "tokens": shrules.to_placements(tspecs["tokens"], dm),
+            "pos": shrules.to_placements(tspecs["pos"], dm)}
 
-    def size_of(cand):
-        if isinstance(cand, tuple):  # composite ('pod','data')
-            return math.prod(mesh_shape.get(c, 1) for c in cand)
-        return mesh_shape.get(cand, 1)
 
-    def one_spec(shape, ax):
-        used = set()
-        ax = list(ax)
-        shape = list(shape)
-        out = [None] * len(ax)
-        order = sorted(range(len(ax)),
-                       key=lambda i: (shrules._ASSIGN_PRIORITY.get(ax[i], 1),
-                                      i))
-        for i in order:
-            name = ax[i]
-            for cand in (rules.get(name, ()) if name else ()):
-                if cand in used:
-                    continue
-                if size_of(cand) > 1 and shape[i] % size_of(cand) == 0:
-                    out[i] = cand
-                    used.add(cand)
-                    break
-        return tuple(out)
-
-    flat_v, treedef = _pytree.tree_flatten(cache)
-    flat_a = _pytree.tree_leaves(axes, is_leaf=shrules.is_axes_leaf)
-    specs = [one_spec(v.shape, a) for v, a in zip(flat_v, flat_a)]
-    return _pytree.tree_unflatten(specs, treedef)
+def cache_specs(cfg: ModelConfig, cell: ShapeCell, mesh
+                ) -> tuple[PyTree, PyTree]:
+    """Decode cache: abstract tree + specs, under `serve_rules` (the batch
+    over ('pod', 'data') jointly when a pod axis exists)."""
+    B, S = cell.global_batch, cell.seq_len
+    cache = transformer.init_cache(cfg, B, S, torch.bfloat16, device=META)
+    return cache, shrules.tree_specs(cache, transformer.cache_axes(cfg), mesh,
+                                     serve_rules(mesh))
 
 
 def decode_token_specs(cell: ShapeCell, mesh) -> tuple[PyTree, PyTree]:

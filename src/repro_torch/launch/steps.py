@@ -41,7 +41,11 @@ The inference steps run where their tensors are, without autograd:
 prefill returns the last position's logits of `transformer.forward`, and
 the serve step is one `transformer.decode_step`, which overwrites the
 cache it is given (as the reference's jitted step donates it) and returns
-the same tensors.
+the same tensors. On a serving mesh of ranks (`launch.mesh.
+make_serve_mesh`) they run on DTensor parameters, batches, caches and
+tokens placed as the reference's dry-run places its inference cells
+(`launch.specs.serve_placements`), under its rules, as `grad_fn` runs a
+sharded replica: each cache written and attended where it lies.
 """
 
 from __future__ import annotations
@@ -58,7 +62,8 @@ from repro_torch.core.consensus import mix_collective, tree_mix_gossip
 from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import Optimizer, OptState
-from repro_torch.runtime.sharding import is_dtensor
+from repro_torch.launch.specs import serve_rules
+from repro_torch.runtime.sharding import is_dtensor, use_rules
 
 PyTree = Any
 
@@ -221,13 +226,30 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, moe_groups: int = 1):
+@contextlib.contextmanager
+def _serving(params: PyTree, mesh):
+    """Where the inference steps run: without autograd, with DTensor's
+    implicit replication of plain tensors (positions, masks) beside DTensor
+    parameters, and, given a serving mesh, under its rules
+    (`specs.serve_rules`: the reference's constraints)."""
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(torch.no_grad())
+        stack.enter_context(_replicated(_pytree.tree_leaves(params)))
+        if mesh is not None:
+            stack.enter_context(use_rules(serve_rules(mesh), mesh))
+        yield
+
+
+def make_prefill_step(cfg: ModelConfig, moe_groups: int = 1, mesh=None):
     """Forward-only (inference prefill): (params, batch) -> the logits of
     the last position (B, V). `batch["enc"]`, when present, is the VLM's
-    encoder states."""
+    encoder states. On a serving mesh (`launch.mesh.make_serve_mesh`) the
+    params and batch are DTensors placed by `specs.serve_placements`, the
+    step runs under the mesh's rules and the logits come back as a DTensor
+    in the reference's ("batch", "vocab") placement."""
 
     def prefill_step(params, batch):
-        with torch.no_grad():
+        with _serving(params, mesh):
             logits = transformer.forward(params, batch["tokens"], cfg,
                                          enc=batch.get("enc"),
                                          moe_groups=moe_groups)
@@ -236,12 +258,18 @@ def make_prefill_step(cfg: ModelConfig, moe_groups: int = 1):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, moe_groups: int = 1):
+def make_serve_step(cfg: ModelConfig, moe_groups: int = 1, mesh=None):
     """One-token decode: (params, cache, tokens, pos) -> (logits, cache),
-    the cache written in place."""
+    the cache written in place; `pos` an int or a 0-d integer tensor. On a
+    serving mesh the params, cache and tokens are DTensors placed by
+    `specs.serve_placements` (a DTensor `pos` is replicated), every cache
+    is written where it lies and never gathered, and the logits come back
+    as a DTensor in the reference's ("batch", "seq", "vocab") placement."""
 
     def serve_step(params, cache, tokens, pos):
-        with torch.no_grad():
+        if is_dtensor(pos):
+            pos = pos.to_local()
+        with _serving(params, mesh):
             return transformer.decode_step(params, cache, tokens, pos, cfg,
                                            moe_groups=moe_groups)
 

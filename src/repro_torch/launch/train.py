@@ -95,7 +95,7 @@ def init_state(cfg: ModelConfig, optimizer: Optimizer, n_pods: int, seed: int,
     del params  # each whole leaf goes as its shard is cut
     placed = []
     for i, pl in enumerate(_placement_leaves(p_pl)):
-        placed.append(_cut(flat[i], mesh.shard_mesh, pl))
+        placed.append(shrules.cut(flat[i], mesh.shard_mesh, pl))
         flat[i] = None
     params = _pytree.tree_unflatten(placed, treedef)
     # every optimizer state tree mirrors the params leaf for leaf
@@ -112,26 +112,9 @@ def init_state(cfg: ModelConfig, optimizer: Optimizer, n_pods: int, seed: int,
     return params, OptState(step, _pytree.tree_unflatten(wrapped, sdef))
 
 
-def _cut(t: torch.Tensor, device_mesh, placements):
-    """This rank's shard of a whole tensor `t` (the same on every rank) as
-    a DTensor, without communication; a shard that is a view of `t` is
-    copied, so that `t` can be freed."""
-    from torch.distributed.tensor import DTensor, distribute_tensor
-
-    local = distribute_tensor(t, device_mesh, placements,
-                              src_data_rank=None).to_local()
-    if local.numel() < t.numel():
-        local = local.clone()
-    return DTensor.from_local(local, device_mesh, placements,
-                              run_check=False, shape=t.shape,
-                              stride=t.stride())
-
-
 def _placement_leaves(tree) -> list:
     """The placements tuples of a tree of them, in leaf order."""
-    return _pytree.tree_leaves(
-        tree, is_leaf=lambda x: isinstance(x, tuple) and all(
-            hasattr(pl, "is_shard") for pl in x))
+    return _pytree.tree_leaves(tree, is_leaf=shrules.is_placements_leaf)
 
 
 def _stacked_batch(streams) -> dict:
@@ -257,7 +240,8 @@ def _restore_sharded(mgr, state, mesh: Mesh, n_pods: int,
         dist.broadcast(buf, src=root, group=group)
         part = buf.index_select(0, index)
         if is_dtensor(leaf):
-            part = _cut(part, leaf.device_mesh, leaf.placements).to_local()
+            part = shrules.cut(part, leaf.device_mesh,
+                               leaf.placements).to_local()
             leaf = leaf.to_local()
         leaf.copy_(part)
     return step
@@ -406,7 +390,7 @@ def train_consensus_lm(cfg: ModelConfig, optimizer: Optimizer, mesh: Mesh,
         for t in range(start_step + 1, steps + 1):
             batch = _stacked_batch(streams)
             if sharded:
-                batch = {k: _cut(v, mesh.shard_mesh, batch_pl)
+                batch = {k: shrules.cut(v, mesh.shard_mesh, batch_pl)
                          for k, v in batch.items()}
             comm = schedule.is_comm_step(t)
             step_fn = fused if comm else local

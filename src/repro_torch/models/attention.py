@@ -28,7 +28,13 @@ softmax run on each rank's own rows and kv heads under `local_map`
 
 Decode writes the new token's keys (or latent) into the cache at `pos` in
 place, the counterpart of the reference's donated cache, and returns the
-same tensors. Its scores are contracted in float32 from the operands as
+same tensors. A DTensor cache (sharded inference, placed by
+`launch.specs.serve_placements`) is written in each rank's own shard at
+the offset where it lies (`_write_local`) and attended as it lies, never
+gathered (`_CacheLayout`): over kv-head shards each rank attends its own
+heads; over head-dim shards the float32 scores are all-reduced once
+before the softmax; over sequence shards (MLA's latent, the
+cross-attention's encoder tokens) the softmax is split across the ranks. Its scores are contracted in float32 from the operands as
 they are (`_bmm_f32`, the reference's `preferred_element_type=float32`:
 no rounding of the scores to the activations' dtype, unlike the
 forward), over the cache as it lies (`_gqa_scores`, `_gqa_context`: one
@@ -76,11 +82,12 @@ def gqa_init(key: prng.Key, cfg: ModelConfig) -> PyTree:
     return prm
 
 
-def _qkv(prm, x, cfg: ModelConfig, positions):
-    if rules_active():
+def _qkv(prm, x, cfg: ModelConfig, positions, seq_parallel: bool = True):
+    if rules_active() and seq_parallel:
         # sharded: the projections gathered over 'model' as well, so each
         # rank projects its own tokens (q, k and v come out
-        # sequence-parallel)
+        # sequence-parallel); a decode's one token is projected by each
+        # rank's own heads instead (seq_parallel=False)
         prm = gather_axis({k: prm[k] for k in ("wq", "wk", "wv", "bq", "bk",
                                                "bv") if k in prm}, "model")
     q = torch.einsum("bsd,dhk->bshk", x, prm["wq"])
@@ -215,13 +222,117 @@ def _decode_positions(x: torch.Tensor, pos) -> torch.Tensor:
 def _write_at(buf: torch.Tensor, pos, value: torch.Tensor) -> torch.Tensor:
     """Write `value` (B, 1, ...) into `buf` (B, T, ...) at sequence index
     `pos`, in place, cast to the buffer's dtype (the reference's
-    `dynamic_update_slice` of its donated cache). Returns `buf`."""
-    if isinstance(pos, int):
+    `dynamic_update_slice` of its donated cache). A DTensor buffer is
+    written in each rank's own shard (`_write_local`). Returns `buf`."""
+    if is_dtensor(buf):
+        _write_local(buf, pos, value)
+    elif isinstance(pos, int):
         buf.narrow(1, pos, 1).copy_(value)
     else:
         buf.index_copy_(1, pos.reshape(1).to(torch.long),
                         value.to(buf.dtype))
     return buf
+
+
+def _shard_offset(t, dim: int) -> int:
+    """The global index of this rank's first element of DTensor `t` along
+    `dim` (its shards even: the rules shard only dimensions their ranks
+    divide)."""
+    mesh = t.device_mesh
+    chunk = 0
+    for d, pl in enumerate(t.placements):
+        if pl.is_shard(dim):
+            chunk = chunk * mesh.size(d) + mesh.get_local_rank(d)
+    return chunk * t.to_local().shape[dim]
+
+
+def _write_local(buf, pos, value) -> None:
+    """`_write_at` of a DTensor cache: the value taken to the cache's
+    layout, whole along the sequence (its rows and heads, or head-dim
+    slices, are the rank's own: no communication where the constraints
+    gave it that layout), and written into the rank's local shard. Over a
+    sequence-sharded cache only the rank whose shard holds `pos` writes,
+    at `pos` less its first position; with `pos` a tensor the choice
+    stays on the device: every rank writes at its clamped index, the old
+    value where `pos` lies outside its shard."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = buf.device_mesh
+    whole_seq = tuple(Replicate() if pl.is_shard(1) else pl
+                      for pl in buf.placements)
+    v = value.redistribute(mesh, whole_seq).to_local().to(buf.dtype)
+    local = buf.to_local()
+    T = local.shape[1]
+    idx = pos - _shard_offset(buf, 1)
+    if isinstance(idx, int):
+        if 0 <= idx < T:
+            local.narrow(1, idx, 1).copy_(v)
+        return
+    i = idx.clamp(0, T - 1).reshape(1).to(torch.long)
+    inside = (idx >= 0) & (idx < T)
+    local.index_copy_(1, i, torch.where(inside, v, local.index_select(1, i)))
+
+
+class _CacheLayout:
+    """How a DTensor cache (B, T, ...) lies over its mesh, for a decode's
+    attention over it as it lies: the mesh dims (of more than one rank)
+    that shard its sequence (dim 1) and those that shard `contracted`, a
+    dimension the scores sum over (their float32 partial sums, summed
+    over those ranks once); this rank's first position; and the
+    placements the queries take to meet it (the cache's rows, heads or
+    head-dim slices, whole along the sequence). The softmax over a
+    sequence-sharded cache is split: each rank's max and sum of
+    exponentials, all-reduced, and the context's float32 partial sums
+    all-reduced after."""
+
+    def __init__(self, cache, contracted: int | None = None):
+        from torch.distributed.tensor import Replicate
+
+        self.mesh = mesh = cache.device_mesh
+        live = [d for d in range(mesh.ndim) if mesh.size(d) > 1]
+        pls = cache.placements
+        self.seq = [d for d in live if pls[d].is_shard(1)]
+        self.contracted = ([] if contracted is None else
+                           [d for d in live if pls[d].is_shard(contracted)])
+        self.offset = _shard_offset(cache, 1)
+        self.query = tuple(Replicate() if pl.is_shard(1) else pl
+                           for pl in pls)
+
+    def reduce(self, t: torch.Tensor, dims, op: str = "sum") -> torch.Tensor:
+        """`t` all-reduced over the mesh dims `dims` (functional
+        collectives: DTensor's own)."""
+        from torch.distributed import _functional_collectives as funcol
+
+        for d in dims:
+            t = funcol.all_reduce(t, op, (self.mesh, d))
+        return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+    def softmax(self, scores: torch.Tensor, dtype) -> torch.Tensor:
+        """The softmax over the last dim, the positions, in `dtype`."""
+        if not self.seq:
+            return torch.softmax(scores, dim=-1).to(dtype)
+        m = self.reduce(torch.amax(scores, dim=-1, keepdim=True), self.seq,
+                        "max")
+        e = torch.exp(scores - m)
+        total = self.reduce(torch.sum(e, dim=-1, keepdim=True), self.seq)
+        return (e / total).to(dtype)
+
+    def wrap(self, local: torch.Tensor, shape, placements):
+        """A local result as a DTensor of global `shape`."""
+        from torch.distributed.tensor import DTensor
+
+        shape = tuple(shape)
+        return DTensor.from_local(local.contiguous(), self.mesh, placements,
+                                  run_check=False, shape=shape,
+                                  stride=_contiguous_stride(shape))
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, n = [], 1
+    for d in reversed(shape):
+        stride.append(n)
+        n *= d
+    return tuple(reversed(stride))
 
 
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -257,25 +368,31 @@ def _gqa_scores(qg: torch.Tensor, ck: torch.Tensor) -> torch.Tensor:
         B, K, G, T)
 
 
-def _gqa_context(w: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
-    """out[b,k,g] = sum_t w[b,k,g,t] v[b,t,k] in the promoted dtype: one
+def _gqa_context(w: torch.Tensor, cv: torch.Tensor,
+                 f32: bool = False) -> torch.Tensor:
+    """out[b,k,g] = sum_t w[b,k,g,t] v[b,t,k] in the promoted dtype (in
+    float32 with `f32`, `_bmm_f32`: a sequence shard's partial sum): one
     batched matmul of the (B, K*G, T) weights with the (B, T, K*hd) cache
     as it lies, then each query's own head's block of the (K*G, K*hd)
     product (the other blocks, the products with other heads' values, are
     dropped)."""
     B, T, K, hd = cv.shape
     G = w.shape[2]
-    dt = torch.promote_types(w.dtype, cv.dtype)
-    full = torch.bmm(w.reshape(B, K * G, T).to(dt),
-                     cv.reshape(B, T, K * hd).to(dt))
+    w, cv = w.reshape(B, K * G, T), cv.reshape(B, T, K * hd)
+    if f32:
+        full = _bmm_f32(w, cv)
+    else:
+        dt = torch.promote_types(w.dtype, cv.dtype)
+        full = torch.bmm(w.to(dt), cv.to(dt))
     return full.view(B, K, G, K, hd).diagonal(dim1=1, dim2=3).permute(
         0, 3, 1, 2)                                      # (B,K,G,hd)
 
 
-def _valid(T: int, pos, device) -> torch.Tensor:
-    """The cache positions written so far, `arange(T) <= pos`."""
-    return torch.arange(T, device=device) <= torch.as_tensor(pos,
-                                                             device=device)
+def _valid(T: int, pos, device, offset: int = 0) -> torch.Tensor:
+    """The cache positions written so far among `offset` .. `offset` + T,
+    `arange(offset, offset + T) <= pos`."""
+    return torch.arange(offset, offset + T, device=device) <= torch.as_tensor(
+        pos, device=device)
 
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,
@@ -294,21 +411,62 @@ def gqa_decode(prm, x, cache, cfg: ModelConfig, pos
                ) -> tuple[torch.Tensor, PyTree]:
     """One-token decode. x: (B,1,D); pos: the current position, shared by
     the batch. Writes the token's k and v into the cache at `pos` (in
-    place) and attends over positions 0..pos of it. Returns (out, cache)."""
+    place) and attends over positions 0..pos of it. Returns (out, cache).
+    A DTensor cache is attended as it lies (`_gqa_attend_sharded`)."""
     h = rms_norm(x, prm["norm"])
-    q, k, v = _qkv(prm, h, cfg, _decode_positions(x, pos))
+    q, k, v = _qkv(prm, h, cfg, _decode_positions(x, pos),
+                   seq_parallel=False)
     ck = _write_at(cache["k"], pos, k)
     cv = _write_at(cache["v"], pos, v)
+    ck = constrain(ck, ("batch", "cache_seq", "kv_heads", "head"))
+    cv = constrain(cv, ("batch", "cache_seq", "kv_heads", "head"))
+    if is_dtensor(ck):
+        out = _gqa_attend_sharded(q, ck, cv, pos)
+    else:
+        out = _gqa_attend(q, ck, cv, pos)
+    out = promoted_einsum("bshk,hkd->bsd", out, prm["wo"])
+    return constrain(out, ("batch", "seq", "embed_act")), cache
+
+
+def _gqa_attend(q, ck, cv, pos) -> torch.Tensor:
+    """q (B,1,H,hd) over the cache (B,T,K,hd) at positions 0..pos."""
     B, _, H, hd = q.shape
     T, K = ck.shape[1], ck.shape[2]
     G = H // K
     qg = q.reshape(B, K, G, hd)
-    scores = _gqa_scores(qg, ck) / _sqrt_hd(hd, x.device)
-    scores = scores.masked_fill(~_valid(T, pos, x.device), -1e30)
+    scores = _gqa_scores(qg, ck) / _sqrt_hd(hd, q.device)
+    scores = scores.masked_fill(~_valid(T, pos, q.device), -1e30)
     w = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = _gqa_context(w, cv).reshape(B, 1, H, hd)
-    out = promoted_einsum("bshk,hkd->bsd", out, prm["wo"])
-    return out, cache
+    return _gqa_context(w, cv).reshape(B, 1, H, hd)
+
+
+def _gqa_attend_sharded(q, ck, cv, pos) -> torch.Tensor:
+    """`_gqa_attend` over DTensor caches as they lie, on each rank's local
+    shards (`_CacheLayout`), the cache never gathered: the queries are
+    taken to the cache's rows and kv heads (each rank's q heads with
+    them: the block-diagonal queries of its own heads) or head-dim slices;
+    over head-dim shards the float32 scores are partial sums, all-reduced
+    once before the softmax, and the context stays head-dim-sharded; over
+    sequence shards the softmax is split. Returns the output in the
+    queries' layout."""
+    lay = _CacheLayout(ck, contracted=3)
+    ql = q.redistribute(lay.mesh, lay.query).to_local()
+    ckl, cvl = ck.to_local(), cv.to_local()
+    B, Tl, Kl, hdl = ckl.shape
+    hd = q.shape[-1]
+    qg = ql.reshape(B, Kl, -1, hdl)
+    scores = lay.reduce(_gqa_scores(qg, ckl), lay.contracted)
+    scores = scores / _sqrt_hd(hd, ql.device)
+    scores = scores.masked_fill(~_valid(Tl, pos, ql.device, lay.offset),
+                                -1e30)
+    w = lay.softmax(scores, q.dtype)
+    if lay.seq:
+        dt = torch.promote_types(w.dtype, cvl.dtype)
+        out = lay.reduce(_gqa_context(w, cvl, f32=True), lay.seq).to(dt)
+    else:
+        out = _gqa_context(w, cvl)
+    out = lay.wrap(out.reshape(B, 1, -1, hdl), q.shape, lay.query)
+    return out.redistribute(lay.mesh, q.placements)
 
 
 # ---------------------------------------------------------------------------
@@ -452,25 +610,80 @@ def mla_decode(prm, x, cache, cfg: ModelConfig, pos
     through `wk_b` (q_abs), the scores are q_abs . c_kv plus q_rope .
     k_rope, and `wv_b` expands the latent context per head, so the
     per-head K and V are never materialized. The scale is
-    1/sqrt(nope + rope) in float32, the mask -inf."""
+    1/sqrt(nope + rope) in float32, the mask -inf. DTensor caches are
+    attended as they lie (`_mla_attend_sharded`)."""
     h = rms_norm(x, prm["norm"])
     positions = _decode_positions(x, pos)
     q_nope, q_rope = _mla_q(prm, h, cfg, positions)
     c_kv, k_rope = _mla_kv_latent(prm, h, cfg, positions)
     ckv = _write_at(cache["ckv"], pos, c_kv)
     krope = _write_at(cache["krope"], pos, k_rope)
+    ckv = constrain(ckv, ("batch", "cache_seq", "kv_lora"))
+    krope = constrain(krope, ("batch", "cache_seq", "head"))
     # absorb W_uk: (B,1,H,nope) x (kvl,H,nope) -> (B,H,kvl)
     q_abs = torch.einsum("bshk,qhk->bhq", q_nope, prm["wk_b"])
     scale = 1.0 / _sqrt_hd(cfg.hd + cfg.mla_rope_head_dim, x.device)
-    scores = (_bmm_f32(q_abs, ckv.transpose(1, 2))
-              + _bmm_f32(q_rope[:, 0], krope.transpose(1, 2))) * scale
-    scores = scores.masked_fill(~_valid(ckv.shape[1], pos, x.device),
-                                float("-inf"))
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    ctx = promoted_einsum("bht,btq->bhq", w, ckv)        # latent context
+    if is_dtensor(ckv):
+        ctx = _mla_attend_sharded(q_abs, q_rope[:, 0], ckv, krope, pos,
+                                  scale, x.dtype)
+    else:
+        scores = (_bmm_f32(q_abs, ckv.transpose(1, 2))
+                  + _bmm_f32(q_rope[:, 0], krope.transpose(1, 2))) * scale
+        scores = scores.masked_fill(~_valid(ckv.shape[1], pos, x.device),
+                                    float("-inf"))
+        w = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx = promoted_einsum("bht,btq->bhq", w, ckv)    # latent context
     out = promoted_einsum("bhq,qhk->bhk", ctx, prm["wv_b"])  # V per head
     out = promoted_einsum("bhk,hkd->bd", out, prm["wo"])[:, None, :]
-    return out, cache
+    return constrain(out, ("batch", "seq", "embed_act")), cache
+
+
+def _mla_attend_sharded(q_abs, q_rope, ckv, krope, pos, scale, dtype):
+    """`mla_decode`'s latent context (B,H,kvl) over DTensor caches as they
+    lie (`_CacheLayout` of `ckv`), neither gathered: q_abs meets each
+    rank's rows and positions of the latent cache (under the rules its
+    sequence is sharded over 'model': the latent has no rule), q_rope its
+    rows and rope dims of `krope` (head-dim-sharded under the rules). The
+    rope term is then a float32 partial sum over the rope dims' ranks,
+    reduced to the latent's positions (reduce-scattered over the
+    sequence, or all-reduced) before the scale, the mask and the split
+    softmax; the context's float32 partial sums are all-reduced over the
+    sequence's ranks."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    lay = _CacheLayout(ckv)
+    mesh = lay.mesh
+    if any(pl.is_shard(2) for pl in ckv.placements):
+        raise ValueError(f"MLA's latent cache sharded over the latent "
+                         f"({ckv.placements}) is not a layout of the rules")
+    rows = tuple(Shard(0) if pl.is_shard(0) else Replicate()
+                 for pl in ckv.placements)
+    qa = q_abs.redistribute(mesh, rows).to_local()
+    qr = q_rope.redistribute(mesh, tuple(
+        pl if pl.is_shard(0) or pl.is_shard(2) else Replicate()
+        for pl in krope.placements)).to_local()
+    ckvl = ckv.to_local()
+    latent = _bmm_f32(qa, ckvl.transpose(1, 2))
+    # the rope term over krope's positions, a partial sum over its rope
+    # dims' ranks, taken to the latent term's layout (rows, positions)
+    rope = _bmm_f32(qr, krope.to_local().transpose(1, 2))
+    have = tuple(Shard(0) if pl.is_shard(0) else Shard(2) if pl.is_shard(1)
+                 else Partial() if pl.is_shard(2) else Replicate()
+                 for pl in krope.placements)
+    want = tuple(Shard(0) if pl.is_shard(0) else Shard(2) if pl.is_shard(1)
+                 else Replicate() for pl in ckv.placements)
+    rope = lay.wrap(rope, q_abs.shape[:2] + ckv.shape[1:2],
+                    have).redistribute(mesh, want).to_local()
+    scores = (latent + rope) * scale
+    scores = scores.masked_fill(
+        ~_valid(ckvl.shape[1], pos, ckvl.device, lay.offset), float("-inf"))
+    w = lay.softmax(scores, dtype)
+    if lay.seq:
+        dt = torch.promote_types(w.dtype, ckvl.dtype)
+        ctx = lay.reduce(_bmm_f32(w, ckvl), lay.seq).to(dt)
+    else:
+        ctx = promoted_einsum("bht,btq->bhq", w, ckvl)
+    return lay.wrap(ctx, q_abs.shape, rows)
 
 
 # ---------------------------------------------------------------------------

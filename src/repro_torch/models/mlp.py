@@ -8,7 +8,10 @@ when its tensors are DTensors (a sharded pod) and is unchanged on one
 device. So does the MoE: its dispatch groups go over 'data' and its
 experts over 'model' (the reference's constraints), the integer routing
 and each rank's experts run on local shards (`_moe_grouped_sharded`), and
-the output goes back to ("batch", "seq", "embed_act").
+the output goes back to ("batch", "seq", "embed_act"). Inference's one
+dispatch group (a decode step's) lies whole on every data rank; there the
+experts' weights stay where they lie, their products' partial sums
+all-reduced over 'data' (`_moe_one_group`).
 
 MoE dispatch is the reference's sort-based fixed-capacity scheme: flatten
 the token assignments (token-major, `n * K + k`), sort them stably by
@@ -30,6 +33,7 @@ does the same for the expert outputs.
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -66,7 +70,10 @@ def _ffn(prm, h, cfg: ModelConfig):
     act_axes = (("batch", "seq", "mlp") if cfg.mlp_tp
                 else ("batch", "seq_sp", None))
     h = constrain(h, tok_axes)
-    if not cfg.mlp_tp:  # sharded: each rank holds the whole FFN
+    if not cfg.mlp_tp and _seq_sharded(h):
+        # sharded: each rank holds the whole FFN for its tokens (a
+        # decode's one token, whole on every rank, meets the FFN's d_ff
+        # shards where they lie)
         prm = gather_axis(prm, "model")
     up = torch.einsum("bsd,df->bsf", h, prm["w_up"])
     if cfg.mlp_act == "swiglu":
@@ -79,6 +86,11 @@ def _ffn(prm, h, cfg: ModelConfig):
         act = torch.nn.functional.gelu(up, approximate="tanh")
     act = constrain(act, act_axes)
     return torch.einsum("bsf,fd->bsd", act, prm["w_down"])
+
+
+def _seq_sharded(h) -> bool:
+    """True for a DTensor whose sequence (dim 1) lies over some mesh dim."""
+    return is_dtensor(h) and any(p.is_shard(1) for p in h.placements)
 
 
 def mlp_apply(prm, x, cfg: ModelConfig, d_ff: int | None = None
@@ -169,11 +181,14 @@ def _moe_grouped(tokens, router, w_up, w_gate, w_down, cfg: ModelConfig,
 
 
 def _dispatch_experts(tokens, ids, w_up, w_gate, w_down, cfg: ModelConfig,
-                      capacity: int, first: int):
+                      capacity: int, first: int, d_shard=None):
     """(dest, expert_out): each assignment's slot (G, Nl*K), and the
     (G, El, C, D) outputs of the El experts `first`, `first + 1`, ... that
     `w_up` holds (all E on one device; a rank's own over 'model'), from
-    their slots' tokens."""
+    their slots' tokens. With `d_shard` = (d0, reduce) the weights hold
+    the model dims d0 .. d0 + Dl alone (a data shard): the up and gate
+    products are float32 partial sums over those dims, summed by
+    `reduce`, and the outputs are the (G, El, C, Dl) slice."""
     G, Nl, D = tokens.shape
     E, K = cfg.moe_experts, cfg.moe_top_k
     El, C = w_up.shape[0], capacity
@@ -192,8 +207,15 @@ def _dispatch_experts(tokens, ids, w_up, w_gate, w_down, cfg: ModelConfig,
     expert_in = expert_in.masked_fill(~slot_valid[..., None], 0)
     expert_in = expert_in.reshape(G, El, C, D)
 
-    up = torch.einsum("gecd,edf->gecf", expert_in, w_up)
-    gate = torch.einsum("gecd,edf->gecf", expert_in, w_gate)
+    if d_shard is None:
+        up = torch.einsum("gecd,edf->gecf", expert_in, w_up)
+        gate = torch.einsum("gecd,edf->gecf", expert_in, w_gate)
+    else:
+        d0, reduce = d_shard
+        expert_in = expert_in[..., d0:d0 + w_up.shape[1]].float()
+        up, gate = (reduce(torch.einsum("gecd,edf->gecf", expert_in,
+                                        w.float())).to(w.dtype)
+                    for w in (w_up, w_gate))
     act = torch.nn.functional.silu(gate) * up
     return dest, torch.einsum("gecf,efd->gecd", act, w_down)
 
@@ -246,13 +268,18 @@ def _moe_grouped_sharded(tokens, router, w_up, w_gate, w_down,
         in_grad_placements=(t_pl, over_groups, None),
         device_mesh=mesh)(tokens, router, cfg.moe_top_k)
 
-    weights = gather_axis((w_up, w_gate, w_down), "data")
-    w_pl = tuple(weights[0].placements)
     m = mesh.mesh_dim_names.index("model")
+    d = mesh.mesh_dim_names.index("data")
     E = cfg.moe_experts
     first = 0
-    if w_pl[m].is_shard():
+    if w_up.placements[m].is_shard():
         first = mesh.get_local_rank(m) * (E // mesh.size(m))
+    if (not torch.is_grad_enabled() and not t_pl[d].is_shard()
+            and w_up.placements[d].is_shard(1)):
+        return _moe_one_group(tokens, gates, ids, w_up, w_gate, w_down, cfg,
+                              capacity, first)
+    weights = gather_axis((w_up, w_gate, w_down), "data")
+    w_pl = tuple(weights[0].placements)
     # the tokens' gradient from this rank's experts alone: a partial sum
     # over 'model' when the experts are sharded there
     tok_grad = tuple(Partial() if w.is_shard() else t
@@ -269,6 +296,47 @@ def _moe_grouped_sharded(tokens, router, w_up, w_gate, w_down,
         in_grad_placements=(tok_grad, t_pl) + (w_grad,) * 3,
         device_mesh=mesh)(tokens, ids, *weights)
     # every expert's output on every model rank, for the combine
+    expert_out = expert_out.redistribute(mesh, t_pl)
+    return local_map(
+        _combine, out_placements=(t_pl,), in_placements=(t_pl,) * 3 + (None,),
+        device_mesh=mesh)(expert_out, gates, dest, tokens.dtype)
+
+
+def _moe_one_group(tokens, gates, ids, w_up, w_gate, w_down,
+                   cfg: ModelConfig, capacity: int, first: int):
+    """Inference's MoE at one dispatch group (a decode step's, the
+    reference's), whose tokens lie whole on every data rank, with the
+    experts' weights where they lie (their model dims over 'data', the
+    experts over 'model'), not gathered: each rank takes its experts'
+    slots over its model dims, the up and gate products' float32 partial
+    sums all-reduced over 'data', the down product its model dims' slice;
+    the outputs are then gathered (a few tokens' worth) for the combine,
+    as on one device. No autograd: the placements of a gradient are not
+    declared."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = tokens.device_mesh
+    t_pl = tuple(tokens.placements)
+    d = mesh.mesh_dim_names.index("data")
+    d0 = mesh.get_local_rank(d) * (tokens.shape[-1] // mesh.size(d))
+
+    def reduce(t):
+        t = funcol.all_reduce(t, "sum", (mesh, d))
+        return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+    out_pl = tuple(Shard(1) if u.is_shard(0) else
+                   Shard(3) if u.is_shard(1) else t
+                   for t, u in zip(t_pl, w_up.placements))
+    dest, expert_out = local_map(
+        lambda t, i, a, b, c: _dispatch_experts(t, i, a, b, c, cfg,
+                                                capacity, first,
+                                                (d0, reduce)),
+        out_placements=(t_pl, out_pl),
+        in_placements=(t_pl, t_pl, tuple(w_up.placements),
+                       tuple(w_gate.placements), tuple(w_down.placements)),
+        device_mesh=mesh)(tokens, ids, w_up, w_gate, w_down)
     expert_out = expert_out.redistribute(mesh, t_pl)
     return local_map(
         _combine, out_placements=(t_pl,), in_placements=(t_pl,) * 3 + (None,),
@@ -308,19 +376,22 @@ def moe_apply(prm, x, cfg: ModelConfig, groups: int = 1) -> torch.Tensor:
 def _regroup(x, shape: tuple, axes: tuple):
     """`x.reshape(shape)` with the leading dims regrouped (tokens into
     dispatch groups and back). A DTensor is first constrained to `axes`
-    (whole over 'model') and, where its leading dim and the result's are
-    both sharded over 'data' (each rank's rows are then its groups'
-    tokens), reshaped on its local shard; else gathered over 'data' as
-    well and reshaped whole."""
+    (whole over 'model') and, where the result's leading dim divides over
+    the ranks its rows lie on ('data', and 'pod' when serving: each
+    rank's rows are then its groups' tokens), reshaped on its local shard;
+    else gathered over those ranks as well and reshaped whole."""
     if not is_dtensor(x):
         return x.reshape(shape)
+    from torch.distributed.tensor import Replicate
     from torch.distributed.tensor.experimental import local_map
 
     x = constrain(x, axes)  # `axes` leave 'model' whole
     mesh = x.device_mesh
-    d = mesh.mesh_dim_names.index("data")
-    if not (x.placements[d].is_shard() and shape[0] % mesh.size(d) == 0):
-        x = gather_axis(x, "data")
+    rows = math.prod(mesh.size(d) for d, pl in enumerate(x.placements)
+                     if pl.is_shard(0))
+    if shape[0] % rows != 0:  # gathered over the rows' mesh dims
+        x = x.redistribute(mesh, tuple(Replicate() if pl.is_shard(0) else pl
+                                       for pl in x.placements))
     pl = tuple(x.placements)
     local = (-1,) + tuple(shape[1:])
     return local_map(lambda t: t.reshape(local), out_placements=(pl,),

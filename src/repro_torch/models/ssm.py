@@ -32,7 +32,10 @@ The one-token decode (`mamba1_decode`, `mamba2_decode`, with
 tensors, and returns them. `_conv_step` is the reference's einsum over the
 K taps: a float32 sum rounded once to the activations' dtype, which is
 not `_causal_conv`'s tap-by-tap rounding (the reference's decode and
-forward round the conv differently too).
+forward round the conv differently too). A DTensor cache (its channels
+over 'model' under the rules) is stepped and written on each rank's own
+channels and heads (`_conv_step_sharded`, `_write_state`), never
+gathered.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from repro_torch.compress import prng
 from repro_torch import resolve_device_or_meta
 from repro_torch.models.common import (ModelConfig, p, promoted_einsum,
                                        pz, rms_norm)
-from repro_torch.runtime.sharding import constrain
+from repro_torch.runtime.sharding import constrain, is_dtensor
 
 PyTree = Any
 
@@ -74,10 +77,47 @@ def _conv_step(x_t: torch.Tensor, conv_state: torch.Tensor,
     window's taps are summed in float32 and rounded once to the window's
     (promoted) dtype, as the reference's einsum; returns (out, the next
     window (B,K-1,C))."""
+    if is_dtensor(conv_state):
+        return _conv_step_sharded(x_t, conv_state, w, b)
     window = torch.cat([conv_state, x_t[:, None, :]], dim=1)   # (B,K,C)
     dt = torch.promote_types(window.dtype, w.dtype)
     out = torch.einsum("bkc,ck->bc", window.float(), w.float()).to(dt) + b
     return out, window[:, 1:, :]
+
+
+def _conv_step_sharded(x_t, conv_state, w, b):
+    """`_conv_step` of a DTensor window on each rank's own rows and
+    channels (the rules put the channels over 'model'): the token, taps
+    and bias taken to the window's channels, the window never gathered.
+    Returns (out, the next window), DTensors in the window's layout."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = conv_state.device_mesh
+    st = tuple(conv_state.placements)                  # (B, K-1, C)
+    tok = tuple(Shard(1) if pl.is_shard(2) else pl for pl in st)
+    chan = tuple(Shard(0) if pl.is_shard(2) else Replicate() for pl in st)
+    out, window = _conv_step(x_t.redistribute(mesh, tok).to_local(),
+                             conv_state.to_local(),
+                             w.redistribute(mesh, chan).to_local(),
+                             b.redistribute(mesh, chan).to_local())
+    B, K1, C = conv_state.shape
+    return (DTensor.from_local(out, mesh, tok, run_check=False,
+                               shape=(B, C), stride=(C, 1)),
+            DTensor.from_local(window.contiguous(), mesh, st,
+                               run_check=False, shape=(B, K1, C),
+                               stride=(K1 * C, C, 1)))
+
+
+def _write_state(buf, value) -> None:
+    """A decode's new recurrent state `value` into the cache's `buf`, in
+    place: a DTensor buffer in each rank's own shard (the value taken to
+    the buffer's layout first)."""
+    if not is_dtensor(buf):
+        buf.copy_(value)
+        return
+    if tuple(value.placements) != tuple(buf.placements):
+        value = value.redistribute(buf.device_mesh, buf.placements)
+    buf.to_local().copy_(value.to_local())
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -250,9 +290,9 @@ def mamba1_decode(prm, x, cache, cfg: ModelConfig, pos=None):
     y = y + x_t.float() * prm["D_skip"]
     y = y.to(x.dtype) * F.silu(z)
     out = torch.einsum("be,ed->bd", y, prm["out_proj"])[:, None, :]
-    cache["conv"].copy_(conv_state)
-    cache["h"].copy_(h_new)
-    return out, cache
+    _write_state(cache["conv"], conv_state)
+    _write_state(cache["h"], h_new)
+    return constrain(out, ("batch", "seq", "embed_act")), cache
 
 
 # ---------------------------------------------------------------------------
@@ -430,6 +470,6 @@ def mamba2_decode(prm, x, cache, cfg: ModelConfig, pos=None):
     y = y.reshape(-1, d_inner)
     y = rms_norm(y.to(x.dtype) * F.silu(z), prm["gate_norm"])
     out = torch.einsum("be,ed->bd", y, prm["out_proj"])[:, None, :]
-    cache["conv"].copy_(conv_state)
-    cache["h"].copy_(h_new)
-    return out, cache
+    _write_state(cache["conv"], conv_state)
+    _write_state(cache["h"], h_new)
+    return constrain(out, ("batch", "seq", "embed_act")), cache

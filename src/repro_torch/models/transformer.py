@@ -48,6 +48,15 @@ tensors. A cross-attention block's cache holds the encoder's K and V,
 filled before decode (the reference fills it at prefill, outside
 `decode_step`); decode only reads it. zamba2's shared attention has one
 GQA cache a repetition, though its weights are shared.
+
+Sharded decode (DTensor parameters and caches, `launch.steps.
+make_serve_step` on a serving mesh) keeps every tensor where it lies:
+the parameters are not gathered over 'data' (a decode's few tokens meet
+their shards, the products' partial sums reduced), the embedding is
+looked up where the table lies, each block's output takes the
+reference's ("batch", "seq", "embed_act") constraint, and each cache is
+written and attended in its own shards (`models.attention`,
+`models.ssm`).
 """
 
 from __future__ import annotations
@@ -65,7 +74,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ModelConfig, cross_entropy_loss, p,
                                        promoted_einsum, pz, rms_norm,
                                        split_axes)
-from repro_torch.runtime.sharding import constrain, gather_axis
+from repro_torch.runtime.sharding import constrain, gather_axis, is_dtensor
 
 PyTree = Any
 
@@ -202,7 +211,8 @@ def _block_decode(kind: str, prm, x, cache, cfg: ModelConfig, pos, shared,
     else:
         raise ValueError(kind)
     x = x + out.to(x.dtype)  # a float32 cache must not promote the carry
-    return _ffn_apply(kind, prm, x, cfg, shared, moe_groups)
+    x = _ffn_apply(kind, prm, x, cfg, shared, moe_groups)
+    return constrain(x, ("batch", "seq", "embed_act"))
 
 
 def _cross_decode(prm, x, cache, cfg: ModelConfig):
@@ -212,22 +222,52 @@ def _cross_decode(prm, x, cache, cfg: ModelConfig):
     of an int, which is weakly typed, before their cast to float32), the
     quotient in float32 and not rounded back, as XLA computes the
     reference's jitted step; `cross_attn_apply` scales by the float32
-    root after the cast."""
+    root after the cast. DTensor caches (the encoder's tokens over
+    'model' under the rules) are attended as they lie: the softmax over
+    the tokens split across their ranks (`attention._CacheLayout`)."""
     h = rms_norm(x, prm["norm"])
     q = torch.einsum("bsd,dhk->bshk", h, prm["wq"])
-    B, S, H, hd = q.shape
-    K = cache["ek"].shape[2]
-    G = H // K
-    qg = q.reshape(B, S, K, G, hd)
-    scores = promoted_einsum("bskgh,bnkh->bkgsn", qg, cache["ek"])
-    sqrt_hd = torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
-                                      device=x.device)).to(scores.dtype)
-    scores = scores.float() / sqrt_hd.float()
-    w = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = promoted_einsum("bkgsn,bnkh->bskgh", w, cache["ev"]).reshape(
-        B, S, H, hd)
+    ek, ev = cache["ek"], cache["ev"]
+    if is_dtensor(ek):
+        lay = attn._CacheLayout(ek, contracted=3)
+        out = _cross_attend(q.redistribute(lay.mesh, lay.query).to_local(),
+                            ek.to_local(), ev.to_local(), cfg.hd, x.dtype,
+                            lay)
+        out = lay.wrap(out, q.shape, lay.query).redistribute(
+            lay.mesh, q.placements)
+    else:
+        out = _cross_attend(q, ek, ev, cfg.hd, x.dtype)
     out = promoted_einsum("bshk,hkd->bsd", out, prm["wo"])
-    return torch.tanh(prm["gate"].float()).to(x.dtype) * out, cache
+    out = torch.tanh(prm["gate"].float()).to(x.dtype) * out
+    return constrain(out, ("batch", "seq", "embed_act")), cache
+
+
+def _cross_attend(q, ek, ev, hd: int, dtype, lay=None):
+    """q (B,S,H,hd) over the encoder's K and V (B,N,K,hd), unmasked, the
+    output in the promoted dtype. With a `_CacheLayout` these are a rank's
+    local shards: head-dim shards' scores summed over their ranks (in
+    float32), the softmax over token shards split, the context's float32
+    partial sums all-reduced."""
+    B, S = q.shape[:2]
+    K, hdl = ek.shape[2], ek.shape[3]
+    qg = q.reshape(B, S, K, -1, hdl)
+    scores = promoted_einsum("bskgh,bnkh->bkgsn", qg, ek)
+    if lay is not None and lay.contracted:
+        scores = lay.reduce(scores.float(), lay.contracted).to(scores.dtype)
+    sqrt_hd = torch.sqrt(torch.tensor(float(hd), dtype=torch.float32,
+                                      device=q.device)).to(scores.dtype)
+    scores = scores.float() / sqrt_hd.float()
+    if lay is None:
+        w = torch.softmax(scores, dim=-1).to(dtype)
+    else:
+        w = lay.softmax(scores, dtype)
+    if lay is not None and lay.seq:
+        dt = torch.promote_types(w.dtype, ev.dtype)
+        out = lay.reduce(torch.einsum("bkgsn,bnkh->bskgh", w.float(),
+                                      ev.float()), lay.seq).to(dt)
+    else:
+        out = promoted_einsum("bkgsn,bnkh->bskgh", w, ev)
+    return out.reshape(B, S, -1, hdl)
 
 
 def _shared_attn_decode(lora, shared, x, cache, cfg: ModelConfig, pos):
@@ -325,16 +365,39 @@ def _sorted(tree: PyTree) -> PyTree:
     return tree
 
 
-def _embed(params, tokens, cfg: ModelConfig):
-    x = gather_axis(params["embed"])[tokens.long()]
+def _embed(params, tokens, cfg: ModelConfig, fsdp: bool = True):
+    """The tokens' embeddings. With `fsdp` the table is gathered over
+    'data' first (a sharded replica's forward); else (decode) it is looked
+    up where it lies (`F.embedding`: a vocabulary shard gives a masked
+    partial sum) by the tokens gathered whole."""
+    if fsdp:
+        x = gather_axis(params["embed"])[tokens.long()]
+    else:  # the tokens (a few integers) whole on every rank
+        x = torch.nn.functional.embedding(
+            gather_axis(gather_axis(tokens.long()), "model"),
+            params["embed"])
+        x = _reduced(x)
     return constrain(x.to(cfg.dtype), ("batch", "seq", "embed_act"))
 
 
-def _unembed(params, x, cfg: ModelConfig):
+def _reduced(x):
+    """A DTensor's partial sums (a vocabulary shard's masked lookup)
+    all-reduced before any other redistribution (a row slice taken first
+    would meet the mask of the whole rows); anything else as it is."""
+    if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in x.placements))
+
+
+def _unembed(params, x, cfg: ModelConfig, fsdp: bool = True):
     x = constrain(x, ("batch", "seq", "embed_act"))  # one sequence gather
-    x = rms_norm(x, gather_axis(params["final_norm"]))
-    head = gather_axis(params["embed"].T if cfg.tie_embeddings
-                       else params["lm_head"])
+    gather = gather_axis if fsdp else (lambda t: t)
+    x = rms_norm(x, gather(params["final_norm"]))
+    head = gather(params["embed"].T if cfg.tie_embeddings
+                  else params["lm_head"])
     logits = torch.einsum("bsd,dv->bsv", x, head)
     return constrain(logits, ("batch", "seq", "vocab"))
 
@@ -448,8 +511,10 @@ def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig,
     """One-token decode. tokens: (B,1) integers; pos: the current write
     position, an int or a 0-d integer tensor, shared by the batch. Writes
     every block's new state into `cache` in place and returns (logits
-    (B,1,V), cache): the same tensors."""
-    x = _embed(params, tokens, cfg)
+    (B,1,V), cache): the same tensors. On a sharded replica (DTensors)
+    each block's parameters are gathered over 'data' where it runs, as in
+    `forward`, and each cache is written where it lies."""
+    x = _embed(params, tokens, cfg, fsdp=False)
     shared = {"attn": params.get("shared_attn"),
               "mlp": params.get("shared_mlp")}
     for i, kind in enumerate(cfg.prologue):
@@ -461,7 +526,7 @@ def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig,
             x = _block_decode(kind, slots[f"slot{i}"], x,
                               caches[f"slot{i}"], cfg, pos, shared,
                               moe_groups)
-    return _unembed(params, x, cfg), cache
+    return _unembed(params, x, cfg, fsdp=False), cache
 
 
 def loss_fn(params, batch, cfg: ModelConfig, moe_groups: int = 1

@@ -28,6 +28,7 @@ one-device run never sees it.
 from __future__ import annotations
 
 import contextlib
+import math
 import sys
 import threading
 from typing import Any, Sequence
@@ -114,10 +115,12 @@ def logical_to_spec(shape: Sequence[int], axes: Sequence[str | None],
                     mesh_shape: dict[str, int]) -> Spec:
     """Resolve logical axes to a spec, honoring divisibility and never
     assigning one mesh axis twice. Competing axes are resolved in
-    _ASSIGN_PRIORITY order (then position order)."""
+    _ASSIGN_PRIORITY order (then position order). A rule's candidate may
+    be a composite tuple of axes (the serving rules' ("pod", "data")
+    batch), sharded when its axes' product divides the dimension."""
     axes = list(axes)
     shape = list(shape)
-    used: set[str] = set()
+    used: set = set()
     out: list[Any] = [None] * len(axes)
     order = sorted(range(len(out)),
                    key=lambda i: (_ASSIGN_PRIORITY.get(axes[i], 1), i))
@@ -126,12 +129,20 @@ def logical_to_spec(shape: Sequence[int], axes: Sequence[str | None],
         for cand in (rules.get(name, ()) if name else ()):
             if cand in used:
                 continue
-            size = mesh_shape.get(cand, 1)
+            size = _axis_size(cand, mesh_shape)
             if size > 1 and shape[i] % size == 0:
                 out[i] = cand
                 used.add(cand)
                 break
     return tuple(out)
+
+
+def _axis_size(cand, mesh_shape: dict[str, int]) -> int:
+    """Ranks a rule's candidate spans: a mesh axis's size, or the product
+    of a composite's (("pod", "data"), the serving batch's)."""
+    if isinstance(cand, tuple):
+        return math.prod(mesh_shape.get(c, 1) for c in cand)
+    return mesh_shape.get(cand, 1)
 
 
 def spec_for(x, axes: Sequence[str | None],
@@ -216,6 +227,39 @@ def gather_axis(tree: PyTree, axis: str = "data") -> PyTree:
         placements[m] = Replicate()
         return t.redistribute(t.device_mesh, placements)
     return _pytree.tree_map(one, tree)
+
+
+def cut(t, device_mesh, placements):
+    """This rank's shard of a whole tensor `t` (the same on every rank) as
+    a DTensor on `device_mesh`, without communication; a shard that is a
+    view of `t` is copied, so that `t` can be freed (a replicated one is
+    `t` itself)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    local = distribute_tensor(t, device_mesh, placements,
+                              src_data_rank=None).to_local()
+    if local.numel() < t.numel():
+        local = local.clone()
+    return DTensor.from_local(local, device_mesh, placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def is_placements_leaf(x) -> bool:
+    """A tuple of DTensor placements (one a mesh dimension)."""
+    return isinstance(x, tuple) and all(hasattr(pl, "is_shard") for pl in x)
+
+
+def place(tree: PyTree, placements: PyTree, device_mesh) -> PyTree:
+    """Every leaf of a plain `tree` (whole, the same on every rank) cut to
+    this rank's shard by the parallel tree of placements (`cut`)."""
+    flat, treedef = _pytree.tree_flatten(tree)
+    pls = _pytree.tree_leaves(placements, is_leaf=is_placements_leaf)
+    if len(flat) != len(pls):
+        raise ValueError(f"{len(flat)} leaves against {len(pls)} "
+                         f"placements")
+    return _pytree.tree_unflatten(
+        [cut(t, device_mesh, pl) for t, pl in zip(flat, pls)], treedef)
 
 
 def is_axes_leaf(x) -> bool:

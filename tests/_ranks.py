@@ -405,3 +405,243 @@ def _constrain_case(shape):
             "spec": list(spec), "equal": bool(torch.equal(y.full_tensor(), x)),
             "local": list(y.to_local().shape), "kept": kept,
             "without_rules": sh.constrain(d, axes) is d}
+
+
+# ---------------------------------------------------------------------------
+# sharded inference (tests/test_torch_sharded_decode.py)
+# ---------------------------------------------------------------------------
+
+
+class _Collectives:
+    """Bytes the functional collectives take in (each input counted once),
+    by collective, and the shapes the all-gathers take in, while the mode
+    is active."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        counts = self.counts = {}
+        gathered = self.gathered = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                name = func.__name__.split(".")[0]
+                if func.namespace == "_c10d_functional" and not \
+                        name.startswith(("_", "wait")):
+                    first = args[0]
+                    tensors = first if isinstance(first, (list, tuple)) \
+                        else [first]
+                    counts[name] = counts.get(name, 0) + sum(
+                        t.numel() * t.element_size() for t in tensors)
+                    if name.startswith("all_gather"):
+                        gathered.extend(list(t.shape) for t in tensors)
+                return func(*args, **(kwargs or {}))
+        self.mode = Mode()
+
+
+def _fill_cross(cache, params, cfg, enc) -> None:
+    """Each cross-attention repetition's encoder K and V from `enc`, in
+    place (the reference's `_prefill_cross_cache`)."""
+    for i, kind in enumerate(cfg.superblock):
+        if kind == "cross_attn":
+            prm = params["stack"][f"slot{i}"]["attn"]
+            c = cache["stack"][f"slot{i}"]
+            for j in range(cfg.n_super):
+                c["ek"][j].copy_(torch.einsum("bne,ehk->bnhk", enc,
+                                              prm["wk"][j]).to(c["ek"].dtype))
+                c["ev"][j].copy_(torch.einsum("bne,ehk->bnhk", enc,
+                                              prm["wv"][j]).to(c["ev"].dtype))
+
+
+def _serve_mesh(axes, shape):
+    from repro_torch.launch.mesh import make_serve_mesh
+
+    return make_serve_mesh(tuple(shape), tuple(axes), device="cpu",
+                           group=dist.group.WORLD)
+
+
+def _placement_names(t) -> list:
+    """A DTensor's placements as "S<dim>" (a shard) or "R"."""
+    return [f"S{p.dim}" if p.is_shard() else "R" for p in t.placements]
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().numpy().tobytes()).hexdigest()
+
+
+def _serve_case(rank, payload, case) -> dict:
+    """One case of the sharded inference test: the payload's float32
+    parameters, tokens (and encoder states) placed by `serve_placements`
+    on the case's serving mesh; the prefill step at S, then S
+    teacher-forced serve steps from position 0 over a float32 cache of
+    max_seq S (pos an int at even steps, a 0-d tensor at odd ones), the
+    collectives of one step recorded. Every rank returns its digests;
+    rank 0 the whole arrays too."""
+    import dataclasses
+
+    from repro_torch.compress import prng
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch import steps
+    from repro_torch.models import registry, transformer
+    from repro_torch.runtime import sharding as sh
+
+    arch, axes, shape = payload["cases"][case]
+    arrays = np.load(payload["path"])
+    cfg = dataclasses.replace(registry.get_config(arch, "smoke"),
+                              dtype=torch.float32)
+    mesh = _serve_mesh(axes, shape)
+    dm = mesh.device_mesh
+    tokens = torch.from_numpy(arrays[f"{arch}/tokens"].copy())
+    B, S = tokens.shape
+    params = _filled(transformer.init(prng.key(0, "meta"), cfg)[0], arrays,
+                     f"{arch}/params")
+    batch = {"tokens": tokens}
+    if cfg.family == "vlm":
+        batch["enc"] = torch.from_numpy(arrays[f"{arch}/enc"].copy())
+    pl = sp.serve_placements(cfg, mesh, B, S, S)
+    cache = transformer.init_cache(cfg, B, S, torch.float32, device="cpu")
+    if "enc" in batch:
+        _fill_cross(cache, params, cfg, batch["enc"])
+    d_params = sh.place(params, pl["params"], dm)
+    d_batch = sh.place(batch, {k: pl["batch"][k] for k in batch}, dm)
+    d_cache = sh.place(cache, pl["cache"], dm)
+    del params, cache
+    moe_groups = dict(zip(axes, shape)).get("data", 1) if cfg.moe_experts \
+        else 1
+    prefill = steps.make_prefill_step(cfg, moe_groups, mesh=mesh)
+    serve = steps.make_serve_step(cfg, mesh=mesh)
+    out = {"prefill": prefill(d_params, d_batch).full_tensor()}
+    logits = []
+    record = payload["record_pos"]
+    for pos in range(S):
+        tok = sh.cut(tokens[:, pos:pos + 1], dm, pl["tokens"])
+        at = torch.tensor(pos, dtype=torch.int32) if pos % 2 else pos
+        if pos == record:
+            seen = _Collectives()
+            with seen.mode:
+                step_logits, d_cache = serve(d_params, d_cache, tok, at)
+            out["collectives"] = seen.counts
+            out["gathered_shapes"] = seen.gathered
+        else:
+            step_logits, d_cache = serve(d_params, d_cache, tok, at)
+        logits.append(step_logits.full_tensor()[:, 0])
+    out["logits"] = torch.stack(logits, dim=1)
+    out["logits_placements"] = _placement_names(step_logits)
+    out["cache"] = {k: v.full_tensor()
+                    for k, v in tree_names(d_cache).items()}
+    out["cache_shard_bytes"] = sum(
+        v.to_local().numel() * v.to_local().element_size()
+        for v in tree_names(d_cache).values())
+    # each leaf's local shard, and a stacked leaf's per-layer view of it
+    out["cache_shard_shapes"] = [
+        list(shape) for name, v in tree_names(d_cache).items()
+        for shape in ((v.to_local().shape, v.to_local().shape[1:])
+                      if name.startswith("stack/") else
+                      (v.to_local().shape,))]
+    out["cache_placements"] = {k: _placement_names(v)
+                               for k, v in tree_names(d_cache).items()}
+    digests = {"prefill": _digest(out["prefill"]),
+               "logits": _digest(out["logits"]),
+               "cache": {k: _digest(v) for k, v in out["cache"].items()}}
+    keep = {k: v for k, v in out.items() if k not in ("prefill", "logits",
+                                                       "cache")}
+    keep["digests"] = digests
+    if rank == 0:
+        keep.update({"prefill": out["prefill"].numpy(),
+                     "logits": out["logits"].numpy(),
+                     "cache": {k: v.numpy() for k, v in out["cache"].items()}})
+    return keep
+
+
+def _gate_case(arch: str, axes, shape, path: str) -> dict:
+    """The reference's decode gate (tests/test_models.py
+    test_decode_matches_forward) with the decode on the sharded path:
+    bf16 weights from the port's init, the gate's tokens and encoder
+    states (the payload's file), a float32 cache of the tokens' length, a
+    drop-free MoE capacity; the teacher-forced forward's logits on the
+    whole parameters, the sharded serve steps' (gathered) beside them."""
+    import dataclasses
+
+    from repro_torch.compress import prng
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch import steps
+    from repro_torch.models import registry, transformer
+    from repro_torch.runtime import sharding as sh
+
+    cfg = dataclasses.replace(registry.get_config(arch, "smoke"),
+                              dtype=torch.bfloat16)
+    if cfg.moe_experts:
+        cfg = dataclasses.replace(cfg,
+                                  moe_capacity_factor=float(cfg.moe_experts))
+    params = transformer.init(prng.key(0, "cpu"), cfg)[0]
+    arrays = np.load(path)
+    tokens = torch.from_numpy(arrays[f"gate/{arch}/tokens"].copy())
+    B, S = tokens.shape
+    enc = None
+    if cfg.family == "vlm":
+        enc = torch.from_numpy(arrays[f"gate/{arch}/enc"].copy()).to(
+            cfg.dtype)
+    with torch.no_grad():
+        full = transformer.forward(params, tokens, cfg, enc=enc).float()
+    mesh = _serve_mesh(axes, shape)
+    dm = mesh.device_mesh
+    pl = sp.serve_placements(cfg, mesh, B, S, S)
+    cache = transformer.init_cache(cfg, B, S, torch.float32, device="cpu")
+    if enc is not None:
+        _fill_cross(cache, params, cfg, enc)
+    d_params = sh.place(params, pl["params"], dm)
+    d_cache = sh.place(cache, pl["cache"], dm)
+    serve = steps.make_serve_step(cfg, mesh=mesh)
+    outs = []
+    for pos in range(S):
+        tok = sh.cut(tokens[:, pos:pos + 1], dm, pl["tokens"])
+        step_logits, d_cache = serve(d_params, d_cache, tok, pos)
+        outs.append(step_logits.full_tensor()[:, 0].float())
+    return {"decode": torch.stack(outs, dim=1).numpy(),
+            "forward": full.numpy()}
+
+
+def _write_case(axes, shape) -> dict:
+    """`_write_at` into a sequence-sharded DTensor cache (B, T, C): every
+    position written once, by an int `pos` and by a 0-d tensor, against
+    the same writes into a plain cache; each rank's local shard against
+    its slice of the plain one."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.models.attention import _write_at
+    from repro_torch.runtime import sharding as sh
+
+    mesh = _serve_mesh(axes, shape)
+    dm = mesh.device_mesh
+    B, T, C = 4, 8, 3
+    pl = (Shard(0), Shard(1))
+    gen = torch.Generator().manual_seed(5)
+    values = torch.randn((T, B, 1, C), generator=gen)
+    out = {}
+    for form in ("int", "tensor"):
+        plain = torch.zeros((B, T, C))
+        cache = sh.cut(torch.zeros((B, T, C)), dm, pl)
+        for pos in range(T):
+            at = pos if form == "int" else torch.tensor(pos)
+            _write_at(plain, at, values[pos])
+            value = sh.cut(values[pos], dm, (Shard(0), Replicate()))
+            assert _write_at(cache, at, value) is cache
+        out[form] = {"equal": bool(torch.equal(cache.full_tensor(), plain)),
+                     "local": bool(torch.equal(
+                         cache.to_local(), sh.cut(plain, dm, pl).to_local()))}
+    return out
+
+
+def serving(rank, n, payload):
+    """The sharded inference cases, the decode gate and the write case on
+    this process group's ranks (`tests/test_torch_sharded_decode.py`)."""
+    out = {"cases": {}, "gate": {}}
+    for case in payload["cases"]:
+        out["cases"][case] = _serve_case(rank, payload, case)
+    for arch in payload["gate"]["archs"]:
+        gate = _gate_case(arch, *payload["gate"]["mesh"], payload["path"])
+        out["gate"][arch] = gate if rank == 0 else None
+    out["write"] = _write_case(*payload["gate"]["mesh"])
+    return out
