@@ -199,10 +199,25 @@ non-zero and the last line is not printed. The phases:
             stacked run's (losses and final parameters). The pods must be
             equal after every mix; prints "sharded_on_card", the probe's
             finding, each rank's walls per local and fused step, peak
-            memory and the collectives' bytes in one local and one fused
-            step, the first step's wall, and K1 timed on the embed leaf's
-            data shard. `python3 chip_smoke.py lm_sharded` runs env,
-            build and this phase alone
+            memory and the collectives' output bytes by kind in one local
+            and one fused step, the first step's wall, and K1 timed on the
+            embed leaf's data shard. Then the first layout again with gradient
+            accumulation (LM_SHARDED_MICROBATCHES = 2, one local step),
+            held to the stacked run at the same microbatches the same way,
+            its peak beside the one-microbatch run's. `python3
+            chip_smoke.py lm_sharded` runs env, build and this phase alone
+  lm_init_sharded
+            the shard-wise init at a model no card holds whole:
+            qwen1.5-110b at its published widths and depth (a 222.4 GB
+            pod) drawn for the ranks (0, 0) and (15, 15) of the
+            production layout (data 16, model 16) by their coordinates
+            alone (launch/train.py `draw_shards`, no process group); each
+            rank's draw timed, its peak below twice its shard bytes plus
+            one chunk's workspace (measured first), every leaf of layers
+            0 and 79 of its shards equal to that layer drawn whole and cut
+            to the rank's block, bit for bit. `python3 chip_smoke.py
+            lm_init_sharded` runs env, build and this phase alone (any of
+            the phases that run alone may be named together)
   lm_k1_expert_leaf
             K1 at deepseek-v2's routed-expert leaf of two full-width pods
             (bf16, n=2, k=1, M = 160 x 5120 x 1536 = 1,258,291,200) on
@@ -2816,29 +2831,6 @@ def _gloo_dtensor_probe() -> str:
             f"the signal: -11 is SIGSEGV)")
 
 
-class _CollectiveBytes:
-    """Bytes the functional collectives DTensor issues take in (each input
-    counted once), by collective, while active: a TorchDispatchMode."""
-
-    def __init__(self):
-        from torch.utils._python_dispatch import TorchDispatchMode
-
-        counts = self.counts = {}
-
-        class Mode(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                name = func.__name__.split(".")[0]
-                if func.namespace == "_c10d_functional" and not \
-                        name.startswith(("_", "wait")):
-                    first = args[0]
-                    tensors = first if isinstance(first, (list, tuple)) \
-                        else [first]
-                    counts[name] = counts.get(name, 0) + sum(
-                        t.numel() * t.element_size() for t in tensors)
-                return func(*args, **(kwargs or {}))
-        self.mode = Mode()
-
-
 def _sharded_cell(arch: str) -> tuple:
     """The sharded phases' cells, each two pods, S = 4096 a pod, T = 6,
     periodic h = 2: (layers kept, batch a pod, leaves mixed a comm step,
@@ -2864,16 +2856,18 @@ def _deterministic():
 
 
 def _lm_sharded_run(shape, stacked_run: bool = False,
-                    arch: str = "llama3-8b", moe_groups: int | None = None
-                    ) -> dict:
+                    arch: str = "llama3-8b", moe_groups: int | None = None,
+                    microbatches: int = 1, steps: int = 6) -> dict:
     """`arch`'s sharded cell at full width (LM_SHARDED_CELLS), through
     train_consensus_lm on `shape`: the stacked run on this card
     (`stacked_run`), or this rank's part of the run over the default
     process group; `moe_groups` overrides the MoE dispatch groups (a
-    stacked run at a sharded run's groups). Each fused step is checked to
+    stacked run at a sharded run's groups), `microbatches` the steps'
+    gradient accumulation, `steps` the run's. Each fused step is checked to
     leave the pods equal bit for bit (complete graph, n = 2); the first
-    local and fused steps run under a count of the collectives' bytes; a
-    MoE cell's router choices of the first step are kept."""
+    local and fused steps run under a count of the collectives' output
+    bytes by kind (`launch.dryrun.CollectiveBytes`); a MoE cell's router
+    choices of the first step are kept."""
     import math
 
     import torch
@@ -2882,6 +2876,7 @@ def _lm_sharded_run(shape, stacked_run: bool = False,
     from repro_torch import optim
     from repro_torch.core.schedules import Periodic
     from repro_torch.launch import train as train_mod
+    from repro_torch.launch.dryrun import CollectiveBytes
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import mlp as mlp_mod
     from repro_torch.models import registry
@@ -2911,15 +2906,16 @@ def _lm_sharded_run(shape, stacked_run: bool = False,
     def watched_steps(*a, **kw):
         if moe_groups is not None:
             kw["moe_groups"] = moe_groups
+        kw["microbatches"] = microbatches
         local, mix, fused = real_steps(*a, **kw)
 
         def counted(step, name):
             def run(*args):
                 if name not in seen["bytes"]:
-                    coll = _CollectiveBytes()
-                    with coll.mode:
+                    coll = CollectiveBytes()
+                    with coll:
                         out = step(*args)
-                    seen["bytes"][name] = coll.counts
+                    seen["bytes"][name] = coll.bytes
                 else:
                     out = step(*args)
                 seen["params"] = out[0]
@@ -2944,7 +2940,7 @@ def _lm_sharded_run(shape, stacked_run: bool = False,
         torch.cuda.reset_peak_memory_stats()
         _zero_launch_counts()
         rep = train_mod.train_consensus_lm(
-            cfg, optimizer, mesh, steps=6, schedule=Periodic(h=2),
+            cfg, optimizer, mesh, steps=steps, schedule=Periodic(h=2),
             topology="complete", batch_per_node=batch,
             seq_len=LM_SHARDED_SEQ, seed=0, log_every=0)
         torch.cuda.synchronize()
@@ -2969,7 +2965,8 @@ def _lm_sharded_run(shape, stacked_run: bool = False,
         raise AssertionError(f"lm_sharded {arch} {shape}: losses "
                              f"{rep.losses}")
     return {"arch": arch, "mesh": list(shape), "losses": list(rep.losses),
-            "moe_groups": moe_groups, "pod_param_digests_local": digests,
+            "moe_groups": moe_groups, "microbatches": microbatches,
+            "pod_param_digests_local": digests,
             "k1_launches": counts["gossip_mix"], "step_comm": comm,
             # the first local and fused steps ran under the byte count
             "first_step_s": walls[0],
@@ -3125,9 +3122,10 @@ def _lm_vlm_dtensor_check(mesh) -> dict:
 def _lm_sharded_main(rank: int, world: int, backend: str, jobs,
                      store_path: str, results) -> None:
     """A spawned rank of the sharded phases: its card, the process group,
-    then each job: ("run", arch, shape) is `_lm_sharded_run` on that
-    layout, ("vlm",) the VLM's DTensor check on the one-rank mesh; the
-    results (or the traceback) go to the parent."""
+    then each job: ("run", arch, shape[, microbatches]) is
+    `_lm_sharded_run` on that layout (one step when it accumulates
+    gradients), ("vlm",) the VLM's DTensor check on the one-rank mesh;
+    the results (or the traceback) go to the parent."""
     import datetime
     import traceback
 
@@ -3149,9 +3147,10 @@ def _lm_sharded_main(rank: int, world: int, backend: str, jobs,
                                      device="cuda", group=dist.group.WORLD)
                     out.append(_lm_vlm_dtensor_check(mesh))
                     continue
-                _, arch, shape = job
+                _, arch, shape, *mb = job
                 if arch == "llama3-8b":
-                    out.append(_lm_sharded_run(tuple(shape)))
+                    out.append(_lm_sharded_run(
+                        tuple(shape), **_accumulating(*mb)))
                 else:
                     with _deterministic():
                         out.append(_lm_sharded_run(tuple(shape), arch=arch))
@@ -3161,6 +3160,18 @@ def _lm_sharded_main(rank: int, world: int, backend: str, jobs,
             dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 -- sent to the parent, which fails
         results.put((rank, traceback.format_exc(), None))
+
+
+#: lm_sharded's run with gradient accumulation: microbatches a step, and
+#: its one local step
+LM_SHARDED_MICROBATCHES = 2
+
+
+def _accumulating(microbatches: int = 1) -> dict:
+    """`_lm_sharded_run`'s arguments for a run at `microbatches` (one
+    local step when it accumulates gradients)."""
+    return ({} if microbatches == 1 else
+            {"microbatches": microbatches, "steps": 1})
 
 
 def _spawn_sharded(world: int, backend: str, jobs, label: str) -> tuple:
@@ -3216,12 +3227,19 @@ def phase_lm_sharded() -> dict:
     card: two ranks over gloo when gloo runs DTensor's collectives on
     CUDA tensors (probed first), else the one-card mesh (2, 1, 1) through
     the same DTensor path on one rank, every placement Replicate, held to
-    the stacked run bit for bit. Returns K1's launches and its time on a
-    local shard."""
+    the stacked run bit for bit. Then the first layout again with
+    gradient accumulation (LM_SHARDED_MICROBATCHES, one local step),
+    held to the stacked run at the same microbatches the same way, its
+    peak beside the one-microbatch run's. Returns K1's launches and its
+    time on a local shard."""
     import torch
 
     torch.cuda.empty_cache()
     stacked = _lm_sharded_run((2, 1, 1), stacked_run=True)
+    torch.cuda.empty_cache()
+    stacked_mb = _lm_sharded_run(
+        (2, 1, 1), stacked_run=True,
+        **_accumulating(LM_SHARDED_MICROBATCHES))
     torch.cuda.empty_cache()
     cards = torch.cuda.device_count()
     probe = _gloo_dtensor_probe() if cards < 2 else None
@@ -3233,8 +3251,25 @@ def phase_lm_sharded() -> dict:
         backend, world, layouts = "gloo", 1, LM_SHARDED_ONE_CARD
     sharded_on_card = world > 1
     ranks, wall = _spawn_sharded(
-        world, backend, [("run", "llama3-8b", s) for s in layouts],
+        world, backend, [("run", "llama3-8b", s) for s in layouts]
+        + [("run", "llama3-8b", layouts[0], LM_SHARDED_MICROBATCHES)],
         "lm_sharded")
+    accumulated = {r: runs.pop() for r, runs in ranks.items()}
+    mb_rel = {}
+    for r, run in sorted(accumulated.items()):
+        mb_rel[r] = max(abs(a - b) / abs(b) for a, b in
+                        zip(run["losses"], stacked_mb["losses"]))
+        if sharded_on_card:
+            if not mb_rel[r] <= LM_SHARDED_RTOL:
+                raise AssertionError(
+                    f"lm_sharded microbatches {LM_SHARDED_MICROBATCHES}: "
+                    f"rank {r}'s losses {mb_rel[r]} off the stacked run's")
+        elif (run["losses"] != stacked_mb["losses"] or
+              run["pod_param_digests_local"] !=
+              stacked_mb["pod_param_digests_local"]):
+            raise AssertionError(
+                f"lm_sharded microbatches {LM_SHARDED_MICROBATCHES}: the "
+                f"one-card DTensor run is not the stacked run bit for bit")
     max_rel = {}
     for r, runs in sorted(ranks.items()):
         for run in runs:
@@ -3272,11 +3307,154 @@ def phase_lm_sharded() -> dict:
                   if k not in ("pod_param_digests_local", "choices")},
          per_rank={r: [{k: v for k, v in run.items() if k != "choices"}
                        for run in runs] for r, runs in sorted(ranks.items())},
-         k1_local_shard_call=k1_shard, nvidia_smi=nvidia_smi_line())
+         k1_local_shard_call=k1_shard,
+         microbatches={
+             "microbatches": LM_SHARDED_MICROBATCHES, "steps": 1,
+             "layout": list(layouts[0]),
+             "losses_stacked": stacked_mb["losses"],
+             "losses_per_rank": {r: run["losses"] for r, run in
+                                 sorted(accumulated.items())},
+             "losses_max_rel_to_stacked": mb_rel,
+             "equal_to_stacked_bit_for_bit": not sharded_on_card,
+             "peak_allocated_gib": {
+                 "stacked": stacked_mb["peak_allocated_gib"],
+                 "per_rank": {r: run["peak_allocated_gib"] for r, run in
+                              sorted(accumulated.items())}},
+             "peak_allocated_gib_one_microbatch": {
+                 "stacked": stacked["peak_allocated_gib"],
+                 "per_rank": {r: runs[0]["peak_allocated_gib"]
+                              for r, runs in sorted(ranks.items())}},
+             "first_step_s": {"stacked": stacked_mb["first_step_s"],
+                              "per_rank": {r: run["first_step_s"] for r, run
+                                           in sorted(accumulated.items())}},
+             "collective_bytes": {r: run["collective_bytes"] for r, run in
+                                  sorted(accumulated.items())}},
+         nvidia_smi=nvidia_smi_line())
     return {"launches": {"stacked": stacked["k1_launches"],
                          "per_rank": [run["k1_launches"] for r in sorted(ranks)
                                       for run in ranks[r]]},
             "local_shard_call": k1_shard}
+
+
+#: lm_init_sharded: qwen1.5-110b at its published widths and depth, one
+#: pod on the production layout (data 16, model 16); the ranks drawn, by
+#: their (data, model) coordinates, and the layers held to whole draws
+LM_INIT_ARCH = "qwen1.5-110b"
+LM_INIT_MESH = {"pod": 1, "data": 16, "model": 16}
+LM_INIT_RANKS = ((0, 0), (15, 15))
+LM_INIT_LAYERS = (0, 79)
+
+
+def _named(tree, is_leaf=None) -> dict:
+    """{path: leaf} of a tree, by torch's pytree key paths."""
+    import torch.utils._pytree as pytree
+
+    return {pytree.keystr(k): v for k, v in pytree.tree_flatten_with_path(
+        tree, is_leaf=is_leaf)[0]}
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8))
+
+
+def _chunk_workspace(device) -> int:
+    """Bytes a shard draw holds beside its output while it draws one
+    chunk: the peak of a block draw of `prng._CHUNK` elements above its
+    output's bytes."""
+    import torch
+
+    from repro_torch.compress import prng
+
+    n = prng._CHUNK
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = prng.truncated_normal(prng.key(0, device), -2.0, 2.0, (2, n),
+                                out_dtype=torch.bfloat16,
+                                block=((1, 1), (0, n)))
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base
+            - out.numel() * out.element_size())
+
+
+def phase_lm_init_sharded() -> None:
+    """The shard-wise init at a model no card holds whole: qwen1.5-110b's
+    pod drawn for ranks LM_INIT_RANKS of the production layout by their
+    coordinates alone (`launch.train.draw_shards`, no process group),
+    each rank's draw timed and its peak held below twice its shard bytes
+    plus one chunk's workspace; every leaf of layers LM_INIT_LAYERS of
+    each rank's shards equal to that layer drawn whole
+    (`transformer.layer_init`) and cut to the rank's block, bit for
+    bit."""
+    import torch
+
+    from repro_torch.compress import prng
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.train import draw_shards
+    from repro_torch.models import registry, transformer
+    from repro_torch.runtime import sharding as shrules
+
+    t0 = time.perf_counter()
+    cfg = registry.get_config(LM_INIT_ARCH, "full")
+    dev = torch.device("cuda")
+    pod_bytes = sum(t.numel() * t.element_size() for t in
+                    torch.utils._pytree.tree_leaves(
+                        sp.params_and_axes(cfg)[0]))
+    workspace = _chunk_workspace(dev)
+    ranks, shards = [], []
+    for coords in LM_INIT_RANKS:
+        at = dict(zip(("data", "model"), coords))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        drawn = draw_shards(cfg, 1, 0, dev, LM_INIT_MESH, at)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - base
+        shard_bytes = sum(x.numel() * x.element_size() for x in
+                          torch.utils._pytree.tree_leaves(drawn))
+        bound = 2 * shard_bytes + workspace
+        if not peak < bound:
+            raise AssertionError(f"lm_init_sharded rank {coords}: peak "
+                                 f"{peak} B, not below {bound} B")
+        shards.append(drawn)
+        ranks.append({"coords": list(coords), "draw_s": seconds,
+                      "shard_bytes": shard_bytes, "peak_bytes": peak,
+                      "peak_bound_bytes": bound})
+    stack_key = prng.split(prng.split(prng.key(0, dev), 1)[0], 8)[4]
+    checked = [0] * len(ranks)
+    for j in LM_INIT_LAYERS:
+        layer, axes = transformer.layer_init(stack_key, cfg, 0, j)
+        axes = _named(axes, is_leaf=shrules.is_axes_leaf)
+        for name, whole in _named(layer).items():
+            for r, coords in enumerate(LM_INIT_RANKS):
+                rule = shrules.block_rule(
+                    shrules.DEFAULT_RULES, LM_INIT_MESH, ("data", "model"),
+                    dict(zip(("data", "model"), coords)))
+                block = rule(tuple(whole.shape), axes[name])
+                want = whole[tuple(slice(o, o + n) for o, n in block)]
+                got = _named(shards[r]["stack"]["slot0"])[name][0, j]
+                if not _same_bits(got, want):
+                    raise AssertionError(
+                        f"lm_init_sharded rank {coords} layer {j} {name}: "
+                        f"the shard is not the whole layer's cut")
+                checked[r] += 1
+        del layer, whole, want
+    for r, n in enumerate(checked):
+        ranks[r]["leaves_equal_bit_for_bit"] = n
+    del shards
+    torch.cuda.empty_cache()
+    emit("lm_init_sharded", arch=LM_INIT_ARCH, mesh=LM_INIT_MESH,
+         layers=list(LM_INIT_LAYERS), pod_bytes=pod_bytes,
+         chunk_workspace_bytes=workspace, ranks=ranks,
+         phase_wall_s=time.perf_counter() - t0,
+         nvidia_smi=nvidia_smi_line())
 
 
 def _flips(a: list, b: list) -> int:
@@ -5044,11 +5222,13 @@ def main() -> int:
     env = phase_env()
     build_s = phase_build()
     alone = {"lm_sharded": phase_lm_sharded,
+             "lm_init_sharded": phase_lm_init_sharded,
              "lm_sharded_moe": phase_lm_sharded_moe,
              "lm_decode": phase_lm_decode,
              "lm_decode_smoke": phase_lm_decode_smoke}
-    if len(sys.argv) == 2 and sys.argv[1] in alone:
-        alone[sys.argv[1]]()  # that phase alone (no result line)
+    if len(sys.argv) >= 2 and all(a in alone for a in sys.argv[1:]):
+        for name in sys.argv[1:]:  # those phases alone (no result line)
+            alone[name]()
         print(env["nvidia_smi"], flush=True)
         return 0
     k1 = phase_kernel()
@@ -5073,6 +5253,7 @@ def main() -> int:
     sharded = phase_lm_sharded()
     k1["lm_sharded_launches"] = sharded["launches"]
     k1["lm_sharded_local_shard_call"] = sharded["local_shard_call"]
+    phase_lm_init_sharded()
     k1["lm_expert_leaf_call"] = phase_lm_k1_expert_leaf()
     lm_moe = phase_lm_moe_full()
     k1["lm_moe_launches"] = lm_moe["launches"]

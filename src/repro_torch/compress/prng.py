@@ -19,7 +19,8 @@ jax 0.9.0 with `jax_threefry_partitionable` on (its default) and the
   * `truncated_normal(key, lower, upper, shape)`  float32
                          `jax.random.truncated_normal`
                          (`random._truncated_normal`), with XLA's float32
-                         `ErfInv` polynomial (`erf_inv`)
+                         `ErfInv` polynomial (`erf_inv`); with `block=`
+                         any block of the draw alone (one rank's shard)
 
 A key is a pair of 0-d int64 tensors holding the two uint32 words. torch
 has little uint32 arithmetic, so every word is held in int64 and each add,
@@ -34,7 +35,7 @@ import math
 
 import torch
 
-__all__ = ["erf_inv", "fold_in", "key", "random_bits", "split",
+__all__ = ["bits_at", "erf_inv", "fold_in", "key", "random_bits", "split",
            "threefry2x32", "truncated_normal", "uniform"]
 
 _MASK32 = 0xFFFFFFFF
@@ -105,13 +106,44 @@ def split(k: Key, num: int = 2) -> list[Key]:
     return [(w1[i], w2[i]) for i in range(num)]
 
 
-def _bits(k: Key, start: int, count: int) -> torch.Tensor:
-    """The 32-bit draws of elements start .. start + count - 1 of a
-    row-major draw (int64 values in [0, 2**32))."""
-    idx = torch.arange(start, start + count, dtype=torch.int64,
-                       device=k[0].device)
+def bits_at(k: Key, idx: torch.Tensor) -> torch.Tensor:
+    """The 32-bit draws of the elements at the flat row-major indices
+    `idx` (an int64 tensor) of a partitionable draw under `k`: element i
+    hashes the counter pair (i >> 32, i & 0xFFFFFFFF), and its bits are
+    the xor of the two output words, whatever other elements are drawn
+    beside it. int64 values in [0, 2**32), shaped like `idx`."""
     b1, b2 = threefry2x32(k[0], k[1], idx >> 32, idx & _MASK32)
     return b1 ^ b2
+
+
+def _bits(k: Key, start: int, count: int) -> torch.Tensor:
+    """The 32-bit draws of elements start .. start + count - 1 of a
+    row-major draw: `bits_at` of a contiguous run."""
+    return bits_at(k, torch.arange(start, start + count, dtype=torch.int64,
+                                   device=k[0].device))
+
+
+Block = tuple[tuple[int, int], ...]
+
+
+def _block_indices(shape: tuple[int, ...], block: Block, start: int,
+                   count: int, device) -> torch.Tensor:
+    """The flat row-major indices in `shape` of elements start .. start +
+    count - 1 of `block` (an (offset, length) pair a dimension), taken in
+    the block's own row-major order."""
+    rem = torch.arange(start, start + count, dtype=torch.int64,
+                       device=device)
+    idx = torch.zeros_like(rem)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        off, length = block[d]
+        if d:
+            i, rem = rem % length, rem // length
+        else:
+            i = rem
+        idx += (i + off) * stride
+        stride *= shape[d]
+    return idx
 
 
 def random_bits(k: Key, shape: tuple[int, ...]) -> torch.Tensor:
@@ -193,7 +225,8 @@ _CHUNK = 1 << 25
 
 def truncated_normal(k: Key, lower: float, upper: float,
                      shape: tuple[int, ...], *, scale: float | None = None,
-                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     out_dtype: torch.dtype = torch.float32,
+                     block: Block | None = None) -> torch.Tensor:
     """float32 `jax.random.truncated_normal(k, lower, upper, shape)`:
     `sqrt2 * erf_inv(uniform(k, minval=erf(lower/sqrt2),
     maxval=erf(upper/sqrt2)))`, clipped into the open interval.
@@ -203,10 +236,17 @@ def truncated_normal(k: Key, lower: float, upper: float,
     chunks of elements, each the whole draw's, so a leaf of hundreds of
     millions of elements never holds its int64 words at once. On the
     meta device it returns the draw's shape and dtype alone (the
-    counterpart of `jax.eval_shape` over an init)."""
+    counterpart of `jax.eval_shape` over an init).
+
+    `block` ((offset, length) a dimension) draws that block of the draw
+    alone, each element with the bits it has in the whole draw (its flat
+    index in `shape`), in chunks of the block's elements: a rank's shard
+    of a leaf, which is never made whole."""
     dev = k[0].device
+    out_shape = tuple(shape) if block is None else tuple(
+        length for _, length in block)
     if dev.type == "meta":
-        return torch.empty(shape, dtype=out_dtype, device=dev)
+        return torch.empty(out_shape, dtype=out_dtype, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
     sqrt2 = torch.tensor(math.sqrt(2.0), **f32)
     lo = torch.tensor(lower, **f32)
@@ -217,13 +257,15 @@ def truncated_normal(k: Key, lower: float, upper: float,
     b = float(torch.erf(hi.cpu() / sqrt2.cpu()))
     lo_open = torch.nextafter(lo, torch.tensor(math.inf, **f32))
     hi_open = torch.nextafter(hi, torch.tensor(-math.inf, **f32))
-    out = torch.empty(math.prod(shape), dtype=out_dtype, device=dev)
+    out = torch.empty(math.prod(out_shape), dtype=out_dtype, device=dev)
     for start in range(0, out.numel(), _CHUNK):
         count = min(_CHUNK, out.numel() - start)
-        u = _scaled(_unit_floats(_bits(k, start, count)), a, b)
+        bits = (_bits(k, start, count) if block is None else bits_at(
+            k, _block_indices(tuple(shape), block, start, count, dev)))
+        u = _scaled(_unit_floats(bits), a, b)
         val = torch.clamp(sqrt2 * erf_inv(u), lo_open, hi_open)
         if scale is not None:
             val = scale * val
         out[start:start + count] = val
-    return out.reshape(shape)
+    return out.reshape(out_shape)
 

@@ -25,21 +25,41 @@ their specs (`launch/specs.py`) and reckons:
   * `cost.flops`: one pod's step counted by `FlopCounterMode` on the meta
     tensors (matmuls and convolutions; XLA also counts elementwise work),
     divided over the devices that run it;
-  * `collectives`: only the consensus pod mix the port can reckon, under
-    its own name `pod_mix`: the fused step's float32 mix of each device's
-    parameter shard, one all-reduce on the complete graph (k exchanges on
-    a k-regular one), bytes per device per comm round. The FSDP and tensor
-    parallel collectives come when the data and model axes execute;
-    `hlo_collective_op_counts` is null (no HLO).
+  * `collectives`: rank 0's collectives in one pod's step, counted as
+    they run: the step runs as DTensors on meta tensors placed by the
+    reference's shardings (training: `specs.train_placements`' specs and
+    `cfg.train_microbatches`; prefill and decode: `serve_placements`'
+    under `serve_rules`), on the layout's DeviceMesh over a placeholder
+    process group of its size (torch's "fake" backend: no
+    communication; a "cuda" DeviceMesh, so DTensor picks the
+    collectives it issues on the cards), and a dispatch mode adds each
+    collective's output bytes on rank 0 under the reference's kinds
+    (`all-gather`, `all-reduce`, `reduce-scatter`, `all-to-all`,
+    `collective-permute`, as its `collective_bytes` reads them off the
+    partitioned HLO): an all-gather's output is its input times the
+    group's size, a reduce-scatter's its input over it. The step runs at
+    1 and 2 superblocks and the bytes extend linearly to `cfg.n_super`,
+    as the flops do. On the multi-pod mesh the pods serve replicas, so
+    rank 0 runs its pod's share of a serving batch (a training pod its
+    own batch); beside the kinds, `pod_mix`, the port's own name for the
+    consensus mix: the fused step's float32 mix of each device's
+    parameter shard, one all-reduce on the complete graph (k exchanges
+    on a k-regular one), bytes per device per comm round. XLA counts a
+    collective inside a loop once as the HLO text holds it; the port
+    counts every one that runs. `hlo_collective_op_counts` is null (no
+    HLO).
 
 `lower_s` is the seconds spent building the arguments and specs, and
-`compile_s` the seconds of the meta run. Writes one JSON per cell under
-results/dryrun_torch/.
+`compile_s` the seconds of the meta runs (both the plain and the DTensor
+one). The placeholder group is made for the cell and destroyed on the
+way out; `dryrun_cell` refuses to run beside a default process group.
+Writes one JSON per cell under results/dryrun_torch/.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -49,6 +69,7 @@ import traceback
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.utils._pytree as _pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
@@ -56,11 +77,12 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.configs.shapes import ShapeCell
 from repro_torch.core.graphs import complete_graph
 from repro_torch.launch import specs as sp
-from repro_torch.launch.mesh import make_production_mesh, mesh_shape
+from repro_torch.launch.mesh import Mesh, make_production_mesh, mesh_shape
 from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
                                       make_train_step)
 from repro_torch.models import registry
 from repro_torch.optim import adamw, cosine_lr
+from repro_torch.runtime import sharding as shrules
 
 RESULTS = (pathlib.Path(__file__).resolve().parents[3] / "results"
            / "dryrun_torch")
@@ -99,6 +121,191 @@ def _meta_run(step, args: tuple) -> tuple[float, set[int]]:
     with FlopCounterMode(display=False) as counter, reads:
         step(*args)
     return float(counter.get_total_flops()), reads.read
+
+
+#: the reference's collective kinds (its `collective_bytes` keys)
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+         "collective-permute")
+#: (namespace, op) of the collectives a step issues, by kind: the
+#: functional collectives, DTensor's shard-to-shard all-to-all, and c10d's
+#: own (the pod mix's all-reduce and its point-to-point exchanges, which
+#: are XLA's collective-permute)
+_COLLECTIVE_OPS = {
+    ("_c10d_functional", "all_gather_into_tensor"): "all-gather",
+    ("_c10d_functional", "all_gather_into_tensor_coalesced"): "all-gather",
+    ("_c10d_functional", "all_reduce"): "all-reduce",
+    ("_c10d_functional", "all_reduce_coalesced"): "all-reduce",
+    ("_c10d_functional", "reduce_scatter_tensor"): "reduce-scatter",
+    ("_c10d_functional", "reduce_scatter_tensor_coalesced"):
+        "reduce-scatter",
+    ("_c10d_functional", "all_to_all_single"): "all-to-all",
+    ("_dtensor", "shard_dim_alltoall"): "all-to-all",
+    ("c10d", "allreduce_"): "all-reduce",
+    ("c10d", "allgather_"): "all-gather",
+    ("c10d", "_allgather_base_"): "all-gather",
+    ("c10d", "reduce_scatter_"): "reduce-scatter",
+    ("c10d", "_reduce_scatter_base_"): "reduce-scatter",
+    ("c10d", "alltoall_"): "all-to-all",
+    ("c10d", "alltoall_base_"): "all-to-all",
+    ("c10d", "send"): "collective-permute",
+    ("c10d", "recv_"): "collective-permute",
+}
+#: ops of those namespaces that move no data
+_NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd", "barrier")
+
+
+class CollectiveBytes(TorchDispatchMode):
+    """Output bytes on this rank of the collectives the ops issue while
+    active, by the reference's kinds (`bytes`) and by kind and process
+    group (`by_group`, the group's global ranks), and each all-gather's
+    input as (shape, dtype, the group's ranks) (`gathered`): the
+    functional collectives (DTensor's redistributions, those inside an
+    op's dispatch included, the microbatches' all-to-all, the sharded grad
+    norm's all-reduce),
+    DTensor's shard-to-shard all-to-all and c10d's own (a c10d op's output
+    is the tensors it fills: a send's bytes are counted where they are
+    received). Any other op of those namespaces raises: no collective goes
+    uncounted."""
+
+    def __init__(self):
+        from torch.distributed.tensor import DTensor
+
+        super().__init__()
+        self.bytes: dict[str, float] = {}
+        self.by_group: dict[tuple[str, tuple[int, ...]], float] = {}
+        self.gathered: list[tuple[list[int], str, tuple[int, ...]]] = []
+        self._dtensor = DTensor
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, self._dtensor) for t in types):
+            # DTensor's own dispatch runs the op, and the collectives it
+            # issues to redistribute the inputs come back here
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if func.namespace not in ("_c10d_functional", "_dtensor", "c10d"):
+            return out
+        name = func.__name__.split(".")[0]
+        if name in _NOT_COLLECTIVES:
+            return out
+        kind = _COLLECTIVE_OPS.get((func.namespace, name))
+        if kind is None:
+            raise RuntimeError(f"the dry-run counts no collective {func}")
+        c10d = func.namespace == "c10d"
+        filled = () if name == "send" else args[0] if c10d else out
+        n = float(sum(t.numel() * t.element_size()
+                      for t in _pytree.tree_leaves(filled)
+                      if isinstance(t, torch.Tensor)))
+        group = _group_ranks(func, args, kwargs)
+        self.bytes[kind] = self.bytes.get(kind, 0.0) + n
+        self.by_group[kind, group] = self.by_group.get((kind, group),
+                                                       0.0) + n
+        if kind == "all-gather":
+            given = args[1] if c10d else args[0]
+            self.gathered.extend(
+                (list(t.shape), str(t.dtype), group)
+                for t in _pytree.tree_leaves(given)
+                if isinstance(t, torch.Tensor))
+        return out
+
+
+def _group_ranks(func, args, kwargs) -> tuple[int, ...]:
+    """The global ranks of the process group a collective runs over (by
+    ranks, not by name: DTensor's sharding cache may hand back an earlier
+    DeviceMesh equal to the tensors' own, whose groups have the same ranks
+    under other names): a functional collective's group is named by its
+    last string argument, a c10d op's is an argument."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    if func.namespace == "c10d":
+        for a in args:
+            if isinstance(a, torch.ScriptObject):
+                try:  # the group, not the reduce op or the options
+                    group = dist.ProcessGroup.unbox(a)
+                except (AttributeError, RuntimeError):
+                    continue
+                return tuple(dist.get_process_group_ranks(group))
+        return ()
+    names = [a for a in (*args, *(kwargs or {}).values())
+             if isinstance(a, str)]
+    return tuple(dist.get_process_group_ranks(
+        _resolve_process_group(names[-1]))) if names else ()
+
+
+@contextlib.contextmanager
+def placeholder_group(world: int):
+    """This process as rank 0 of a placeholder process group of `world`
+    ranks (torch's "fake" backend: a DeviceMesh over it places DTensors
+    and issues their collectives, which move nothing), the default group
+    while the context lasts, destroyed on the way out. Raises when a
+    default group exists already or the backend is missing."""
+    if dist.is_initialized():
+        raise RuntimeError("the dry-run makes its own placeholder process "
+                           "group, and a default process group exists "
+                           "already")
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError("torch's placeholder process group (the 'fake' "
+                           "backend, torch.testing._internal.distributed."
+                           "fake_pg) is missing: the dry-run cannot count "
+                           "its collectives") from e
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def _placed(t: torch.Tensor, spec: tuple, dm):
+    """A meta DTensor of `t`'s shape placed by `spec` on `dm`: its local
+    tensor the shard of rank 0 of the group (coordinates on `dm`)."""
+    from torch.distributed.tensor import DTensor
+
+    pl = shrules.to_placements(spec, dm)
+    block = shrules.local_block(t.shape, pl, dm.shape, dm.get_coordinate())
+    local = torch.empty(tuple(n for _, n in block), dtype=t.dtype,
+                        device="meta")
+    return DTensor.from_local(local, dm, pl, run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def _pod_rows(cell: ShapeCell, pods: int, data: int) -> int:
+    """The rows of a batch one pod's ranks hold: a training pod's own
+    batch; a serving batch split over (pod, data) where its rows divide,
+    else whole on every pod."""
+    B = cell.global_batch
+    if cell.kind == "train" or pods == 1:
+        return B // pods
+    rows = B // pods if B % (pods * data) == 0 else B
+    if (rows % data == 0) != (B % (pods * data) == 0):
+        raise ValueError(f"{cell.name}: {B} rows over {pods} serving pods "
+                         f"of {data} data ranks place otherwise on one pod")
+    return rows
+
+
+def count_step(cfg, cell: ShapeCell, mesh, optimizer) -> CollectiveBytes:
+    """Rank 0's collectives in one pod's step as meta DTensors on
+    `mesh.shard_mesh` (a mesh whose DeviceMesh stands on a placeholder
+    group), the step's arguments placed by the specs of one pod's (data,
+    model) layout at the pod's rows (`_pod_rows`)."""
+    sizes = mesh_shape(mesh)
+    single = Mesh(("data", "model"), (sizes["data"], sizes["model"]),
+                  torch.device("meta"))
+    rows = _pod_rows(cell, sizes.get("pod", 1), sizes["data"])
+    built = _cell_args(cfg, dataclasses.replace(cell, global_batch=rows),
+                       single, False, optimizer)
+    dm = mesh.shard_mesh
+    flat, treedef = _pytree.tree_flatten(built["args"])
+    args = _pytree.tree_unflatten(
+        [None if t is None else _placed(t, s, dm)
+         for t, s in zip(flat, sp.spec_leaves(built["specs"]))], treedef)
+    rules = (shrules.DEFAULT_RULES if cell.kind == "train"
+             else sp.serve_rules(single))
+    counted = CollectiveBytes()
+    with shrules.use_rules(rules, single), counted:
+        built["step"](*args)
+    return counted
 
 
 def pod_mix_bytes(param_shard_bytes_f32: int, graph) -> int:
@@ -146,30 +353,39 @@ def _cell_args(cfg, cell: ShapeCell, mesh, multi_pod: bool,
     return out
 
 
-def _flops_and_reads(cfg, cell: ShapeCell, mesh, multi_pod: bool,
-                     optimizer) -> tuple[float, list]:
+def _meta_runs(cfg, cell: ShapeCell, mesh, multi_pod: bool, optimizer
+               ) -> tuple[float, list, dict]:
     """(flops of one pod's step, which of its argument leaves it reads, by
-    position). The superblock repetitions are identical work, so the step
-    runs on meta at 1 and 2 repetitions and the count extends linearly to
-    `cfg.n_super`, exactly; the leaves read are the same at any depth."""
+    position, rank 0's collective output bytes by kind). The superblock
+    repetitions are identical work, so the step runs on meta at 1 and 2
+    repetitions, plainly for the flops and the reads and as DTensors on
+    `mesh.shard_mesh` for the collectives, and the counts extend linearly
+    to `cfg.n_super`, exactly; the leaves read are the same at any
+    depth."""
     runs = []
     for n in ((1, 2) if cfg.n_super > 2 else (cfg.n_super,)):
-        part = _cell_args(dataclasses.replace(cfg, n_super=n), cell, mesh,
-                          multi_pod, optimizer)
+        part_cfg = dataclasses.replace(cfg, n_super=n)
+        part = _cell_args(part_cfg, cell, mesh, multi_pod, optimizer)
         flops, read = _meta_run(part["step"], part["pod_args"])
         runs.append((flops, [[id(t) in read for t in _leaves(a)]
-                             for a in part["pod_args"]]))
-    flops = runs[0][0]
+                             for a in part["pod_args"]],
+                     count_step(part_cfg, cell, mesh, optimizer).bytes))
+    flops, read, coll = runs[0]
     if len(runs) == 2:
-        flops += (cfg.n_super - 1) * (runs[1][0] - runs[0][0])
-    return flops, runs[0][1]
+        flops += (cfg.n_super - 1) * (runs[1][0] - flops)
+        coll = {k: coll.get(k, 0.0) + (cfg.n_super - 1) * (
+            runs[1][2].get(k, 0.0) - coll.get(k, 0.0))
+            for k in KINDS if k in coll or k in runs[1][2]}
+    return flops, read, coll
 
 
 def dryrun_cell(arch: str, cell: ShapeCell, multi_pod: bool,
                 *, save: bool = True, donate: bool = True,
                 verbose: bool = True, cfg_override=None) -> dict:
-    """Build one (arch, shape, mesh) cell on meta tensors and reckon its
-    per-device bytes; return the record."""
+    """Build one (arch, shape, mesh) cell on meta tensors, reckon its
+    per-device bytes and count rank 0's collectives (over a placeholder
+    process group made and destroyed here: it raises beside a default
+    process group); return the record."""
     cfg = cfg_override or registry.get_config(arch, "full")
     mesh = make_production_mesh(multi_pod=multi_pod)
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
@@ -188,7 +404,10 @@ def dryrun_cell(arch: str, cell: ShapeCell, multi_pod: bool,
     rec["lower_s"] = round(time.time() - t0, 1)
 
     t1 = time.time()
-    flops, read = _flops_and_reads(cfg, cell, mesh, multi_pod, optimizer)
+    with placeholder_group(mesh.size) as group:
+        flops, read, collectives = _meta_runs(
+            cfg, cell, make_production_mesh(multi_pod=multi_pod, group=group),
+            multi_pod, optimizer)
     rec["compile_s"] = round(time.time() - t1, 1)
 
     def total(i, only_read=False):
@@ -196,7 +415,6 @@ def dryrun_cell(arch: str, cell: ShapeCell, multi_pod: bool,
                    zip(leaves[i], specs[i], read[i]) if r or not only_read)
 
     arg_bytes = sum(total(i, only_read=True) for i in range(len(args)))
-    collectives: dict[str, float] = {}
     if cell.kind == "train":
         state_bytes = total(0) + total(1)
         n_metrics = sizes["pod"] if multi_pod else 1

@@ -24,7 +24,9 @@ spans ranks, the pods as further data ranks (the reference's serving
 replicates the parameters across pods and splits the batch over them).
 
 `make_production_mesh` gives the reference's production layouts on the
-`meta` device, to reckon per-device bytes on (the dry-run), not to run on.
+`meta` device, to reckon per-device bytes on (the dry-run), not to run on;
+over a placeholder process group it carries their DeviceMesh, on which
+the dry-run runs a step as meta DTensors to count its collectives.
 """
 
 from __future__ import annotations
@@ -103,12 +105,25 @@ class Mesh:
             yield
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, group=None) -> Mesh:
     """The reference's production layout on the meta device: (data=16,
-    model=16), or (pod=2, data=16, model=16) for the multi-pod mesh."""
+    model=16), or (pod=2, data=16, model=16) for the multi-pod mesh. With
+    a process group of the layout's size (the dry-run's placeholder
+    group, whose ranks hold no device) it also carries a DeviceMesh of
+    that shape over the group's ranks, on which meta DTensors run."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return Mesh(axes, shape, torch.device("meta"))
+    if group is None:
+        return Mesh(axes, shape, torch.device("meta"))
+    if dist.get_world_size(group) != math.prod(shape):
+        raise ValueError(f"the production mesh {shape} needs a group of "
+                         f"{math.prod(shape)} ranks, not "
+                         f"{dist.get_world_size(group)}")
+    from torch.distributed.device_mesh import DeviceMesh
+
+    ranks = torch.tensor(dist.get_process_group_ranks(group)).reshape(shape)
+    return Mesh(axes, shape, torch.device("meta"), group,
+                DeviceMesh("cuda", ranks, mesh_dim_names=axes))
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,

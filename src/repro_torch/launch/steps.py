@@ -31,11 +31,14 @@ sharding rules: the forward gathers each layer's parameters over 'data'
 where it runs (FSDP) and redistributes activations at the reference's
 `constrain` points (tensor and sequence parallelism over 'model'); the
 backward hands each gradient back in its parameter's placements (the
-data axis's partial sums reduce-scattered). The optimizer's elementwise
-update then runs on each rank's own shards, and the mix on them too: K1
-over the pods stacked on the rank (every pod's slice of a leaf lies
-alike, so the mix of the shards is the shard of the mix), or the
-collectives over the DeviceMesh's `pod` sub-group with one pod a rank.
+data axis's partial sums reduce-scattered), summed over the microbatches
+in float32 in those placements when the step accumulates gradients (each
+microbatch's rows brought to the data ranks by an all-to-all of the
+tokens). The optimizer's elementwise update then runs on each rank's own
+shards, and the mix on them too: K1 over the pods stacked on the rank
+(every pod's slice of a leaf lies alike, so the mix of the shards is the
+shard of the mix), or the collectives over the DeviceMesh's `pod`
+sub-group with one pod a rank.
 
 The inference steps run where their tensors are, without autograd:
 prefill returns the last position's logits of `transformer.forward`, and
@@ -55,7 +58,6 @@ import math
 from typing import Any
 
 import torch
-import torch.distributed as dist
 import torch.utils._pytree as _pytree
 
 from repro_torch.core.consensus import mix_collective, tree_mix_gossip
@@ -63,7 +65,9 @@ from repro_torch.models import transformer
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim import Optimizer, OptState
 from repro_torch.launch.specs import serve_rules
-from repro_torch.runtime.sharding import is_dtensor, use_rules
+from repro_torch.runtime.sharding import (DEFAULT_RULES, is_dtensor,
+                                          local_block, logical_to_spec,
+                                          use_rules)
 
 PyTree = Any
 
@@ -149,6 +153,8 @@ def _sharded_norm(leaves: list) -> torch.Tensor:
     ranks that hold a copy of it (a power of two on these meshes, so
     exact), summed over the DeviceMesh's ranks one mesh dimension at a
     time."""
+    import torch.distributed._functional_collectives as funcol
+
     mesh = leaves[0].device_mesh
     total = None
     for g in leaves:
@@ -158,7 +164,8 @@ def _sharded_norm(leaves: list) -> torch.Tensor:
         total = part if total is None else total + part
     for d in range(mesh.ndim):
         if mesh.size(d) > 1:
-            dist.all_reduce(total, group=mesh.get_group(d))
+            total = funcol.wait_tensor(funcol.all_reduce(total, "sum",
+                                                         (mesh, d)))
     return torch.sqrt(total)
 
 
@@ -184,24 +191,99 @@ def _like(local: PyTree, tree: PyTree) -> PyTree:
     return _pytree.tree_map(one, local, tree)
 
 
+def _microbatches(batch: dict, microbatches: int) -> list[dict]:
+    """The batch's microbatches, the reference's: microbatch m is rows
+    [m B/M, (m+1) B/M) of every field. A DTensor batch's microbatches are
+    DTensors whose rows lie over 'data' as the rules place a batch of B/M
+    rows (sharded where they divide, else whole on every rank), brought
+    there by one all-to-all a field over the data ranks (`_regrouped`):
+    each rank sends only the rows another needs, never the whole batch
+    to every rank."""
+    def resh(a):
+        return a.reshape((microbatches, a.shape[0] // microbatches)
+                         + tuple(a.shape[1:]))
+    if not is_dtensor(batch["tokens"]):
+        mb = {k: resh(v) for k, v in batch.items()}
+        return [{k: v[m] for k, v in mb.items()} for m in range(microbatches)]
+    parts = {k: _regrouped(v, microbatches) for k, v in batch.items()}
+    return [{k: v[m] for k, v in parts.items()} for m in range(microbatches)]
+
+
+def _row_ranges(rows: int, pl, size: int, coord: int, at: int = 0
+                ) -> tuple[int, int]:
+    """[start, end) of the rows of a block of `rows` (from row `at`) that
+    the rank at `coord` of a mesh dimension of `size` holds under its
+    placement there (`Shard(0)` or whole)."""
+    (off, n), = local_block((rows,), (pl,), (size,), (coord,))
+    return at + off, at + off + n
+
+
+def _regrouped(v, microbatches: int) -> list:
+    """A DTensor field (rows first) as its M microbatch DTensors, each
+    placed as the rules place B/M rows over 'data' (the other mesh
+    dimensions as `v`), by one all-to-all of the rows over the data
+    ranks (none when `v`'s rows are whole on every rank)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dm = v.device_mesh
+    names = list(dm.mesh_dim_names)
+    d = names.index("data")
+    D, me = dm.size(d), dm.get_local_rank(d)
+    B, rest = v.shape[0], tuple(v.shape[1:])
+    if B % microbatches:
+        raise ValueError(f"a batch of {B} rows does not split into "
+                         f"{microbatches} microbatches")
+    rows = B // microbatches
+    spec = logical_to_spec((rows,), ("batch",), DEFAULT_RULES,
+                           {n: dm.size(i) for i, n in enumerate(names)})
+    mb_pl = Shard(0) if spec[0] == "data" else Replicate()
+    src_pl = v.placements[d]
+
+    def needed(r):  # the rows rank r holds of every microbatch, in order
+        return [_row_ranges(rows, mb_pl, D, r, m * rows)
+                for m in range(microbatches)]
+    local = v.to_local()
+    if src_pl.is_replicate():
+        got = torch.cat([local[a:b] for a, b in needed(me)])
+    else:
+        lo, hi = _row_ranges(B, src_pl, D, me)
+        send, sizes_in = [], []
+        for r in range(D):  # the rows rank r needs that this rank holds
+            mine = [(max(a, lo), min(b, hi)) for a, b in needed(r)]
+            mine = [(a, b) for a, b in mine if a < b]
+            send += [local[a - lo:b - lo] for a, b in mine]
+            sizes_in.append(sum(b - a for a, b in mine))
+        sizes_out = []
+        for r in range(D):  # what rank r holds of the rows this rank needs
+            r_lo, r_hi = _row_ranges(B, src_pl, D, r)
+            sizes_out.append(sum(max(0, min(b, r_hi) - max(a, r_lo))
+                                 for a, b in needed(me)))
+        got = funcol.wait_tensor(funcol.all_to_all_single(
+            torch.cat(send), sizes_out, sizes_in, (dm, d)))
+    placements = list(v.placements)
+    placements[d] = mb_pl
+    shape = torch.Size((rows,) + rest)
+    stride = torch.empty(shape, device="meta").stride()
+    per = got.shape[0] // microbatches
+    return [DTensor.from_local(got[m * per:(m + 1) * per], dm, placements,
+                               run_check=False, shape=shape, stride=stride)
+            for m in range(microbatches)]
+
+
 def _loss_and_grads(params, batch, cfg: ModelConfig, moe_groups: int,
                     microbatches: int):
     if microbatches == 1:
         return grad_fn(params, batch, cfg, moe_groups)
-    # gradient accumulation: the batch split along its leading dim, fp32
-    # sums of the microbatches' gradients and losses
-    def resh(a):
-        return a.reshape((microbatches, a.shape[0] // microbatches)
-                         + tuple(a.shape[1:]))
-    mb = {k: resh(v) for k, v in batch.items()}
+    # gradient accumulation over the reference's microbatches: fp32 sums
+    # of their gradients and losses, each gradient's accumulator in the
+    # gradient's placements (a rank holds its shard's)
     loss_acc = torch.zeros((), dtype=torch.float32,
                            device=batch["tokens"].device)
     g_acc = _pytree.tree_map(
-        lambda p_: torch.zeros(p_.shape, dtype=torch.float32,
-                               device=p_.device), params)
-    for m in range(microbatches):
-        loss, g = grad_fn(params, {k: v[m] for k, v in mb.items()}, cfg,
-                          moe_groups)
+        lambda p_: torch.zeros_like(p_, dtype=torch.float32), params)
+    for mb in _microbatches(batch, microbatches):
+        loss, g = grad_fn(params, mb, cfg, moe_groups)
         g_acc = _pytree.tree_map(lambda a, b: a + b.float(), g_acc, g)
         loss_acc = loss_acc + loss
     return (loss_acc / microbatches,
@@ -211,17 +293,21 @@ def _loss_and_grads(params, batch, cfg: ModelConfig, moe_groups: int,
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                     moe_groups: int = 1, microbatches: int = 1):
     """Pure synchronous step on one replica: (params, opt_state, batch) ->
-    (params, opt_state, metrics), new tensors. `microbatches` > 1 runs
-    gradient accumulation (the batch split along its leading dim, fp32
-    gradient sums). `moe_groups` is the MoE dispatch groups
-    (`mlp.moe_apply`'s `groups`); the dense blocks ignore it."""
+    (params, opt_state, metrics), new tensors (DTensors placed as the
+    old on a sharded replica). `microbatches` > 1 runs gradient
+    accumulation (`_microbatches`, fp32 gradient sums). `moe_groups` is
+    the MoE dispatch groups (`mlp.moe_apply`'s `groups`); the dense
+    blocks ignore it."""
 
     def train_step(params, opt_state, batch):
         loss, grads = _loss_and_grads(params, batch, cfg, moe_groups,
                                       microbatches)
-        new_params, new_state = optimizer.update(grads, opt_state, params)
-        return new_params, new_state, {"loss": loss,
-                                       "grad_norm": _grad_norm(grads)}
+        # elementwise: a sharded replica's update runs on each rank's own
+        # shards, as the consensus steps update them
+        new_params, new_state = optimizer.update(
+            _local(grads), _local(opt_state), _local(params))
+        return (_like(new_params, params), _like(new_state, opt_state),
+                {"loss": loss, "grad_norm": _grad_norm(grads)})
 
     return train_step
 
@@ -314,6 +400,9 @@ def make_consensus_steps(cfg: ModelConfig, optimizer: Optimizer, graph,
       "params" -- gossip parameter averaging (consensus-SGD; section VI)
       "z"      -- faithful DDA: mix the dual (accumulated-gradient) state
                   held by the dual_averaging optimizer.
+    `microbatches` > 1 accumulates each pod's gradients over the
+    reference's microbatches, on a sharded replica too (its microbatches
+    regrouped over the data ranks by an all-to-all, `_microbatches`).
 
     local_step: one optimizer step per pod on its own data shard, no
       mixing (the paper's cheap iteration, cost 1/n); metrics "loss" and
@@ -327,11 +416,6 @@ def make_consensus_steps(cfg: ModelConfig, optimizer: Optimizer, graph,
     if mix_target not in ("params", "z"):
         raise ValueError(f"mix_target must be 'params' or 'z', got "
                          f"{mix_target!r}")
-
-    sharded = mesh.shard_mesh is not None
-    if sharded and microbatches != 1:
-        raise ValueError("gradient accumulation (microbatches > 1) is not "
-                         "ported for a sharded replica")
 
     def local(params, opt_state, batch):
         n = batch["tokens"].shape[0]

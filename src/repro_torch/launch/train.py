@@ -19,10 +19,11 @@ run's float. Checkpoints are the stacked run's files: rank 0 gathers the
 pods and writes them, and a restore scatters them back from rank 0.
 
 With a data or model axis above 1 each pod's replica is sharded
-(`launch.mesh`): every rank draws its pods whole (the same bits) and keeps
-its shards (`init_state`; one pod is whole on each rank while it is
-drawn), streams its pods' full batches, cut by their placements (the rows
-over 'data'), and runs the steps under the sharding rules
+(`launch.mesh`): every rank draws only its pods' shards, each element with
+the bits the whole draw gives it (`init_state`, `draw_shards`: no pod and
+no sharded leaf is ever whole on a rank), streams its pods' full batches,
+cut by their placements (the rows over 'data'), and runs the steps under
+the sharding rules
 (`runtime.sharding.use_rules`), as the reference runs its program. Each
 rank returns the same report: the losses are whole on every rank.
 Checkpoints gather every leaf whole (`full_tensor`) and rank 0 writes the
@@ -48,7 +49,7 @@ from repro_torch.launch import specs as sp
 from repro_torch.launch.mesh import Mesh, mesh_shape
 from repro_torch.launch.steps import make_consensus_steps
 from repro_torch.models import transformer
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, drawing_blocks
 from repro_torch.optim import Optimizer, OptState
 from repro_torch.runtime import sharding as shrules
 from repro_torch.runtime.sharding import is_dtensor
@@ -76,40 +77,69 @@ def init_state(cfg: ModelConfig, optimizer: Optimizer, n_pods: int, seed: int,
     optimizer, so it is built on the stacked params at once). `pods`
     (default: all) picks the pods stacked, e.g. one rank's `[rank]`.
 
-    On a mesh whose pods are sharded (`mesh.shard_mesh`) the stacked
-    params are drawn whole, as above (the same bits), then each leaf is
-    cut to this rank's shard by its placements (`specs.train_placements`)
-    and the whole dropped; the optimizer state is built on the shards.
-    The step counter stays a plain tensor."""
+    On a mesh whose pods are sharded (`mesh.shard_mesh`) each leaf is
+    drawn as this rank's shard alone (`draw_shards`, from the rank's
+    coordinates on the DeviceMesh), the bits of the whole draw cut by its
+    placements (`specs.train_placements`, as `runtime.sharding.cut` cuts),
+    and wrapped as a DTensor of the whole stacked leaf's shape and
+    strides; no pod and no sharded leaf is whole at any time. The
+    optimizer state is built on the shards. The step counter stays a
+    plain tensor."""
     pods = list(range(n_pods)) if pods is None else list(pods)
-    keys = prng.split(prng.key(seed, device), n_pods)
-    params = sp.pod_stack((transformer.init(keys[i], cfg)[0] for i in pods),
-                          len(pods))
     step = torch.zeros((len(pods),), dtype=torch.int32, device=device)
     if mesh is None or mesh.shard_mesh is None:
+        keys = prng.split(prng.key(seed, device), n_pods)
+        params = sp.pod_stack((transformer.init(keys[i], cfg)[0]
+                               for i in pods), len(pods))
         return params, OptState(step, optimizer.init(params).inner)
     from torch.distributed.tensor import DTensor
 
+    dm = mesh.shard_mesh
     p_pl, s_pl, _ = sp.train_placements(cfg, optimizer, mesh, (1, 1))
-    flat, treedef = _pytree.tree_flatten(params)
-    del params  # each whole leaf goes as its shard is cut
-    placed = []
-    for i, pl in enumerate(_placement_leaves(p_pl)):
-        placed.append(shrules.cut(flat[i], mesh.shard_mesh, pl))
-        flat[i] = None
-    params = _pytree.tree_unflatten(placed, treedef)
+    local = draw_shards(cfg, n_pods, seed, device, mesh_shape(mesh),
+                        dict(zip(dm.mesh_dim_names, dm.get_coordinate())),
+                        pods)
+    flat, treedef = _pytree.tree_flatten(local)
+    whole = _pytree.tree_leaves(sp.params_and_axes(cfg)[0])
+
+    def placed(t, pl, like):
+        shape = (len(pods),) + tuple(like.shape)
+        return DTensor.from_local(
+            t, dm, pl, run_check=False, shape=torch.Size(shape),
+            stride=torch.empty(shape, device="meta").stride())
+    placed_leaves = [placed(t, pl, like) for t, pl, like in zip(
+        flat, _placement_leaves(p_pl), whole)]
+    params = _pytree.tree_unflatten(placed_leaves, treedef)
     # every optimizer state tree mirrors the params leaf for leaf
-    inner = optimizer.init(_pytree.tree_map(lambda t: t.to_local(),
-                                            params)).inner
+    inner = optimizer.init(local).inner
     if inner is None:  # SGD without momentum keeps no state
         return params, OptState(step, None)
     flat_s, sdef = _pytree.tree_flatten(inner)
-    wrapped = [DTensor.from_local(t, mesh.shard_mesh, pl, run_check=False,
-                                  shape=placed[i % len(placed)].shape,
-                                  stride=placed[i % len(placed)].stride())
+    wrapped = [placed(t, pl, whole[i % len(whole)])
                for i, (t, pl) in enumerate(zip(
                    flat_s, _placement_leaves(s_pl.inner)))]
     return params, OptState(step, _pytree.tree_unflatten(wrapped, sdef))
+
+
+def draw_shards(cfg: ModelConfig, n_pods: int, seed: int, device,
+                mesh_sizes: dict[str, int], coords: dict[str, int],
+                pods=None) -> dict:
+    """The pod-stacked parameters' local shards of the rank at `coords`
+    (its index on each dimension of the (data, model) DeviceMesh) on a
+    mesh of `mesh_sizes` ({axis: size}), as plain tensors: each pod drawn
+    from its own `split` key and each stacked layer from its own
+    `fold_in` key, as `init_state` draws them whole, but every leaf built
+    as its shard alone under the training rules' placements
+    (`models.common.drawing_blocks`, `runtime.sharding.block_rule`). It
+    needs the coordinates alone, no process group, so any rank of any
+    mesh can be drawn on one device."""
+    pods = list(range(n_pods)) if pods is None else list(pods)
+    keys = prng.split(prng.key(seed, device), n_pods)
+    rule = shrules.block_rule(shrules.DEFAULT_RULES, mesh_sizes,
+                              tuple(coords), coords)
+    with drawing_blocks(rule):
+        return sp.pod_stack((transformer.init(keys[i], cfg)[0]
+                             for i in pods), len(pods))
 
 
 def _placement_leaves(tree) -> list:

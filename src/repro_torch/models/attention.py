@@ -82,14 +82,25 @@ def gqa_init(key: prng.Key, cfg: ModelConfig) -> PyTree:
     return prm
 
 
+def _head_dim_sharded(w) -> bool:
+    """A DTensor projection whose last dimension (the head dim) is
+    sharded: its heads do not divide the model axis, and an einsum over it
+    cannot split its output back into heads."""
+    return is_dtensor(w) and any(pl.is_shard(w.ndim - 1)
+                                 for pl in w.placements)
+
+
 def _qkv(prm, x, cfg: ModelConfig, positions, seq_parallel: bool = True):
-    if rules_active() and seq_parallel:
+    if rules_active():
         # sharded: the projections gathered over 'model' as well, so each
         # rank projects its own tokens (q, k and v come out
         # sequence-parallel); a decode's one token is projected by each
-        # rank's own heads instead (seq_parallel=False)
-        prm = gather_axis({k: prm[k] for k in ("wq", "wk", "wv", "bq", "bk",
-                                               "bv") if k in prm}, "model")
+        # rank's own heads instead (seq_parallel=False), but a projection
+        # whose head dim is sharded is gathered over 'model' there too
+        prm = dict(prm, **gather_axis(
+            {k: prm[k] for k in ("wq", "wk", "wv", "bq", "bk", "bv")
+             if k in prm and (seq_parallel or _head_dim_sharded(prm[k]))},
+            "model"))
     q = torch.einsum("bsd,dhk->bshk", x, prm["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, prm["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, prm["wv"])

@@ -5,7 +5,9 @@ embeddings, activations and the loss.
 Every parameter is built through `p(key, shape, axes)` which returns a
 `(tensor, axes)` pair; `split_axes` separates the two parallel trees. The
 logical axis names map to mesh axes through `runtime.sharding`: a sharded
-pod's leaves are DTensors placed by them (`launch/specs.py`).
+pod's leaves are DTensors placed by them (`launch/specs.py`). Under
+`drawing_blocks` every leaf is built as one block of itself (a rank's
+shard), each element as the whole leaf has it.
 
 Rounding follows the reference's casts: weights in `cfg.dtype` (bf16),
 norm scales float32, `rms_norm`, `apply_rope` and the loss computed in
@@ -16,9 +18,11 @@ in eager PyTorch and is left out.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Any, Sequence
+import threading
+from typing import Any, Callable, Sequence
 
 import torch
 
@@ -128,24 +132,62 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 
+class _Draw(threading.local):
+    def __init__(self):
+        self.block_of: Callable | None = None
+
+
+_DRAW = _Draw()
+
+
+@contextlib.contextmanager
+def drawing_blocks(block_of: Callable):
+    """Build every leaf as one block of itself on this thread: `p`, `pz`
+    and the leaves computed without a draw make only the block that
+    `block_of(shape, axes)` names for a leaf of that shape and logical
+    axes, an (offset, length) pair a dimension (a rank's shard,
+    `launch.train.draw_shards`), each element as the whole leaf has it.
+    The previous rule comes back on exit."""
+    prev = _DRAW.block_of
+    _DRAW.block_of = block_of
+    try:
+        yield
+    finally:
+        _DRAW.block_of = prev
+
+
+def leaf_block(shape: Sequence[int], axes: Sequence[str | None]
+               ) -> prng.Block:
+    """The block of a leaf of `shape` and logical `axes` to build: the
+    installed `drawing_blocks` rule's, else the whole leaf."""
+    if _DRAW.block_of is None:
+        return tuple((0, n) for n in shape)
+    return tuple(_DRAW.block_of(tuple(shape), tuple(axes)))
+
+
 def p(key: prng.Key, shape: Sequence[int], axes: tuple[str | None, ...],
       dtype=torch.bfloat16, scale: float | None = None):
     """Build one parameter leaf: (truncated-normal tensor, logical axes),
-    drawn on the key's device with jax's bits (`prng.truncated_normal`)."""
+    drawn on the key's device with jax's bits (`prng.truncated_normal`);
+    under `drawing_blocks` its block alone, scaled by the whole leaf's
+    fan-in."""
     assert len(shape) == len(axes), (shape, axes)
     if scale is None:
         fan_in = shape[0] if len(shape) >= 2 else max(shape[-1], 1)
         scale = 1.0 / math.sqrt(max(fan_in, 1))
+    block = None if _DRAW.block_of is None else leaf_block(shape, axes)
     arr = prng.truncated_normal(key, -2.0, 2.0, tuple(shape), scale=scale,
-                                out_dtype=dtype)
+                                out_dtype=dtype, block=block)
     return arr, axes
 
 
 def pz(shape: Sequence[int], axes: tuple[str | None, ...], dtype=torch.bfloat16,
        fill: float = 0.0, device=None):
-    """Constant-initialized parameter (biases, norm scales)."""
+    """Constant-initialized parameter (biases, norm scales); under
+    `drawing_blocks` its block alone."""
     assert len(shape) == len(axes), (shape, axes)
-    return torch.full(tuple(shape), fill, dtype=dtype, device=device), axes
+    local = tuple(n for _, n in leaf_block(shape, axes))
+    return torch.full(local, fill, dtype=dtype, device=device), axes
 
 
 def is_param_pair(x) -> bool:

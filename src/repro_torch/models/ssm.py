@@ -14,7 +14,8 @@ sequential loop over its tokens (the reference's `lax.scan`); Mamba-2's is
 the SSD matmul form. These are plain torch ops under autograd, as the
 reference runs its mixers in XLA: the models call neither K5
 (`kernels/ssd_scan.py`) nor K6 (`kernels/selective_scan.py`), which have
-no backward.
+no backward. On a sharded replica Mamba-1's chunks run on each rank's own
+rows and channels (`_m1_scan_local`), not token by token as DTensors.
 
 Rounding follows the reference's casts: the conv in the activations'
 dtype, one tap at a time; `dt` through softplus in float32; the scans in
@@ -48,8 +49,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compress import prng
 from repro_torch import resolve_device_or_meta
-from repro_torch.models.common import (ModelConfig, p, promoted_einsum,
-                                       pz, rms_norm)
+from repro_torch.models.common import (ModelConfig, leaf_block, p,
+                                       promoted_einsum, pz, rms_norm)
 from repro_torch.runtime.sharding import constrain, is_dtensor
 
 PyTree = Any
@@ -172,9 +173,10 @@ def mamba1_init(key: prng.Key, cfg: ModelConfig) -> PyTree:
     D, N = cfg.d_model, cfg.ssm_state
     d_inner, dt_rank = _m1_dims(cfg)
     dev = key[0].device
-    # S4D-real A init: A[:, n] = -(n+1)
-    A = torch.arange(1, N + 1, dtype=torch.float64, device=dev).repeat(
-        d_inner, 1)
+    # S4D-real A init: A[:, n] = -(n+1); its block's rows and columns
+    (_, rows), (col, cols) = leaf_block((d_inner, N), ("ssm_inner", "state"))
+    A = torch.arange(col + 1, col + cols + 1, dtype=torch.float64,
+                     device=dev).repeat(rows, 1)
     return {
         "norm": pz((D,), ("embed",), torch.float32, device=dev),
         "in_proj": p(ks[0], (D, 2 * d_inner), ("embed", "ssm_inner"),
@@ -221,7 +223,7 @@ def _m1_chunk_body(A):
 def mamba1_mix(prm, xz: torch.Tensor, cfg: ModelConfig,
                chunk: int = _CHUNK) -> torch.Tensor:
     """Core selective-scan mixer. xz: (B,S,2*d_inner) post-in_proj."""
-    d_inner, dt_rank = _m1_dims(cfg)
+    _, dt_rank = _m1_dims(cfg)
     N = cfg.ssm_state
     x, z = torch.chunk(xz, 2, dim=-1)
     x = F.silu(_causal_conv(x, prm["conv_w"], prm["conv_b"]))
@@ -235,12 +237,46 @@ def mamba1_mix(prm, xz: torch.Tensor, cfg: ModelConfig,
 
     B, S, _ = x.shape
     n_chunks, Q = _chunking(S, chunk)
-    h0 = torch.zeros((B, d_inner, N), dtype=torch.float32, device=xz.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    y = _run_chunks(_m1_chunk_body(A), h0, (x, dt, B_.float(), C_), Q,
-                    n_chunks, remat)                          # (B,S,di)
+
+    def scan(x, dt, B_, C_, A):
+        h0 = torch.zeros((x.shape[0], x.shape[2], N), dtype=torch.float32,
+                         device=x.device)
+        return _run_chunks(_m1_chunk_body(A), h0, (x, dt, B_, C_), Q,
+                           n_chunks, remat)                   # (B,S,di)
+    if is_dtensor(x):
+        y = _m1_scan_local(scan, x, dt, B_.float(), C_, A)
+    else:
+        y = scan(x, dt, B_.float(), C_, A)
     y = y + x.float() * prm["D_skip"]
     return y.to(xz.dtype) * F.silu(z)
+
+
+def _m1_scan_local(scan, x, dt, B_, C_, A):
+    """`scan` on each rank's own rows and channels (`local_map`): the
+    recurrence is elementwise over (batch, d_inner) and contracts over N
+    alone, so each rank scans its shards of x and dt (x's placements)
+    with B and C whole over the channels' mesh dims and its slice of A,
+    where DTensor would dispatch the token loop op by op. Gradients: B's
+    and C's a partial sum over the mesh dims that shard the channels,
+    A's over those that shard the rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    xp = tuple(x.placements)
+    rows = tuple(pl.is_shard() and pl.dim == 0 for pl in xp)
+    chans = tuple(pl.is_shard() and pl.dim == 2 for pl in xp)
+    bc = tuple(Shard(0) if r else Replicate() for r in rows)
+    a_pl = tuple(Shard(0) if c else Replicate() for c in chans)
+    bc_grad = tuple(Partial() if c else pl for c, pl in zip(chans, bc))
+    a_grad = tuple(Partial() if r else pl for r, pl in zip(rows, a_pl))
+    args = (x, dt.redistribute(mesh, xp), B_.redistribute(mesh, bc),
+            C_.redistribute(mesh, bc), A.redistribute(mesh, a_pl))
+    return local_map(scan, out_placements=(xp,),
+                     in_placements=(xp, xp, bc, bc, a_pl),
+                     in_grad_placements=(xp, xp, bc_grad, bc_grad, a_grad),
+                     device_mesh=mesh)(*args)
 
 
 def mamba1_apply(prm, x, cfg: ModelConfig, positions=None) -> torch.Tensor:
@@ -279,6 +315,9 @@ def mamba1_decode(prm, x, cache, cfg: ModelConfig, pos=None):
                                  prm["conv_b"])
     x_t = F.silu(x_t)
     proj = promoted_einsum("bd,dk->bk", x_t, prm["x_proj"])
+    # the channels' partial sums reduced here, on (B, dt_rank + 2N): left
+    # partial, C_ would have the state gathered over its channels
+    proj = constrain(proj, ("batch", None))
     dt_r, B_, C_ = torch.split(proj, [dt_rank, N, N], dim=-1)
     dt = softplus(promoted_einsum("br,rd->bd", dt_r, prm["dt_w"]).float()
                   + prm["dt_b"])
@@ -306,20 +345,24 @@ def _m2_dims(cfg: ModelConfig) -> tuple[int, int]:
     return d_inner, nheads
 
 
-def _linspace(start: float, stop: float, num: int, device=None
-              ) -> torch.Tensor:
+def _linspace(start: float, stop: float, num: int, device=None,
+              block: tuple[int, int] | None = None) -> torch.Tensor:
     """`jnp.linspace(start, stop, num)` in float32 as the reference's jitted
     init computes it: `start * (1 - s) + stop * s` with `s = i * (1 /
     (num - 1))` (XLA turns the division by the constant into a product by
-    its reciprocal), and the end point exact."""
+    its reciprocal), and the end point exact. `block` (offset, length)
+    computes those elements alone."""
+    lo, n = block if block is not None else (0, num)
+    f32 = dict(dtype=torch.float32, device=device)
     if num == 1:
-        return torch.full((1,), start, dtype=torch.float32, device=device)
+        return torch.full((n,), start, **f32)
     div = num - 1
-    i = torch.arange(div, dtype=torch.float32, device=device)
-    s = i * torch.tensor(1.0 / div, dtype=torch.float32, device=device)
+    i = torch.arange(lo, min(lo + n, div), **f32)
+    s = i * torch.tensor(1.0 / div, **f32)
     out = start * (1.0 - s) + stop * s
-    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32,
-                                      device=device)])
+    if lo + n <= div:
+        return out
+    return torch.cat([out, torch.full((1,), stop, **f32)])
 
 
 def mamba2_init(key: prng.Key, cfg: ModelConfig) -> PyTree:
@@ -329,7 +372,8 @@ def mamba2_init(key: prng.Key, cfg: ModelConfig) -> PyTree:
     conv_dim = d_inner + 2 * N  # x plus (B,C), single group
     d_proj = 2 * d_inner + 2 * N + nheads
     dev = key[0].device
-    A = _linspace(1.0, 16.0, nheads, device=dev)
+    A = _linspace(1.0, 16.0, nheads, device=dev,
+                  block=leaf_block((nheads,), ("ssm_heads",))[0])
     return {
         "norm": pz((D,), ("embed",), torch.float32, device=dev),
         "in_proj": p(ks[0], (D, d_proj), ("embed", "ssm_inner"), cfg.dtype),

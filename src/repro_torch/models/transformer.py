@@ -74,7 +74,8 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ModelConfig, cross_entropy_loss, p,
                                        promoted_einsum, pz, rms_norm,
                                        split_axes)
-from repro_torch.runtime.sharding import constrain, gather_axis, is_dtensor
+from repro_torch.runtime.sharding import (constrain, gather_axis, is_dtensor,
+                                        local_block)
 
 PyTree = Any
 
@@ -233,8 +234,11 @@ def _cross_decode(prm, x, cache, cfg: ModelConfig):
         out = _cross_attend(q.redistribute(lay.mesh, lay.query).to_local(),
                             ek.to_local(), ev.to_local(), cfg.hd, x.dtype,
                             lay)
+        # back to the queries' layout (where they were partial sums, the
+        # cache's)
         out = lay.wrap(out, q.shape, lay.query).redistribute(
-            lay.mesh, q.placements)
+            lay.mesh, tuple(lq if pl.is_partial() else pl
+                            for pl, lq in zip(q.placements, lay.query)))
     else:
         out = _cross_attend(q, ek, ev, cfg.hd, x.dtype)
     out = promoted_einsum("bshk,hkd->bsd", out, prm["wo"])
@@ -342,8 +346,7 @@ def init(key: prng.Key, cfg: ModelConfig) -> tuple[PyTree, PyTree]:
     for i, kind in enumerate(cfg.superblock):
         layers, slot_axes = [], None
         for j in range(cfg.n_super):
-            arrays, slot_axes = split_axes(_block_init(
-                kind, prng.fold_in(keys[4], i * 1000 + j), cfg))
+            arrays, slot_axes = layer_init(keys[4], cfg, i, j)
             layers.append(arrays)
         stack_params[f"slot{i}"] = _stacked(layers)
         del layers
@@ -352,6 +355,15 @@ def init(key: prng.Key, cfg: ModelConfig) -> tuple[PyTree, PyTree]:
     params["stack"] = stack_params
     axes["stack"] = stack_axes
     return _sorted(params), _sorted(axes)
+
+
+def layer_init(stack_key: prng.Key, cfg: ModelConfig, slot: int, j: int
+               ) -> tuple[PyTree, PyTree]:
+    """(params, logical axes) of stacked slot `slot`'s repetition `j`,
+    from its own key `fold_in(stack_key, slot * 1000 + j)` (`stack_key`:
+    key 4 of `init`'s split): one layer of the stack, drawn alone."""
+    return split_axes(_block_init(cfg.superblock[slot], prng.fold_in(
+        stack_key, slot * 1000 + j), cfg))
 
 
 def _sorted(tree: PyTree) -> PyTree:
@@ -371,13 +383,55 @@ def _embed(params, tokens, cfg: ModelConfig, fsdp: bool = True):
     up where it lies (`F.embedding`: a vocabulary shard gives a masked
     partial sum) by the tokens gathered whole."""
     if fsdp:
-        x = gather_axis(params["embed"])[tokens.long()]
+        table = gather_axis(params["embed"])
+        x = (_lookup_local(table, tokens.long()) if is_dtensor(table)
+             else table[tokens.long()])
     else:  # the tokens (a few integers) whole on every rank
         x = torch.nn.functional.embedding(
             gather_axis(gather_axis(tokens.long()), "model"),
             params["embed"])
         x = _reduced(x)
     return constrain(x.to(cfg.dtype), ("batch", "seq", "embed_act"))
+
+
+def _lookup_local(table, ids):
+    """`table[ids]` of DTensors on each rank's own ids (`local_map`), so
+    neither the ids nor the rows' gradients are gathered: a vocabulary
+    shard looks up the ids it holds (the others masked to zeros, a partial
+    sum), and its gradient is the scatter-add of this rank's rows alone, a
+    partial sum over the mesh dims that shard the ids (reduced where the
+    table's placements ask). A mesh dim that shards both the table and the
+    ids gathers the table there first. On a one-rank mesh it is the plain
+    lookup."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    ip = tuple(ids.placements)
+    tp = tuple(Replicate() if t.is_shard() and i.is_shard() else t
+               for t, i in zip(table.placements, ip))
+    if tp != tuple(table.placements):
+        # only then: a redistribute's backward takes the gradient to the
+        # input's placements, so a partial sum over 'data' to Replicate
+        table = table.redistribute(mesh, tp)
+    out, grad = [], []
+    for t, i in zip(tp, ip):
+        out.append(Partial() if t.is_shard(0) else
+                   Shard(ids.ndim) if t.is_shard(1) else i)
+        grad.append(Partial() if i.is_shard() else t)
+    (lo, n), _ = local_block(table.shape, tp, mesh.shape,
+                             mesh.get_coordinate())
+    split = n < table.shape[0]
+
+    def lookup(t, i):
+        if not split:
+            return t[i]
+        held = (i >= lo) & (i < lo + n)
+        rows = t[torch.where(held, i - lo, 0)]
+        return rows * held[..., None].to(rows.dtype)
+    return local_map(lookup, out_placements=(tuple(out),),
+                     in_placements=(tp, ip), in_grad_placements=(
+                         tuple(grad), ip), device_mesh=mesh)(table, ids)
 
 
 def _reduced(x):

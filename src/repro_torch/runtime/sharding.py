@@ -245,6 +245,41 @@ def cut(t, device_mesh, placements):
                               stride=t.stride())
 
 
+def local_block(shape: Sequence[int], placements, dim_sizes: Sequence[int],
+                coords: Sequence[int]) -> tuple[tuple[int, int], ...]:
+    """The (offset, length) a dimension of the shard of a tensor of `shape`
+    that the rank at `coords` on a mesh of `dim_sizes` holds under
+    `placements`, as `distribute_tensor` cuts it (and `cut`): the mesh
+    dimensions in order, each `Shard(d)` splitting dimension d's extent
+    so far into `torch.chunk`'s pieces (ceil-sized, the last short or
+    empty). Needs the coordinates alone, no process group."""
+    off, length = [0] * len(shape), list(shape)
+    for pl, size, c in zip(placements, dim_sizes, coords):
+        if pl.is_shard():
+            d = pl.dim
+            piece = -(-length[d] // size)
+            start = min(c * piece, length[d])
+            off[d] += start
+            length[d] = min(start + piece, length[d]) - start
+    return tuple(zip(off, length))
+
+
+def block_rule(rules: dict[str, tuple[str, ...]], mesh_sizes: dict[str, int],
+               dims: Sequence[str], coords: dict[str, int]):
+    """The rule `models.common.drawing_blocks` takes: a leaf of (shape,
+    logical axes) to the block of it that the rank at `coords` (its index
+    on each mesh dimension of `dims`) holds, placed as `logical_to_spec`
+    and `to_placements` place it on the mesh of `mesh_sizes`."""
+    sizes = [mesh_sizes[d] for d in dims]
+    at = [coords[d] for d in dims]
+
+    def block_of(shape, axes):
+        spec = logical_to_spec(shape, axes, rules, mesh_sizes)
+        return local_block(shape, to_placements(spec, tuple(dims)), sizes,
+                           at)
+    return block_of
+
+
 def is_placements_leaf(x) -> bool:
     """A tuple of DTensor placements (one a mesh dimension)."""
     return isinstance(x, tuple) and all(hasattr(pl, "is_shard") for pl in x)

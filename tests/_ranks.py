@@ -191,7 +191,8 @@ def sharded(rank, n, payload):
     the payload's specs through `run`; the (2, 2, 2) checkpoint run written
     to 4 steps, then a stacked run's files resumed to 6; `constrain` on a
     DTensor under the rules; qwen1.5-110b's Megatron FFN (`mlp_tp`)
-    through `train_consensus_lm`."""
+    through `train_consensus_lm`; fused steps with gradient accumulation
+    from the reference's initial state (`accumulate`)."""
     import dataclasses
 
     import repro_torch
@@ -231,6 +232,10 @@ def sharded(rank, n, payload):
             rep = train(mesh, 6, payload["resume"])
             out["resume"] = {"resumed_from": rep.resumed_from,
                              "losses": rep.losses}
+    if payload.get("accumulate"):
+        out["accumulate"] = {arch: _accumulate_case(arch,
+                                                    payload["accumulate"])
+                             for arch in payload["accumulate"]["archs"]}
     if payload.get("mlp_tp"):
         cfg = dataclasses.replace(registry.get_config("qwen1.5-110b",
                                                       "smoke"), mlp_tp=True)
@@ -241,6 +246,101 @@ def sharded(rank, n, payload):
             schedule=Periodic(h=2), batch_per_node=2, seq_len=32, seed=0,
             log_every=0).losses
     return out
+
+
+def _waited(path: str, timeout: float = 600.0) -> str:
+    """`path` once it exists (a file another process writes and renames
+    into place)."""
+    import time
+
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if time.monotonic() - t0 > timeout:
+            raise TimeoutError(f"{path} not written in {timeout} s")
+        time.sleep(0.5)
+    return path
+
+
+def _reference_numpy(tree, arrays, prefix: str):
+    """The reference's numpy tree of `tree`'s structure: each leaf the
+    array `arrays[prefix/path]` (bf16 stored as raw 2-byte values, read
+    back as ml_dtypes' bfloat16), each `OptState` a (step, inner)
+    namedtuple, as `convert.lm_params_from_reference` takes them."""
+    import collections
+
+    import ml_dtypes
+
+    state = collections.namedtuple("OptState", ("step", "inner"))
+    if isinstance(tree, dict):
+        return {k: _reference_numpy(v, arrays, f"{prefix}/{k}")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [_reference_numpy(v, arrays, f"{prefix}/{i}")
+                 for i, v in enumerate(tree)]
+        return state(*items) if hasattr(tree, "_fields") else type(tree)(
+            items)
+    a = arrays[prefix]
+    return a.view(ml_dtypes.bfloat16) if a.dtype.kind == "V" else a
+
+
+def _accumulate_case(arch: str, payload: dict) -> dict:
+    """`arch` smoke at mesh (1, 2, 2) on this process group's four ranks:
+    the reference's initial state (written by its subprocess) carried
+    across by `convert.lm_params_from_reference` and placed by the
+    training placements, then fused steps of `make_consensus_steps(...,
+    microbatches=M)` on the payload's batches. Returns the losses, grad
+    norms, the steps' output bytes by collective kind and each
+    all-gather's input (shape, dtype, the mesh dim it gathers over)."""
+    from repro_torch import optim
+    from repro_torch.convert import lm_params_from_reference
+    from repro_torch.core.graphs import build_graph
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.dryrun import CollectiveBytes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_consensus_steps
+    from repro_torch.launch.train import init_state
+    from repro_torch.models import registry
+    from repro_torch.optim import OptState
+    from repro_torch.runtime import sharding as sh
+
+    cfg = registry.get_config(arch, "smoke")
+    opt = optim.adamw(optim.cosine_lr(3e-4, 6))
+    mesh = make_mesh((1, 2, 2), ("pod", "data", "model"), device="cpu",
+                     group=dist.group.WORLD)
+    dm = mesh.shard_mesh
+    batches = np.load(payload["batches"])
+    B, S = batches[f"{arch}/tokens"].shape[2:]
+    arrays = np.load(_waited(payload["init"]))
+    params, state = lm_params_from_reference(_reference_numpy(
+        init_state(cfg, opt, 1, 0, "meta"), arrays, arch), device="cpu")
+    p_pl, s_pl, b_pl = sp.train_placements(cfg, opt, mesh, (B, S))
+    params = sh.place(params, p_pl, dm)
+    state = OptState(state.step, sh.place(state.inner, s_pl.inner, dm))
+    _, _, fused = make_consensus_steps(
+        cfg, opt, build_graph("complete", 1), mesh,
+        moe_groups=2 if cfg.moe_experts else 1,
+        microbatches=payload["microbatches"])
+    seen = CollectiveBytes()
+    out = {"losses": [], "grad_norms": []}
+    for t in range(payload["steps"]):
+        batch = {k: sh.cut(torch.from_numpy(
+            batches[f"{arch}/{k}"][t].copy()), dm, b_pl)
+            for k in ("tokens", "labels")}
+        with sh.use_rules(sh.DEFAULT_RULES, mesh), seen:
+            params, state, metrics = fused(params, state, batch)
+        out["losses"].append(metrics["loss"].tolist())
+        out["grad_norms"].append(metrics["grad_norm"].tolist())
+    out["collectives"] = seen.bytes
+    out["gathered"] = [(shape, dtype, _mesh_dim_of(ranks, dm))
+                       for shape, dtype, ranks in seen.gathered]
+    return out
+
+
+def _mesh_dim_of(ranks: tuple, dm) -> str:
+    """The dim of `dm` whose process group has these global ranks."""
+    return next(d for d in dm.mesh_dim_names
+                if tuple(dist.get_process_group_ranks(dm.get_group(d)))
+                == tuple(ranks))
 
 
 @contextlib.contextmanager
@@ -304,7 +404,7 @@ def _block_case(case: str, payload: dict) -> dict:
     from repro_torch.compress import prng
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import grad_fn
-    from repro_torch.models import attention, mlp, registry, transformer
+    from repro_torch.models import attention, mlp, registry, ssm, transformer
     from repro_torch.models.common import split_axes
     from repro_torch.runtime import sharding as sh
 
@@ -324,7 +424,8 @@ def _block_case(case: str, payload: dict) -> dict:
     if kind == "loss":
         prm, axes = transformer.init(key, cfg)
     else:
-        init = {"moe": mlp.moe_init, "mla": attention.mla_init}[kind]
+        init = {"moe": mlp.moe_init, "mla": attention.mla_init,
+                "mamba1": ssm.mamba1_init}[kind]
         prm, axes = split_axes(init(key, cfg))
     prm = _filled(prm, arrays, f"{case}/params")
     prm = _pytree.tree_map(placed, prm, axes)
@@ -348,6 +449,8 @@ def _block_case(case: str, payload: dict) -> dict:
                     y = mlp.moe_apply(sh.gather_axis(block), x, cfg,
                                       groups=2)
                 out["choices"] = [c.tolist() for c in choices]
+            elif kind == "mamba1":  # rows over 'data', channels over 'model'
+                y = ssm.mamba1_apply(sh.gather_axis(block), x, cfg)
             else:
                 S = x.shape[1]
                 y = attention.mla_apply(sh.gather_axis(block), x, cfg,
@@ -412,33 +515,6 @@ def _constrain_case(shape):
 # ---------------------------------------------------------------------------
 
 
-class _Collectives:
-    """Bytes the functional collectives take in (each input counted once),
-    by collective, and the shapes the all-gathers take in, while the mode
-    is active."""
-
-    def __init__(self):
-        from torch.utils._python_dispatch import TorchDispatchMode
-
-        counts = self.counts = {}
-        gathered = self.gathered = []
-
-        class Mode(TorchDispatchMode):
-            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-                name = func.__name__.split(".")[0]
-                if func.namespace == "_c10d_functional" and not \
-                        name.startswith(("_", "wait")):
-                    first = args[0]
-                    tensors = first if isinstance(first, (list, tuple)) \
-                        else [first]
-                    counts[name] = counts.get(name, 0) + sum(
-                        t.numel() * t.element_size() for t in tensors)
-                    if name.startswith("all_gather"):
-                        gathered.extend(list(t.shape) for t in tensors)
-                return func(*args, **(kwargs or {}))
-        self.mode = Mode()
-
-
 def _fill_cross(cache, params, cfg, enc) -> None:
     """Each cross-attention repetition's encoder K and V from `enc`, in
     place (the reference's `_prefill_cross_cache`)."""
@@ -484,6 +560,7 @@ def _serve_case(rank, payload, case) -> dict:
     from repro_torch.compress import prng
     from repro_torch.launch import specs as sp
     from repro_torch.launch import steps
+    from repro_torch.launch.dryrun import CollectiveBytes
     from repro_torch.models import registry, transformer
     from repro_torch.runtime import sharding as sh
 
@@ -519,11 +596,11 @@ def _serve_case(rank, payload, case) -> dict:
         tok = sh.cut(tokens[:, pos:pos + 1], dm, pl["tokens"])
         at = torch.tensor(pos, dtype=torch.int32) if pos % 2 else pos
         if pos == record:
-            seen = _Collectives()
-            with seen.mode:
+            seen = CollectiveBytes()
+            with seen:
                 step_logits, d_cache = serve(d_params, d_cache, tok, at)
-            out["collectives"] = seen.counts
-            out["gathered_shapes"] = seen.gathered
+            out["collectives"] = seen.bytes
+            out["gathered_shapes"] = [shape for shape, _, _ in seen.gathered]
         else:
             step_logits, d_cache = serve(d_params, d_cache, tok, at)
         logits.append(step_logits.full_tensor()[:, 0])

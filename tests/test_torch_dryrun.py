@@ -4,14 +4,25 @@ JAX package's, on the CPU.
 The reference lowers and compiles a cell for 512 placeholder devices (in a
 subprocess: its module sets the device count before jax starts) and
 reads XLA's `memory_analysis()`; the port reckons the same arguments'
-per-device bytes from its specs on the meta device. Standards:
+per-device bytes from its specs on the meta device, and counts rank 0's
+collectives by running one pod's step as meta DTensors over a
+placeholder process group. Standards:
   * `argument_size_in_bytes` equal exactly, on the four cells below (the
     prefill cell's `labels`, which its step never reads, left out on both
     sides);
+  * `collectives` under the reference's kinds (and `pod_mix`); the port's
+    bytes are not XLA's (DTensor and GSPMD choose their collectives
+    otherwise, and XLA's HLO text holds a loop's collectives once), so
+    they are printed beside XLA's, not held to them;
+  * a small case's collectives over 'data' equal a count by hand from
+    the placements exactly;
+  * no placeholder group outlives a cell; a default group, or a missing
+    placeholder backend, is refused;
   * `iter_cells` the reference's sequence, skips and reasons included;
   * the record's keys the reference's; the CLI's exit codes.
 """
 
+import dataclasses
 import json
 import os
 import pathlib
@@ -21,11 +32,16 @@ import textwrap
 
 import pytest
 import torch
+import torch.distributed as dist
+import torch.utils._pytree as _pytree
 
+from repro_torch.configs.shapes import ShapeCell
 from repro_torch.launch import dryrun as port_dryrun
 from repro_torch.launch import specs as port_sp
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.models import registry as port_registry
+from repro_torch.optim import adamw, cosine_lr
+from repro_torch.runtime import sharding as sh
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
@@ -74,15 +90,22 @@ def reference():
     return json.loads(line[-1][len("RESULT "):])
 
 
+@pytest.fixture(scope="module")
+def cell_records():
+    """The port's records of CELLS."""
+    return [port_dryrun.dryrun_cell(
+        arch, port_registry.get_shapes(arch)[shape], mp, save=False,
+        verbose=False) for arch, shape, mp in CELLS]
+
+
 @pytest.mark.parametrize("index", range(len(CELLS)),
                          ids=[f"{a}-{s}-{'pod2x16x16' if m else 'pod16x16'}"
                               for a, s, m in CELLS])
-def test_argument_bytes_equal_the_references(reference, index):
+def test_argument_bytes_equal_the_references(reference, cell_records,
+                                             index):
     arch, shape, mp = CELLS[index]
     ref = reference["records"][index]
-    ours = port_dryrun.dryrun_cell(
-        arch, port_registry.get_shapes(arch)[shape], mp, save=False,
-        verbose=False)
+    ours = cell_records[index]
     assert (ours["arch"], ours["shape"], ours["mesh"]) == (
         ref["arch"], ref["shape"], ref["mesh"])
     assert ours["memory"]["argument_size_in_bytes"] == \
@@ -95,12 +118,122 @@ def test_argument_bytes_equal_the_references(reference, index):
     assert ours["memory"]["temp_size_in_bytes"] is None
     assert ours["memory"]["generated_code_size_in_bytes"] is None
     assert ours["cost"]["flops"] > 0
-    if shape == "train_4k" and mp:
-        # the pod mix: one all-reduce of each device's float32 parameter
-        # shard on the complete graph of two pods
-        assert ours["collectives"]["pod_mix"] > 0
-    else:
-        assert ours["collectives"] == {}
+    kinds = set(ours["collectives"]) - {"pod_mix"}
+    assert kinds and kinds <= set(port_dryrun.KINDS)
+    assert set(ref["collectives"]) <= set(port_dryrun.KINDS)
+    assert all(v > 0 for v in ours["collectives"].values())
+    # the pod mix: one all-reduce of each device's float32 parameter shard
+    # on the complete graph of two pods, in the training cells on two pods
+    assert ("pod_mix" in ours["collectives"]) == (shape == "train_4k"
+                                                  and mp)
+    assert not dist.is_initialized()  # the placeholder group is gone
+
+
+def test_print_collectives_beside_xlas(reference, cell_records, capsys):
+    """Each compared cell's bytes a device by kind beside XLA's: printed,
+    no tolerance (DTensor and GSPMD choose otherwise)."""
+    with capsys.disabled():
+        for (arch, shape, mp), ours, ref in zip(CELLS, cell_records,
+                                                reference["records"]):
+            print(f"\n[collectives] {arch} {shape} "
+                  f"{'pod2x16x16' if mp else 'pod16x16'}")
+            for kind in port_dryrun.KINDS + ("pod_mix",):
+                print(f"  {kind:18s} port {ours['collectives'].get(kind)}"
+                      f"  xla {ref['collectives'].get(kind)}")
+    assert len(cell_records) == len(reference["records"])
+
+
+#: the small case: llama3-8b smoke, 8 rows of 32 tokens, two microbatches,
+#: on a placeholder (data 2, model 2) layout
+SMALL = dict(arch="llama3-8b", rows=8, seq=32, microbatches=2)
+#: the leaves the sharded step gathers over 'model' too (the projections
+#: of `attention._qkv` and `mlp._ffn` run on each rank's tokens)
+GATHERED_OVER_MODEL = ("wq", "wk", "wv", "w_up", "w_gate", "w_down")
+
+
+def test_small_case_equals_its_hand_count():
+    """The collectives over 'data' of a training step on (data D=2, model
+    m=2) at M microbatches of B/M rows of S tokens, from the placements
+    alone. For each leaf l sharded over 'data' (FSDP), with `local` its
+    shard's bytes and `uses` 2 in the layer stack (the forward and the
+    backward's recompute) and 1 outside it:
+      all-gather     = M sum_l uses D local  (no token id and no row of
+                         the batch: the embedding looks up and scatters
+                         its gradient on each rank's own rows)
+      reduce-scatter = M sum_l local         (l not gathered over 'model',
+                         the table included: its gradient is a partial
+                         sum over 'data' of each rank's rows)
+      all-reduce     = M sum_l D m local     (l gathered over 'model'
+                         too: its gradient, partial over both axes, is
+                         all-reduced over 'data' whole, then
+                         reduce-scattered over 'model')
+                       + 4 (2 M + 1)         (float32 scalars: each
+                         microbatch's loss sum and token count, the grad
+                         norm)
+      all-to-all     = 2 (B / D) S 4         (tokens and labels, int32,
+                         to their microbatches' ranks)
+    The implementation meets each identity exactly."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    M, D, m = SMALL["microbatches"], 2, 2
+    B, S = SMALL["rows"], SMALL["seq"]
+    cfg = dataclasses.replace(port_registry.get_config(SMALL["arch"],
+                                                       "smoke"),
+                              train_microbatches=M)
+    with port_dryrun.placeholder_group(D * m) as group:
+        dm = DeviceMesh("cuda", torch.arange(D * m).reshape(D, m),
+                        mesh_dim_names=("data", "model"))
+        mesh = Mesh(("data", "model"), (D, m), torch.device("meta"), group,
+                    dm)
+        counted = port_dryrun.count_step(cfg, ShapeCell("small", S, B,
+                                                        "train"),
+                                         mesh, adamw(cosine_lr(3e-4, 10)))
+        data = tuple(dist.get_process_group_ranks(
+            dm.get_group(0)))
+    got = {k: b for (k, g), b in counted.by_group.items() if g == data}
+    params, axes = port_sp.params_and_axes(cfg)
+    want = {"all-gather": 0, "reduce-scatter": 0,
+            "all-reduce": 4 * (2 * M + 1), "all-to-all": 2 * (B // D) * S * 4}
+    for (path, t), a in zip(_pytree.tree_flatten_with_path(params)[0],
+                            _pytree.tree_leaves(axes,
+                                                is_leaf=sh.is_axes_leaf)):
+        spec = sh.logical_to_spec(t.shape, a, sh.DEFAULT_RULES,
+                                  {"data": D, "model": m})
+        if "data" not in spec:
+            continue
+        local = t.numel() * t.element_size() // D // (
+            m if "model" in spec else 1)
+        uses = 2 if path[0].key == "stack" else 1
+        want["all-gather"] += M * uses * D * local
+        if path[-1].key in GATHERED_OVER_MODEL:
+            want["all-reduce"] += M * D * m * local
+        else:
+            want["reduce-scatter"] += M * local
+    assert got == want
+
+
+def test_dryrun_leaves_no_group_and_refuses_one(monkeypatch):
+    cell = port_registry.get_shapes("zamba2-2.7b")["decode_32k"]
+    port_dryrun.dryrun_cell("zamba2-2.7b", cell, False, save=False,
+                            verbose=False)
+    assert not dist.is_initialized()
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        with pytest.raises(RuntimeError, match="default process group "
+                                               "exists"):
+            port_dryrun.dryrun_cell("zamba2-2.7b", cell, False, save=False,
+                                    verbose=False)
+    finally:
+        dist.destroy_process_group()
+    # without the placeholder backend the count is refused, not skipped
+    monkeypatch.setitem(sys.modules,
+                        "torch.testing._internal.distributed.fake_pg", None)
+    with pytest.raises(RuntimeError, match="placeholder process group"):
+        port_dryrun.dryrun_cell("zamba2-2.7b", cell, False, save=False,
+                                verbose=False)
+    assert not dist.is_initialized()
 
 
 def _tree_bytes(tree, specs, mesh) -> int:

@@ -29,13 +29,14 @@ Standards:
     most 1.9e-6, deepseek-v2's decode logits; the rest at most 1.0e-6);
   * every rank's gathered tensors equal bit for bit;
   * no serve step gathers a cache: no all-gather of one step takes in a
-    tensor of a cache shard's shape (the collectives recorded by a
-    dispatch mode over `_c10d_functional`, as `chip_smoke.py` counts
-    them), and each cache lies as the rules place it. The bytes a step
-    all-gathers stay below one rank's cache-shard bytes in six layouts;
-    deepseek-v2's 19,592 B (its queries' heads for the sequence-sharded
-    latent, its experts' outputs for the combine) pass its 3,840 B of a
-    16-position, 32-wide latent cache, so the shapes are the test;
+    tensor of a cache shard's shape (the collectives recorded by
+    `launch.dryrun.CollectiveBytes`, those DTensor issues inside an op
+    included), and each cache lies as the rules place it. The bytes a
+    step all-gathers (output bytes) pass one rank's cache-shard bytes in
+    six of the seven layouts (llama3-8b's kv-head layout 116,240 B
+    against 4,096 B: weight shards DTensor gathers over 'data' inside the
+    projections' einsums, activations; the pods layout 2,064 B), so the
+    shapes are the test;
   * the reference's own gate (`tests/test_models.py`
     test_decode_matches_forward) with the decode on the sharded path at
     (2, 2): its inputs (S = 8, tokens from PRNGKey(7), encoder states
@@ -432,8 +433,8 @@ def _report(runs) -> dict:
             "cache": max(_rel(v, ref[f"{case}/cache/{k}"])
                          for k, v in got["cache"].items()),
             "all_gathered_bytes": max(
-                r["cases"][case]["collectives"].get(
-                    "all_gather_into_tensor", 0) for r in runs["ranks"]),
+                r["cases"][case]["collectives"].get("all-gather", 0)
+                for r in runs["ranks"]),
             "cache_shard_bytes": got["cache_shard_bytes"]}
     out["gate_max_abs"] = {
         arch: float(np.abs(g["decode"] - g["forward"]).max())
