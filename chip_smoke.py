@@ -206,6 +206,28 @@ non-zero and the last line is not printed. The phases:
             held to the stacked run at the same microbatches the same way,
             its peak beside the one-microbatch run's. `python3
             chip_smoke.py lm_sharded` runs env, build and this phase alone
+  lm_sharded_plan
+            host-side, on the meta device: one pod's step at the
+            production layout (data 16, model 16) as DTensors over a
+            placeholder process group of 256 ranks (launch/dryrun.py
+            `count_step`), the depth cut to two superblocks (the
+            second takes the sequence-parallel residual stream, which
+            the first, fed by the embedding, does not), on this
+            machine's torch, for one cell of each family whose sharded
+            step an older DTensor refused (LM_PLAN_CELLS: llama3-8b,
+            musicgen-medium and vision-90b train_4k, musicgen-medium and
+            llama4-maverick decode_32k, deepseek-v2 prefill_32k, zamba2
+            train_4k). Each cell must build, and count no op on DTensors
+            that torch 2.11 refuses (`dryrun.refused_sharding`: a view
+            merging sharded dims, a `_StridedShard`, a pad of a DTensor);
+            prints the torch version, each cell's seconds, that count and
+            rank 0's collective bytes by kind. It shows that the sharding
+            plan builds on this torch, not that the step runs on cards.
+            The default run starts it in a child process that sees no
+            card right after the build, beside the card's phases, and
+            reads it at the end;
+            `python3 chip_smoke.py lm_sharded_plan` runs env and this
+            phase alone (no build)
   lm_init_sharded
             the shard-wise init at a model no card holds whole:
             qwen1.5-110b at its published widths and depth (a 222.4 GB
@@ -3381,6 +3403,92 @@ def _chunk_workspace(device) -> int:
             - out.numel() * out.element_size())
 
 
+#: lm_sharded_plan's cells, (arch, shape): one for each family whose
+#: sharded step torch 2.11's DTensor refused at (data 16, model 16)
+LM_PLAN_CELLS = (("llama3-8b", "train_4k"),
+                 ("musicgen-medium", "train_4k"),
+                 ("musicgen-medium", "decode_32k"),
+                 ("deepseek-v2-236b", "prefill_32k"),
+                 ("llama-3.2-vision-90b", "train_4k"),
+                 ("llama4-maverick-400b-a17b", "decode_32k"),
+                 ("zamba2-2.7b", "train_4k"))
+#: their depth: two superblocks, so that the second's attention meets the
+#: sequence-parallel residual stream (at one, qwen1.5-110b's step holds no
+#: op 2.11 refuses, though 2.11 refuses its two-superblock step)
+LM_PLAN_N_SUPER = 2
+
+
+def phase_lm_sharded_plan() -> dict:
+    """One pod's step of each LM_PLAN_CELLS cell at (data 16, model 16) on
+    meta DTensors over a placeholder group, LM_PLAN_N_SUPER superblocks
+    deep: it must build and count 0 ops that torch 2.11 refuses.
+    Host-side only."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw, cosine_lr
+
+    cells, t_all = [], time.perf_counter()
+    for arch, shape in LM_PLAN_CELLS:
+        cfg = dataclasses.replace(registry.get_config(arch, "full"),
+                                  n_super=LM_PLAN_N_SUPER)
+        optimizer = adamw(cosine_lr(3e-4, 10000),
+                          moment_dtype=(torch.bfloat16 if cfg.opt_moments_bf16
+                                        else torch.float32))
+        t0 = time.perf_counter()
+        with dryrun.placeholder_group(256) as group:
+            mesh = make_production_mesh(multi_pod=False, group=group)
+            counted = dryrun.count_step(cfg, registry.get_shapes(arch)[shape],
+                                        mesh, optimizer)
+        cell = {"arch": arch, "shape": shape, "layout": [16, 16],
+                "n_super": LM_PLAN_N_SUPER,
+                "seconds": time.perf_counter() - t0,
+                "refused": len(counted.refused),
+                "refused_first": counted.refused[:3],
+                "collective_bytes": counted.bytes}
+        emit("lm_sharded_plan_cell", torch=torch.__version__, **cell)
+        cells.append(cell)
+    refused = {f"{c['arch']} {c['shape']}": c["refused"] for c in cells
+               if c["refused"]}
+    out = {"torch": torch.__version__, "cells": len(cells),
+           "wall_s": time.perf_counter() - t_all,
+           "seconds": {f"{c['arch']} {c['shape']}": c["seconds"]
+                       for c in cells}}
+    emit("lm_sharded_plan", refused=refused, **out)
+    if refused:
+        raise RuntimeError(f"torch {torch.__version__} would refuse ops on "
+                           f"DTensors in {refused}")
+    return out
+
+
+def _start_plan_child():
+    """`phase_lm_sharded_plan` in a child process that sees no card (it
+    needs none), so that its host-side minute runs beside the card's
+    phases."""
+    import os
+
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.phase_lm_sharded_plan()"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env)
+
+
+def _finish_plan_child(child) -> None:
+    """Waits for the child, prints its phase lines and raises unless it
+    passed."""
+    out, err = child.communicate(timeout=600)
+    for line in out.splitlines():
+        if line.startswith('{"phase": "lm_sharded_plan'):
+            print(line, flush=True)
+    if child.returncode != 0:
+        raise RuntimeError(f"lm_sharded_plan failed (rc {child.returncode})"
+                           f": {err[-3000:]}")
+
+
 def phase_lm_init_sharded() -> None:
     """The shard-wise init at a model no card holds whole: qwen1.5-110b's
     pod drawn for ranks LM_INIT_RANKS of the production layout by their
@@ -5220,17 +5328,39 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     env = phase_env()
-    build_s = phase_build()
     alone = {"lm_sharded": phase_lm_sharded,
              "lm_init_sharded": phase_lm_init_sharded,
              "lm_sharded_moe": phase_lm_sharded_moe,
              "lm_decode": phase_lm_decode,
-             "lm_decode_smoke": phase_lm_decode_smoke}
+             "lm_decode_smoke": phase_lm_decode_smoke,
+             "lm_sharded_plan": phase_lm_sharded_plan}
     if len(sys.argv) >= 2 and all(a in alone for a in sys.argv[1:]):
+        if set(sys.argv[1:]) != {"lm_sharded_plan"}:  # host-side: no build
+            phase_build()
         for name in sys.argv[1:]:  # those phases alone (no result line)
             alone[name]()
         print(env["nvidia_smi"], flush=True)
         return 0
+    build_s = phase_build()
+    plan = _start_plan_child()
+    try:
+        result = _default_run(build_s)
+        _finish_plan_child(plan)
+    finally:
+        if plan.poll() is None:
+            plan.kill()
+            plan.wait()
+    print(json.dumps({"kernels": result}), flush=True)
+    print(env["nvidia_smi"], flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def _default_run(build_s) -> list:
+    """Every phase of the default run after the build, in order; returns
+    the kernels' entries of the last JSON line."""
     k1 = phase_kernel()
     k2 = phase_kernel_k2()
     phase_manifests()
@@ -5275,12 +5405,7 @@ def main() -> int:
     k5 = phase_kernel_k5()
     k6 = phase_kernel_k6()
     phase_ssm_scans(k5, k6)
-    print(json.dumps({"kernels": [k1, k2, k3, k4, k5, k6]}), flush=True)
-    print(env["nvidia_smi"], flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return [k1, k2, k3, k4, k5, k6]
 
 
 if __name__ == "__main__":

@@ -47,7 +47,12 @@ their specs (`launch/specs.py`) and reckons:
     on a k-regular one), bytes per device per comm round. XLA counts a
     collective inside a loop once as the HLO text holds it; the port
     counts every one that runs. `hlo_collective_op_counts` is null (no
-    HLO).
+    HLO);
+  * `sharding_refusals`, the port's own: the ops on DTensors in the same
+    DTensor runs that torch 2.11's DTensor refuses (`refused_sharding`),
+    extended as the bytes are. A cell with any is on the CLI's FAILURES
+    line, whatever torch runs it, so a newer torch that carries those
+    ops through still finds the fault.
 
 `lower_s` is the seconds spent building the arguments and specs, and
 `compile_s` the seconds of the meta runs (both the plain and the DTensor
@@ -154,6 +159,78 @@ _COLLECTIVE_OPS = {
 _NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd", "barrier")
 
 
+#: the view ops a reshape or flatten of a DTensor reaches
+_VIEWS = ("view", "_unsafe_view", "reshape")
+
+
+def _view_groups(src, dst) -> list[list[int]]:
+    """The input dims of a view from shape `src` to `dst` that meet in one
+    output dim, one list per output group of more than one input dim of
+    size above 1 (a flatten, or a flatten then split): the groups whose
+    sizes' products match, as DTensor's `view_groups` forms them."""
+    groups, i, j = [], 0, 0
+    while i < len(src) and j < len(dst):
+        if src[i] == 1 and dst[j] != 1:
+            i += 1
+            continue
+        if dst[j] == 1 and src[i] != 1:
+            j += 1
+            continue
+        ins, a, b = [i], src[i], dst[j]
+        i, j = i + 1, j + 1
+        while a != b:
+            if a < b:
+                ins.append(i)
+                a *= src[i]
+                i += 1
+            else:
+                b *= dst[j]
+                j += 1
+        ins = [d for d in ins if src[d] != 1]
+        if len(ins) > 1:
+            groups.append(ins)
+    return groups
+
+
+def refused_sharding(func, args, kwargs) -> str | None:
+    """Why torch 2.11's DTensor refuses the op `func` on these DTensor
+    arguments, or None. It refuses three patterns that later versions
+    carry through `_StridedShard`: a view that merges two dims sharded
+    over mesh dims of more than one rank, or merges a group of dims whose
+    sharded dim is not its outermost; any op taking a `_StridedShard`
+    placement (what such a view gives); and `constant_pad_nd` of a
+    DTensor (its redistribute planner fails there)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.placement_types import _StridedShard
+
+    name = func.__name__.split(".")[0]
+    tensors = [a for a in _pytree.tree_leaves((args, kwargs or {}))
+               if isinstance(a, DTensor)]
+    for t in tensors:
+        if any(isinstance(pl, _StridedShard) for pl in t.placements):
+            return f"{func} takes {tuple(t.placements)}"
+    if name == "constant_pad_nd" and tensors:
+        return f"{func} pads a DTensor {tuple(tensors[0].placements)}"
+    if name not in _VIEWS or not isinstance(args[0], DTensor):
+        return None
+    x = args[0]
+    mesh = x.device_mesh
+    sharded = {pl.dim for m, pl in enumerate(x.placements)
+               if pl.is_shard() and mesh.size(m) > 1}
+    dst = list(args[1])
+    if -1 in dst:
+        known = 1
+        for n in dst:
+            known *= n if n != -1 else 1
+        dst[dst.index(-1)] = x.numel() // known
+    for group in _view_groups(list(x.shape), dst):
+        hit = [d for d in group if d in sharded]
+        if len(hit) > 1 or (hit and hit[0] != group[0]):
+            return (f"{func} merges dims {group} of {tuple(x.shape)} "
+                    f"{tuple(x.placements)} into {tuple(dst)}")
+    return None
+
+
 class CollectiveBytes(TorchDispatchMode):
     """Output bytes on this rank of the collectives the ops issue while
     active, by the reference's kinds (`bytes`) and by kind and process
@@ -165,7 +242,12 @@ class CollectiveBytes(TorchDispatchMode):
     DTensor's shard-to-shard all-to-all and c10d's own (a c10d op's output
     is the tensors it fills: a send's bytes are counted where they are
     received). Any other op of those namespaces raises: no collective goes
-    uncounted."""
+    uncounted.
+
+    It also lists the ops on DTensors that torch 2.11 refuses
+    (`refused`, `refused_sharding`'s reasons): a mode sees an op on
+    DTensors only when it is the innermost, and this one is, since it
+    hands such ops to DTensor's dispatch."""
 
     def __init__(self):
         from torch.distributed.tensor import DTensor
@@ -174,10 +256,14 @@ class CollectiveBytes(TorchDispatchMode):
         self.bytes: dict[str, float] = {}
         self.by_group: dict[tuple[str, tuple[int, ...]], float] = {}
         self.gathered: list[tuple[list[int], str, tuple[int, ...]]] = []
+        self.refused: list[str] = []
         self._dtensor = DTensor
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, self._dtensor) for t in types):
+            why = refused_sharding(func, args, kwargs)
+            if why is not None:
+                self.refused.append(why)
             # DTensor's own dispatch runs the op, and the collectives it
             # issues to redistribute the inputs come back here
             return NotImplemented
@@ -354,29 +440,31 @@ def _cell_args(cfg, cell: ShapeCell, mesh, multi_pod: bool,
 
 
 def _meta_runs(cfg, cell: ShapeCell, mesh, multi_pod: bool, optimizer
-               ) -> tuple[float, list, dict]:
+               ) -> tuple[float, list, dict, int]:
     """(flops of one pod's step, which of its argument leaves it reads, by
-    position, rank 0's collective output bytes by kind). The superblock
-    repetitions are identical work, so the step runs on meta at 1 and 2
-    repetitions, plainly for the flops and the reads and as DTensors on
-    `mesh.shard_mesh` for the collectives, and the counts extend linearly
-    to `cfg.n_super`, exactly; the leaves read are the same at any
-    depth."""
+    position, rank 0's collective output bytes by kind, the ops on
+    DTensors torch 2.11 refuses). The superblock repetitions are identical
+    work, so the step runs on meta at 1 and 2 repetitions, plainly for the
+    flops and the reads and as DTensors on `mesh.shard_mesh` for the
+    collectives and the refusals, and the counts extend linearly to
+    `cfg.n_super`, exactly; the leaves read are the same at any depth."""
     runs = []
     for n in ((1, 2) if cfg.n_super > 2 else (cfg.n_super,)):
         part_cfg = dataclasses.replace(cfg, n_super=n)
         part = _cell_args(part_cfg, cell, mesh, multi_pod, optimizer)
         flops, read = _meta_run(part["step"], part["pod_args"])
+        counted = count_step(part_cfg, cell, mesh, optimizer)
         runs.append((flops, [[id(t) in read for t in _leaves(a)]
                              for a in part["pod_args"]],
-                     count_step(part_cfg, cell, mesh, optimizer).bytes))
-    flops, read, coll = runs[0]
+                     counted.bytes, len(counted.refused)))
+    flops, read, coll, refused = runs[0]
     if len(runs) == 2:
         flops += (cfg.n_super - 1) * (runs[1][0] - flops)
+        refused += (cfg.n_super - 1) * (runs[1][3] - refused)
         coll = {k: coll.get(k, 0.0) + (cfg.n_super - 1) * (
             runs[1][2].get(k, 0.0) - coll.get(k, 0.0))
             for k in KINDS if k in coll or k in runs[1][2]}
-    return flops, read, coll
+    return flops, read, coll, refused
 
 
 def dryrun_cell(arch: str, cell: ShapeCell, multi_pod: bool,
@@ -405,7 +493,7 @@ def dryrun_cell(arch: str, cell: ShapeCell, multi_pod: bool,
 
     t1 = time.time()
     with placeholder_group(mesh.size) as group:
-        flops, read, collectives = _meta_runs(
+        flops, read, collectives, refused = _meta_runs(
             cfg, cell, make_production_mesh(multi_pod=multi_pod, group=group),
             multi_pod, optimizer)
     rec["compile_s"] = round(time.time() - t1, 1)
@@ -452,6 +540,8 @@ def dryrun_cell(arch: str, cell: ShapeCell, multi_pod: bool,
     rec["cost"] = {"flops": flops / built["run_devices"]}
     rec["collectives"] = collectives
     rec["hlo_collective_op_counts"] = None
+    # the port's own: ops on DTensors torch 2.11 refuses (0 to build there)
+    rec["sharding_refusals"] = refused
     rec["bytes_per_device"] = float(arg_bytes
                                     + max(out_bytes - alias_bytes, 0))
     rec["devices"] = mesh.size
@@ -459,8 +549,8 @@ def dryrun_cell(arch: str, cell: ShapeCell, multi_pod: bool,
         print(f"[dryrun] {arch} {cell.name} {mesh_name}: "
               f"build {rec['lower_s']}s meta run {rec['compile_s']}s  "
               f"mem/dev {rec['bytes_per_device'] / 2 ** 30:.2f} GiB "
-              f"(no temporaries)  flops {rec['cost']['flops']:.3g}",
-              flush=True)
+              f"(no temporaries)  flops {rec['cost']['flops']:.3g}  "
+              f"refused {refused}", flush=True)
     if save:
         RESULTS.mkdir(parents=True, exist_ok=True)
         fname = RESULTS / f"{arch}__{cell.name}__{mesh_name}.json"
@@ -509,10 +599,15 @@ def main(argv=None) -> int:
         if args.single_pod_only and mp:
             continue
         try:
-            dryrun_cell(arch, cell, mp, save=not args.no_save)
+            rec = dryrun_cell(arch, cell, mp, save=not args.no_save)
         except Exception:  # noqa: BLE001 -- reported, then counted
             failures.append((arch, cell.name, mp))
             traceback.print_exc()
+            continue
+        if rec["sharding_refusals"]:  # builds here, not on torch 2.11
+            print(f"[dryrun] {arch} {cell.name}: {rec['sharding_refusals']} "
+                  f"ops on DTensors that torch 2.11 refuses")
+            failures.append((arch, cell.name, mp))
     if failures:
         print(f"[dryrun] FAILURES: {failures}")
         return 1

@@ -20,9 +20,10 @@ before P·V, as the reference casts.
 On a sharded pod (DTensor parameters and activations) GQA, MLA and the
 cross-attention take the reference's sharding constraints
 (`runtime.sharding.constrain`: q, k and v sequence-parallel, then k and v
-over their heads; the encoder over its tokens), the projections gathered
-over 'model' (MLA's on each rank's own tokens under `local_map`,
-`_mla_qkv_sharded`), and the causal attention and the cross-attention's
+over their heads; the encoder over its tokens), every projection runs on
+each rank's local shards (`runtime.sharding.project`: its own tokens by
+the weights gathered whole, a decode step's token by the weights' shards
+where they lie), and the causal attention and the cross-attention's
 softmax run on each rank's own rows and kv heads under `local_map`
 (`_on_local_heads`); on one device none of this changes a bit.
 
@@ -53,8 +54,7 @@ from repro_torch import resolve_device_or_meta
 from repro_torch.compress import prng
 from repro_torch.models.common import (ModelConfig, apply_rope, p,
                                        promoted_einsum, pz, rms_norm)
-from repro_torch.runtime.sharding import (constrain, gather_axis, is_dtensor,
-                                          rules_active)
+from repro_torch.runtime.sharding import constrain, is_dtensor, project
 
 PyTree = Any
 
@@ -82,28 +82,14 @@ def gqa_init(key: prng.Key, cfg: ModelConfig) -> PyTree:
     return prm
 
 
-def _head_dim_sharded(w) -> bool:
-    """A DTensor projection whose last dimension (the head dim) is
-    sharded: its heads do not divide the model axis, and an einsum over it
-    cannot split its output back into heads."""
-    return is_dtensor(w) and any(pl.is_shard(w.ndim - 1)
-                                 for pl in w.placements)
-
-
-def _qkv(prm, x, cfg: ModelConfig, positions, seq_parallel: bool = True):
-    if rules_active():
-        # sharded: the projections gathered over 'model' as well, so each
-        # rank projects its own tokens (q, k and v come out
-        # sequence-parallel); a decode's one token is projected by each
-        # rank's own heads instead (seq_parallel=False), but a projection
-        # whose head dim is sharded is gathered over 'model' there too
-        prm = dict(prm, **gather_axis(
-            {k: prm[k] for k in ("wq", "wk", "wv", "bq", "bk", "bv")
-             if k in prm and (seq_parallel or _head_dim_sharded(prm[k]))},
-            "model"))
-    q = torch.einsum("bsd,dhk->bshk", x, prm["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, prm["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, prm["wv"])
+def _qkv(prm, x, cfg: ModelConfig, positions, keep_weights: bool = False):
+    # sharded, on each rank's local shards (`project`): each rank projects
+    # its own tokens by the weights gathered whole (q, k and v come out
+    # sequence-parallel); a decode step's token (keep_weights) meets the
+    # weights' shards where they lie, the head dims' (heads, head dim)
+    # flattened on local tensors either way
+    q, k, v = project("bsd,dhk->bshk", x, prm["wq"], prm["wk"], prm["wv"],
+                      keep_weights=keep_weights)
     if cfg.qkv_bias:
         q, k, v = q + prm["bq"], k + prm["bk"], v + prm["bv"]
     q = apply_rope(q, positions, cfg.rope_theta)
@@ -219,7 +205,7 @@ def gqa_apply(prm, x, cfg: ModelConfig, positions) -> torch.Tensor:
     h = rms_norm(x, prm["norm"])
     q, k, v = _qkv(prm, h, cfg, positions)
     out = _sdpa_causal(q, k, v)
-    out = torch.einsum("bshk,hkd->bsd", out, prm["wo"])
+    out = project("bshk,hkd->bsd", out, prm["wo"])
     return constrain(out, ("batch", "seq_sp", "embed_act"))
 
 
@@ -426,7 +412,7 @@ def gqa_decode(prm, x, cache, cfg: ModelConfig, pos
     A DTensor cache is attended as it lies (`_gqa_attend_sharded`)."""
     h = rms_norm(x, prm["norm"])
     q, k, v = _qkv(prm, h, cfg, _decode_positions(x, pos),
-                   seq_parallel=False)
+                   keep_weights=True)
     ck = _write_at(cache["k"], pos, k)
     cv = _write_at(cache["v"], pos, v)
     ck = constrain(ck, ("batch", "cache_seq", "kv_heads", "head"))
@@ -435,7 +421,7 @@ def gqa_decode(prm, x, cache, cfg: ModelConfig, pos
         out = _gqa_attend_sharded(q, ck, cv, pos)
     else:
         out = _gqa_attend(q, ck, cv, pos)
-    out = promoted_einsum("bshk,hkd->bsd", out, prm["wo"])
+    out = project("bshk,hkd->bsd", out, prm["wo"], keep_weights=True)
     return constrain(out, ("batch", "seq", "embed_act")), cache
 
 
@@ -510,19 +496,20 @@ def mla_init(key: prng.Key, cfg: ModelConfig) -> PyTree:
     }
 
 
-def _mla_q(prm, h, cfg: ModelConfig, positions):
+def _mla_q(prm, h, cfg: ModelConfig, positions, keep_weights: bool = False):
     qk_nope = cfg.hd
-    ql = torch.einsum("bsd,dq->bsq", h, prm["wq_a"])
+    ql = project("bsd,dq->bsq", h, prm["wq_a"], keep_weights=keep_weights)
     ql = rms_norm(ql, prm["q_norm"])
-    q = torch.einsum("bsq,qhk->bshk", ql, prm["wq_b"])
+    q = project("bsq,qhk->bshk", ql, prm["wq_b"], keep_weights=keep_weights)
     q_nope, q_rope = q[..., :qk_nope], q[..., qk_nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
 
 
-def _mla_kv_latent(prm, h, cfg: ModelConfig, positions):
+def _mla_kv_latent(prm, h, cfg: ModelConfig, positions,
+                   keep_weights: bool = False):
     kvl = cfg.mla_kv_lora
-    kv = torch.einsum("bsd,dq->bsq", h, prm["wkv_a"])
+    kv = project("bsd,dq->bsq", h, prm["wkv_a"], keep_weights=keep_weights)
     c_kv, k_rope = kv[..., :kvl], kv[..., kvl:]
     c_kv = rms_norm(c_kv, prm["kv_norm"])
     # rope over a head axis of one, inserted and taken out again
@@ -537,43 +524,12 @@ def _mla_qkv(prm, h, cfg: ModelConfig, positions):
     shared rope key broadcast to every head)."""
     q_nope, q_rope = _mla_q(prm, h, cfg, positions)
     c_kv, k_rope = _mla_kv_latent(prm, h, cfg, positions)
-    k_nope = torch.einsum("bsq,qhk->bshk", c_kv, prm["wk_b"])
-    v = torch.einsum("bsq,qhk->bshk", c_kv, prm["wv_b"])
+    k_nope, v = project("bsq,qhk->bshk", c_kv, prm["wk_b"], prm["wv_b"])
     B, S, H, _ = q_nope.shape
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     k_full = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, cfg.mla_rope_head_dim)], dim=-1)
     return q_full, k_full, v
-
-
-#: the MLA projections' leaves, in `_mla_qkv_sharded`'s argument order
-_MLA_PROJ = ("wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wk_b", "wv_b")
-
-
-def _mla_qkv_sharded(prm, h, cfg: ModelConfig, positions):
-    """`_mla_qkv` of a sequence-parallel DTensor h on each rank's own
-    tokens (`local_map`): the projections gathered whole (over 'model' as
-    well, as `_qkv` gathers GQA's), so q, k and v come out
-    sequence-parallel, as h lies. Each rank's weight gradients are its
-    tokens' share, a partial sum over the mesh dims h is sharded over."""
-    from torch.distributed.tensor import Partial, Replicate, distribute_tensor
-    from torch.distributed.tensor.experimental import local_map
-
-    mesh = h.device_mesh
-    h_pl = tuple(h.placements)
-    rep = (Replicate(),) * mesh.ndim
-    w_grad = tuple(Partial() if p.is_shard() else Replicate() for p in h_pl)
-    weights = gather_axis(gather_axis([prm[k] for k in _MLA_PROJ], "data"),
-                          "model")
-    positions = distribute_tensor(positions, mesh, h_pl, src_data_rank=None)
-    n = len(_MLA_PROJ)
-
-    def local(h, positions, *w):
-        return _mla_qkv(dict(zip(_MLA_PROJ, w)), h, cfg, positions)
-    return local_map(local, out_placements=(h_pl,) * 3,
-                     in_placements=(h_pl, h_pl) + (rep,) * n,
-                     in_grad_placements=(h_pl, h_pl) + (w_grad,) * n,
-                     device_mesh=mesh)(h, positions, *weights)
 
 
 def mla_apply(prm, x, cfg: ModelConfig, positions) -> torch.Tensor:
@@ -583,21 +539,18 @@ def mla_apply(prm, x, cfg: ModelConfig, positions) -> torch.Tensor:
     1/sqrt(nope + rope), as DeepSeek-V2's. v has its own head dim.
 
     Sharded (DTensors), q, k and v are projected on each rank's own tokens
-    (`_mla_qkv_sharded`), k and v then gathered over the sequence with
-    their heads over 'model' (the reference's constraints), and the
-    attention runs on local shards (`_on_local_heads`)."""
+    (`project`), k and v then gathered over the sequence with their heads
+    over 'model' (the reference's constraints), and the attention runs on
+    local shards (`_on_local_heads`)."""
     h = rms_norm(x, prm["norm"])
-    if is_dtensor(h):
-        q_full, k_full, v = _mla_qkv_sharded(prm, h, cfg, positions)
-    else:
-        q_full, k_full, v = _mla_qkv(prm, h, cfg, positions)
+    q_full, k_full, v = _mla_qkv(prm, h, cfg, positions)
     q_full = constrain(q_full, ("batch", "seq_sp", "q_heads", "head"))
     k_full = constrain(k_full, ("batch", "seq_sp", "q_heads", "head"))
     v = constrain(v, ("batch", "seq_sp", "q_heads", "head"))
     k_full = constrain(k_full, ("batch", None, "q_heads", "head"))
     v = constrain(v, ("batch", None, "q_heads", "head"))
     out = _sdpa_causal(q_full, k_full, v)
-    out = torch.einsum("bshk,hkd->bsd", out, prm["wo"])
+    out = project("bshk,hkd->bsd", out, prm["wo"])
     return constrain(out, ("batch", "seq_sp", "embed_act"))
 
 
@@ -625,14 +578,14 @@ def mla_decode(prm, x, cache, cfg: ModelConfig, pos
     attended as they lie (`_mla_attend_sharded`)."""
     h = rms_norm(x, prm["norm"])
     positions = _decode_positions(x, pos)
-    q_nope, q_rope = _mla_q(prm, h, cfg, positions)
-    c_kv, k_rope = _mla_kv_latent(prm, h, cfg, positions)
+    q_nope, q_rope = _mla_q(prm, h, cfg, positions, keep_weights=True)
+    c_kv, k_rope = _mla_kv_latent(prm, h, cfg, positions, keep_weights=True)
     ckv = _write_at(cache["ckv"], pos, c_kv)
     krope = _write_at(cache["krope"], pos, k_rope)
     ckv = constrain(ckv, ("batch", "cache_seq", "kv_lora"))
     krope = constrain(krope, ("batch", "cache_seq", "head"))
     # absorb W_uk: (B,1,H,nope) x (kvl,H,nope) -> (B,H,kvl)
-    q_abs = torch.einsum("bshk,qhk->bhq", q_nope, prm["wk_b"])
+    q_abs = project("bshk,qhk->bhq", q_nope, prm["wk_b"], keep_weights=True)
     scale = 1.0 / _sqrt_hd(cfg.hd + cfg.mla_rope_head_dim, x.device)
     if is_dtensor(ckv):
         ctx = _mla_attend_sharded(q_abs, q_rope[:, 0], ckv, krope, pos,
@@ -644,8 +597,10 @@ def mla_decode(prm, x, cache, cfg: ModelConfig, pos
                                     float("-inf"))
         w = torch.softmax(scores, dim=-1).to(x.dtype)
         ctx = promoted_einsum("bht,btq->bhq", w, ckv)    # latent context
-    out = promoted_einsum("bhq,qhk->bhk", ctx, prm["wv_b"])  # V per head
-    out = promoted_einsum("bhk,hkd->bd", out, prm["wo"])[:, None, :]
+    out = project("bhq,qhk->bhk", ctx, prm["wv_b"],
+                  keep_weights=True)                      # V per head
+    out = project("bhk,hkd->bd", out, prm["wo"], keep_weights=True)[
+        :, None, :]
     return constrain(out, ("batch", "seq", "embed_act")), cache
 
 
@@ -736,7 +691,7 @@ def cross_attn_apply(prm, x, enc, cfg: ModelConfig) -> torch.Tensor:
     Sharded (DTensors), the reference's constraints: enc over its tokens
     ('model'), k and v projected on each rank's encoder shard and then
     gathered over the tokens with their heads over 'model', q
-    sequence-parallel (the projections gathered whole, as `_qkv` gathers
+    sequence-parallel (the projections on local shards, `project`, as
     GQA's); the softmax runs on each rank's rows and kv heads
     (`_on_local_heads`)."""
     h = rms_norm(x, prm["norm"])
@@ -744,13 +699,9 @@ def cross_attn_apply(prm, x, enc, cfg: ModelConfig) -> torch.Tensor:
     # reads it, so that enc=None fails here with the reference's error
     enc.shape
     enc = constrain(enc, ("batch", "enc_tokens", "enc_embed"))
-    if rules_active():
-        prm = dict(prm, **gather_axis({k: prm[k] for k in ("wq", "wk", "wv")},
-                                      "model"))
-    q = torch.einsum("bsd,dhk->bshk", h, prm["wq"])
+    q = project("bsd,dhk->bshk", h, prm["wq"])
     q = constrain(q, ("batch", "seq_sp", "q_heads", "head"))
-    k = promoted_einsum("bne,ehk->bnhk", enc, prm["wk"])
-    v = promoted_einsum("bne,ehk->bnhk", enc, prm["wv"])
+    k, v = project("bne,ehk->bnhk", enc, prm["wk"], prm["wv"])
     k = constrain(k, ("batch", "enc_tokens", "kv_heads", "head"))
     v = constrain(v, ("batch", "enc_tokens", "kv_heads", "head"))
     k = constrain(k, ("batch", None, "kv_heads", "head"))
@@ -759,7 +710,7 @@ def cross_attn_apply(prm, x, enc, cfg: ModelConfig) -> torch.Tensor:
         out = _on_local_heads(_cross_softmax, q, k, v, x.dtype)
     else:
         out = _cross_softmax(q, k, v, x.dtype)
-    out = torch.einsum("bshk,hkd->bsd", out, prm["wo"])
+    out = project("bshk,hkd->bsd", out, prm["wo"])
     out = torch.tanh(prm["gate"].float()).to(x.dtype) * out
     return constrain(out, ("batch", "seq_sp", "embed_act"))
 

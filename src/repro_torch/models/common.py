@@ -27,6 +27,7 @@ from typing import Any, Callable, Sequence
 import torch
 
 from repro_torch.compress import prng
+from repro_torch.runtime.sharding import is_dtensor
 
 PyTree = Any
 
@@ -218,10 +219,58 @@ def split_axes(tree: PyTree) -> tuple[PyTree, PyTree]:
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
              ) -> torch.Tensor:
-    dt = x.dtype
+    if _scale_apart(x, scale):
+        return _rms_norm_local(x, scale, eps)
+    return _scaled(_normed(x, eps), scale, x.dtype)
+
+
+def _normed(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """x over the root mean square of its last dim, in float32."""
     x = x.float()
-    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * (1.0 + scale.float())).to(dt)
+    return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+
+
+def _scaled(normed: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (normed * (1.0 + scale.float())).to(dtype)
+
+
+def _scale_apart(x, scale) -> bool:
+    """A DTensor scale sharded (a decode step's FSDP'd norm, not gathered)
+    beside a DTensor x whose last dim lies whole on every rank."""
+    return (is_dtensor(x) and is_dtensor(scale)
+            and any(pl.is_shard() for pl in scale.placements)
+            and not any(pl.is_shard(x.ndim - 1) for pl in x.placements))
+
+
+def _rms_norm_local(x, scale, eps: float):
+    """`rms_norm` on each rank's local shards (`local_map`), the scale
+    where it lies: each rank normalizes its own rows (their last dim lies
+    whole on it), the normed rows go to the columns of the rank's scale
+    shard (an all-to-all where the rows lie over the scale's mesh dims,
+    a slice where they lie whole), and those columns are scaled; the
+    output sharded on its last dim there, as the projections after it
+    take it. Gradients: the scale's a partial sum over the mesh dims that
+    shard the rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    sp = tuple(scale.placements)
+    rows = tuple(Replicate() if pl.is_partial() else pl
+                 for pl in x.placements)
+    if rows != tuple(x.placements):
+        x = x.redistribute(mesh, rows)
+    normed = local_map(lambda a: _normed(a, eps), out_placements=(rows,),
+                       in_placements=(rows,), device_mesh=mesh)(x)
+    cols = tuple(Shard(x.ndim - 1) if s.is_shard() else pl
+                 for pl, s in zip(rows, sp))
+    s_grad = tuple(s if s.is_shard() else Partial() if pl.is_shard()
+                   else Replicate() for pl, s in zip(cols, sp))
+    return local_map(lambda a, b: _scaled(a, b, x.dtype),
+                     out_placements=(cols,), in_placements=(cols, sp),
+                     in_grad_placements=(cols, s_grad),
+                     device_mesh=mesh)(normed.redistribute(mesh, cols),
+                                       scale)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -4,8 +4,9 @@ Mixture-of-Experts FFN with shared experts and top-k token-choice routing
 (`moe_init`, `_dispatch_indices`, `_moe_grouped`, `moe_apply`,
 `moe_aux_loss`). The dense FFN takes the reference's sequence-parallel
 and Megatron TP layouts (`cfg.mlp_tp`) through `runtime.sharding.constrain`
-when its tensors are DTensors (a sharded pod) and is unchanged on one
-device. So does the MoE: its dispatch groups go over 'data' and its
+when its tensors are DTensors (a sharded pod), its products on local
+shards (`runtime.sharding.project`), and is unchanged on one device. So
+does the MoE: its dispatch groups go over 'data' and its
 experts over 'model' (the reference's constraints), the integer routing
 and each rank's experts run on local shards (`_moe_grouped_sharded`), and
 the output goes back to ("batch", "seq", "embed_act"). Inference's one
@@ -41,7 +42,8 @@ import torch
 from repro_torch.compress import prng
 from repro_torch.compress.base import _top_indices
 from repro_torch.models.common import ModelConfig, p, pz, rms_norm
-from repro_torch.runtime.sharding import constrain, gather_axis, is_dtensor
+from repro_torch.runtime.sharding import (constrain, gather_axis, is_dtensor,
+                                          project)
 
 PyTree = Any
 
@@ -61,42 +63,38 @@ def mlp_init(key: prng.Key, cfg: ModelConfig, d_ff: int | None = None
     return prm
 
 
-def _ffn(prm, h, cfg: ModelConfig):
+def _ffn(prm, h, cfg: ModelConfig, keep_weights: bool = False):
     # sequence-parallel by default (each rank runs the full d_ff for its
     # token shard), or, under cfg.mlp_tp, the Megatron split: d_ff over
-    # 'model', the tokens gathered (the reference's two layouts)
+    # 'model', the tokens gathered (the reference's two layouts); sharded,
+    # the products run on local shards (`project`: a decode step's token,
+    # keep_weights, meets the FFN's shards where they lie)
     tok_axes = (("batch", "seq", "embed_act") if cfg.mlp_tp
                 else ("batch", "seq_sp", "embed_act"))
     act_axes = (("batch", "seq", "mlp") if cfg.mlp_tp
                 else ("batch", "seq_sp", None))
     h = constrain(h, tok_axes)
-    if not cfg.mlp_tp and _seq_sharded(h):
-        # sharded: each rank holds the whole FFN for its tokens (a
-        # decode's one token, whole on every rank, meets the FFN's d_ff
-        # shards where they lie)
-        prm = gather_axis(prm, "model")
-    up = torch.einsum("bsd,df->bsf", h, prm["w_up"])
     if cfg.mlp_act == "swiglu":
-        gate = torch.einsum("bsd,df->bsf", h, prm["w_gate"])
+        up, gate = project("bsd,df->bsf", h, prm["w_up"], prm["w_gate"],
+                           keep_weights=keep_weights)
         act = torch.nn.functional.silu(gate) * up
-    elif cfg.mlp_act == "squared_relu":
-        r = torch.clamp(up, min=0.0)
-        act = r * r
     else:
-        act = torch.nn.functional.gelu(up, approximate="tanh")
+        up = project("bsd,df->bsf", h, prm["w_up"], keep_weights=keep_weights)
+        if cfg.mlp_act == "squared_relu":
+            r = torch.clamp(up, min=0.0)
+            act = r * r
+        else:
+            act = torch.nn.functional.gelu(up, approximate="tanh")
     act = constrain(act, act_axes)
-    return torch.einsum("bsf,fd->bsd", act, prm["w_down"])
+    return project("bsf,fd->bsd", act, prm["w_down"],
+                   keep_weights=keep_weights)
 
 
-def _seq_sharded(h) -> bool:
-    """True for a DTensor whose sequence (dim 1) lies over some mesh dim."""
-    return is_dtensor(h) and any(p.is_shard(1) for p in h.placements)
-
-
-def mlp_apply(prm, x, cfg: ModelConfig, d_ff: int | None = None
-              ) -> torch.Tensor:
+def mlp_apply(prm, x, cfg: ModelConfig, d_ff: int | None = None,
+              keep_weights: bool = False) -> torch.Tensor:
     h = rms_norm(x, prm["norm"])
-    return constrain(_ffn(prm, h, cfg), ("batch", "seq_sp", "embed_act"))
+    return constrain(_ffn(prm, h, cfg, keep_weights),
+                     ("batch", "seq_sp", "embed_act"))
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +152,13 @@ def _route(tokens: torch.Tensor, router: torch.Tensor, top_k: int
     """(gates, ids), each (G, Nl, K): the router in float32, its softmax,
     the top K by a stable descending sort (ties to the lower expert, as
     `lax.top_k`), the picked probabilities renormalized to sum to 1."""
-    logits = torch.einsum("gnd,de->gne", tokens.float(), router)
+    return _top_gates(torch.einsum("gnd,de->gne", tokens.float(), router),
+                      top_k)
+
+
+def _top_gates(logits: torch.Tensor, top_k: int
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_route` from the router's logits (G, Nl, E)."""
     probs = torch.softmax(logits, dim=-1)
     ids = _top_indices(probs.detach(), top_k)
     gates = torch.gather(probs, -1, ids)
@@ -163,7 +167,7 @@ def _route(tokens: torch.Tensor, router: torch.Tensor, top_k: int
 
 
 def _moe_grouped(tokens, router, w_up, w_gate, w_down, cfg: ModelConfig,
-                 capacity: int):
+                 capacity: int, keep_weights: bool = False):
     """Route and run experts for G dispatch groups. tokens: (G, Nl, D).
 
     Dispatch is a gather: a 1-D index scatter per group builds the inverse
@@ -173,7 +177,7 @@ def _moe_grouped(tokens, router, w_up, w_gate, w_down, cfg: ModelConfig,
     DTensor tokens (a sharded pod) take `_moe_grouped_sharded`."""
     if is_dtensor(tokens):
         return _moe_grouped_sharded(tokens, router, w_up, w_gate, w_down,
-                                    cfg, capacity)
+                                    cfg, capacity, keep_weights)
     gates, ids = _route(tokens, router, cfg.moe_top_k)
     dest, expert_out = _dispatch_experts(tokens, ids, w_up, w_gate, w_down,
                                          cfg, capacity, 0)
@@ -239,15 +243,18 @@ def _combine(expert_out, gates, dest, dtype):
 
 
 def _moe_grouped_sharded(tokens, router, w_up, w_gate, w_down,
-                         cfg: ModelConfig, capacity: int):
+                         cfg: ModelConfig, capacity: int,
+                         keep_weights: bool = False):
     """`_moe_grouped` of DTensors: tokens (G, Nl, D) with the groups over
     'data' and whole over 'model' (the reference's ("batch", None,
     "embed_act")), the experts' weights over 'model' ("experts").
 
     Three steps run on each rank's local shards (`local_map`), each
     declaring its gradients' placements: the routing (the router gathered
-    whole, the same on every model rank; its gradient a partial sum over
-    the data ranks' groups), the dispatch and the rank's own experts (the
+    whole in one redistribute, the same on every model rank; its gradient
+    a partial sum over the data ranks' groups; inference's one group
+    takes the router's logits by `project` instead, the router where it
+    lies), the dispatch and the rank's own experts (the
     expert inputs gathered from the rank's slots alone, so the tokens'
     gradient is a partial sum over 'model' and the weights' over 'data'),
     and the combine, after the expert outputs are gathered over 'model'
@@ -262,20 +269,30 @@ def _moe_grouped_sharded(tokens, router, w_up, w_gate, w_down,
     # a gradient summed over the mesh dims whose ranks hold other groups
     over_groups = tuple(Partial() if p.is_shard() else Replicate()
                         for p in t_pl)
-    router = gather_axis(gather_axis(router, "data"), "model")
-    gates, ids = local_map(
-        _route, out_placements=(t_pl, t_pl), in_placements=(t_pl, rep, None),
-        in_grad_placements=(t_pl, over_groups, None),
-        device_mesh=mesh)(tokens, router, cfg.moe_top_k)
-
     m = mesh.mesh_dim_names.index("model")
     d = mesh.mesh_dim_names.index("data")
+    one_group = (keep_weights and not t_pl[d].is_shard()
+                 and w_up.placements[d].is_shard(1))
+    if one_group:
+        logits = project("gnd,de->gne", tokens.float(), router,
+                         keep_weights=True).redistribute(mesh, t_pl)
+        gates, ids = local_map(
+            _top_gates, out_placements=(t_pl, t_pl),
+            in_placements=(t_pl, None), device_mesh=mesh)(logits,
+                                                          cfg.moe_top_k)
+    else:
+        router = gather_axis(router, ("data", "model"))
+        gates, ids = local_map(
+            _route, out_placements=(t_pl, t_pl),
+            in_placements=(t_pl, rep, None),
+            in_grad_placements=(t_pl, over_groups, None),
+            device_mesh=mesh)(tokens, router, cfg.moe_top_k)
+
     E = cfg.moe_experts
     first = 0
     if w_up.placements[m].is_shard():
         first = mesh.get_local_rank(m) * (E // mesh.size(m))
-    if (not torch.is_grad_enabled() and not t_pl[d].is_shard()
-            and w_up.placements[d].is_shard(1)):
+    if one_group:
         return _moe_one_group(tokens, gates, ids, w_up, w_gate, w_down, cfg,
                               capacity, first)
     weights = gather_axis((w_up, w_gate, w_down), "data")
@@ -351,7 +368,8 @@ def moe_capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
                         // E)))
 
 
-def moe_apply(prm, x, cfg: ModelConfig, groups: int = 1) -> torch.Tensor:
+def moe_apply(prm, x, cfg: ModelConfig, groups: int = 1,
+              keep_weights: bool = False) -> torch.Tensor:
     """Token-choice top-k MoE with fixed capacity and optional shared
     experts. x: (B,S,D). `groups` partitions the tokens into independent
     dispatch groups, each with its own capacity buffer (the reference's
@@ -366,10 +384,10 @@ def moe_apply(prm, x, cfg: ModelConfig, groups: int = 1) -> torch.Tensor:
     tokens = constrain(tokens, ("batch", None, "embed_act"))
     combined = _moe_grouped(tokens, prm["router"], prm["w_up"],
                             prm["w_gate"], prm["w_down"], cfg,
-                            moe_capacity(cfg, Nl))
+                            moe_capacity(cfg, Nl), keep_weights)
     out = _regroup(combined, (B, S, D), ("batch", None, "embed_act"))
     if "shared" in prm:
-        out = out + _ffn(prm["shared"], h, cfg)
+        out = out + _ffn(prm["shared"], h, cfg, keep_weights)
     return constrain(out, ("batch", "seq", "embed_act"))
 
 

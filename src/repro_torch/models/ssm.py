@@ -15,7 +15,10 @@ the SSD matmul form. These are plain torch ops under autograd, as the
 reference runs its mixers in XLA: the models call neither K5
 (`kernels/ssd_scan.py`) nor K6 (`kernels/selective_scan.py`), which have
 no backward. On a sharded replica Mamba-1's chunks run on each rank's own
-rows and channels (`_m1_scan_local`), not token by token as DTensors.
+rows and channels (`_m1_scan_local`), not token by token as DTensors, and
+Mamba-2's on its rows and heads (`_ssd_local`); the conv runs on each
+rank's rows and channels (`_conv_local`) and the projections on local
+shards (`runtime.sharding.project`).
 
 Rounding follows the reference's casts: the conv in the activations'
 dtype, one tap at a time; `dt` through softplus in float32; the scans in
@@ -49,9 +52,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.compress import prng
 from repro_torch import resolve_device_or_meta
-from repro_torch.models.common import (ModelConfig, leaf_block, p,
-                                       promoted_einsum, pz, rms_norm)
-from repro_torch.runtime.sharding import constrain, is_dtensor
+from repro_torch.models.common import ModelConfig, leaf_block, p, pz, rms_norm
+from repro_torch.runtime.sharding import constrain, is_dtensor, project
 
 PyTree = Any
 
@@ -61,7 +63,10 @@ _CHUNK = 256
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                  ) -> torch.Tensor:
     """Depthwise causal conv. x: (B,S,C); w: (C,K); b: (C,). Each tap is
-    added in x's dtype, in the reference's order."""
+    added in x's dtype, in the reference's order. DTensors run on local
+    shards (`_conv_local`)."""
+    if is_dtensor(x):
+        return _conv_local(x, w, b)
     K = w.shape[1]
     S = x.shape[1]
     pad = F.pad(x, (0, 0, K - 1, 0))
@@ -69,6 +74,32 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     for k in range(K):
         out = out + pad[:, k:k + S, :] * w[:, k]
     return out + b
+
+
+def _conv_local(x, w, b):
+    """`_causal_conv` of DTensors on each rank's own rows and channels
+    (`local_map`): the depthwise conv is elementwise over batch and
+    channels and pads the sequence alone, so x is taken whole along its
+    sequence (and sliced to the taps' channel shards where it lies whole
+    over them), the taps and bias to x's channels. Gradients: the taps'
+    and the bias's a partial sum over the mesh dims that shard x's
+    rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    xp = tuple(pl if pl.is_shard(0) or pl.is_shard(2) else
+               Shard(2) if wp.is_shard(0) else Replicate()
+               for pl, wp in zip(x.placements, w.placements))
+    wl = tuple(Shard(0) if pl.is_shard(2) else Replicate() for pl in xp)
+    w_grad = tuple(Partial() if pl.is_shard(0) else q
+                   for pl, q in zip(xp, wl))
+    return local_map(_causal_conv, out_placements=(xp,),
+                     in_placements=(xp, wl, wl),
+                     in_grad_placements=(xp, w_grad, w_grad),
+                     device_mesh=mesh)(x.redistribute(mesh, xp),
+                                       w.redistribute(mesh, wl),
+                                       b.redistribute(mesh, wl))
 
 
 def _conv_step(x_t: torch.Tensor, conv_state: torch.Tensor,
@@ -229,9 +260,9 @@ def mamba1_mix(prm, xz: torch.Tensor, cfg: ModelConfig,
     x = F.silu(_causal_conv(x, prm["conv_w"], prm["conv_b"]))
     x = constrain(x, ("batch", "seq", "ssm_inner"))
 
-    proj = torch.einsum("bsd,dk->bsk", x, prm["x_proj"])
+    proj = project("bsd,dk->bsk", x, prm["x_proj"])
     dt_r, B_, C_ = torch.split(proj, [dt_rank, N, N], dim=-1)
-    dt = softplus(torch.einsum("bsr,rd->bsd", dt_r, prm["dt_w"]).float()
+    dt = softplus(project("bsr,rd->bsd", dt_r, prm["dt_w"]).float()
                   + prm["dt_b"])                              # (B,S,di)
     A = -torch.exp(prm["A_log"])                              # (di,N)
 
@@ -281,10 +312,10 @@ def _m1_scan_local(scan, x, dt, B_, C_, A):
 
 def mamba1_apply(prm, x, cfg: ModelConfig, positions=None) -> torch.Tensor:
     h = rms_norm(x, prm["norm"])
-    xz = torch.einsum("bsd,de->bse", h, prm["in_proj"])
+    xz = project("bsd,de->bse", h, prm["in_proj"])
     xz = constrain(xz, ("batch", "seq", "ssm_inner"))
     y = mamba1_mix(prm, xz, cfg)
-    out = torch.einsum("bse,ed->bsd", y, prm["out_proj"])
+    out = project("bse,ed->bsd", y, prm["out_proj"])
     return constrain(out, ("batch", "seq", "embed_act"))
 
 
@@ -309,18 +340,18 @@ def mamba1_decode(prm, x, cache, cfg: ModelConfig, pos=None):
     _, dt_rank = _m1_dims(cfg)
     N = cfg.ssm_state
     h_in = rms_norm(x[:, 0, :], prm["norm"])
-    xz = torch.einsum("bd,de->be", h_in, prm["in_proj"])
+    xz = project("bd,de->be", h_in, prm["in_proj"], keep_weights=True)
     x_t, z = torch.chunk(xz, 2, dim=-1)
     x_t, conv_state = _conv_step(x_t, cache["conv"], prm["conv_w"],
                                  prm["conv_b"])
     x_t = F.silu(x_t)
-    proj = promoted_einsum("bd,dk->bk", x_t, prm["x_proj"])
+    proj = project("bd,dk->bk", x_t, prm["x_proj"], keep_weights=True)
     # the channels' partial sums reduced here, on (B, dt_rank + 2N): left
     # partial, C_ would have the state gathered over its channels
     proj = constrain(proj, ("batch", None))
     dt_r, B_, C_ = torch.split(proj, [dt_rank, N, N], dim=-1)
-    dt = softplus(promoted_einsum("br,rd->bd", dt_r, prm["dt_w"]).float()
-                  + prm["dt_b"])
+    dt = softplus(project("br,rd->bd", dt_r, prm["dt_w"],
+                          keep_weights=True).float() + prm["dt_b"])
     A = -torch.exp(prm["A_log"])
     dA = torch.exp(dt[..., None] * A)                          # (B,di,N)
     dBx = (dt * x_t.float())[..., None] * B_[:, None, :].float()
@@ -328,7 +359,8 @@ def mamba1_decode(prm, x, cache, cfg: ModelConfig, pos=None):
     y = torch.einsum("bdn,bn->bd", h_new, C_.float())
     y = y + x_t.float() * prm["D_skip"]
     y = y.to(x.dtype) * F.silu(z)
-    out = torch.einsum("be,ed->bd", y, prm["out_proj"])[:, None, :]
+    out = project("be,ed->bd", y, prm["out_proj"], keep_weights=True)[
+        :, None, :]
     _write_state(cache["conv"], conv_state)
     _write_state(cache["h"], h_new)
     return constrain(out, ("batch", "seq", "embed_act")), cache
@@ -454,23 +486,61 @@ def mamba2_mix(prm, zxbcdt: torch.Tensor, cfg: ModelConfig,
     B, S, _ = zxbcdt.shape
     n_chunks, Q = _chunking(S, chunk)
     x = x.reshape(B, S, nheads, P)
-    h0 = torch.zeros((B, nheads, P, N), dtype=torch.float32,
-                     device=zxbcdt.device)
     remat = cfg.remat and torch.is_grad_enabled()
-    y = _run_chunks(_m2_chunk_body(A), h0, (x, dt, B_, C_), Q, n_chunks,
-                    remat)                           # (B,S,H,P)
+
+    def scan(x, dt, B_, C_, A):
+        h0 = torch.zeros((x.shape[0], x.shape[2], P, N), dtype=torch.float32,
+                         device=x.device)
+        return _run_chunks(_m2_chunk_body(A), h0, (x, dt, B_, C_), Q,
+                           n_chunks, remat)          # (B,S,H,P)
+    if is_dtensor(x):
+        y = _ssd_local(scan, x, dt, B_, C_, A)
+    else:
+        y = scan(x, dt, B_, C_, A)
     y = y + x.float() * prm["D_skip"][:, None]
     y = y.reshape(B, S, d_inner)
     # gated RMSNorm (mamba2): norm(y * silu(z))
     return rms_norm(y.to(zxbcdt.dtype) * F.silu(z), prm["gate_norm"])
 
 
+def _ssd_local(scan, x, dt, B_, C_, A):
+    """`scan`, the chunked SSD, on each rank's own rows and heads
+    (`local_map`), as `_m1_scan_local` runs Mamba-1's: the SSD is
+    elementwise over (batch, heads) and contracts B and C over N alone,
+    so each rank scans its rows and heads of x (B,S,H,P) and dt (B,S,H)
+    with B and C (B,S,N) whole over the heads' mesh dims and its slice of
+    A (H,). x is taken whole along its sequence and head dim, and sliced
+    to A's head shards where it lies whole over them. Gradients: B's and
+    C's a partial sum over the mesh dims that shard the heads, A's over
+    those that shard the rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    xp = tuple(pl if pl.is_shard(0) or pl.is_shard(2) else
+               Shard(2) if a.is_shard(0) else Replicate()
+               for pl, a in zip(x.placements, A.placements))
+    rows = tuple(pl.is_shard(0) for pl in xp)
+    heads = tuple(pl.is_shard(2) for pl in xp)
+    bc = tuple(Shard(0) if r else Replicate() for r in rows)
+    a_pl = tuple(Shard(0) if h else Replicate() for h in heads)
+    bc_grad = tuple(Partial() if h else pl for h, pl in zip(heads, bc))
+    a_grad = tuple(Partial() if r else pl for r, pl in zip(rows, a_pl))
+    args = (x.redistribute(mesh, xp), dt.redistribute(mesh, xp),
+            B_.redistribute(mesh, bc), C_.redistribute(mesh, bc),
+            A.redistribute(mesh, a_pl))
+    return local_map(scan, out_placements=(xp,),
+                     in_placements=(xp, xp, bc, bc, a_pl),
+                     in_grad_placements=(xp, xp, bc_grad, bc_grad, a_grad),
+                     device_mesh=mesh)(*args)
+
+
 def mamba2_apply(prm, x, cfg: ModelConfig, positions=None) -> torch.Tensor:
     h = rms_norm(x, prm["norm"])
-    zxbcdt = torch.einsum("bsd,de->bse", h, prm["in_proj"])
+    zxbcdt = project("bsd,de->bse", h, prm["in_proj"])
     zxbcdt = constrain(zxbcdt, ("batch", "seq", "ssm_inner"))
     y = mamba2_mix(prm, zxbcdt, cfg)
-    out = torch.einsum("bse,ed->bsd", y, prm["out_proj"])
+    out = project("bse,ed->bsd", y, prm["out_proj"])
     return constrain(out, ("batch", "seq", "embed_act"))
 
 
@@ -496,7 +566,7 @@ def mamba2_decode(prm, x, cache, cfg: ModelConfig, pos=None):
     d_inner, nheads = _m2_dims(cfg)
     N, P = cfg.ssm_state, cfg.ssm_head_dim
     h_in = rms_norm(x[:, 0, :], prm["norm"])
-    zxbcdt = torch.einsum("bd,de->be", h_in, prm["in_proj"])
+    zxbcdt = project("bd,de->be", h_in, prm["in_proj"], keep_weights=True)
     z, xBC, dt_raw = torch.split(zxbcdt, [d_inner, d_inner + 2 * N, nheads],
                                  dim=-1)
     xBC, conv_state = _conv_step(xBC, cache["conv"], prm["conv_w"],
@@ -513,7 +583,8 @@ def mamba2_decode(prm, x, cache, cfg: ModelConfig, pos=None):
     y = y + x_t * prm["D_skip"][:, None]
     y = y.reshape(-1, d_inner)
     y = rms_norm(y.to(x.dtype) * F.silu(z), prm["gate_norm"])
-    out = torch.einsum("be,ed->bd", y, prm["out_proj"])[:, None, :]
+    out = project("be,ed->bd", y, prm["out_proj"], keep_weights=True)[
+        :, None, :]
     _write_state(cache["conv"], conv_state)
     _write_state(cache["h"], h_new)
     return constrain(out, ("batch", "seq", "embed_act")), cache

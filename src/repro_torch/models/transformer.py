@@ -20,9 +20,12 @@ tensor and no per-layer slice of a stacked leaf scatters into a zero
 tensor of the whole stack on the backward pass).
 
 A sharded pod's leaves are DTensors: each block's parameters are
-gathered over 'data' where it runs (`runtime.sharding.gather_axis`,
-FSDP; again in the checkpoint's recomputation), and the embedding, the
-block outputs (sequence-parallel) and the logits take the reference's
+gathered over 'data' where it runs (FSDP; again in the checkpoint's
+recomputation), its vectors by `runtime.sharding.gather_axis` and its
+matrices by the products that take them (`runtime.sharding.project`,
+which runs each product on local shards, the weight gathered over every
+mesh dim it needs in one redistribute), and the embedding, the block
+outputs (sequence-parallel) and the logits take the reference's
 constraints; `enc` is then a DTensor too, placed as the batch's "enc"
 field (its rows over 'data'), and the blocks take their own constraints
 (the MoE's, MLA's and the cross-attention's included). On one device
@@ -75,7 +78,7 @@ from repro_torch.models.common import (ModelConfig, cross_entropy_loss, p,
                                        promoted_einsum, pz, rms_norm,
                                        split_axes)
 from repro_torch.runtime.sharding import (constrain, gather_axis, is_dtensor,
-                                        local_block)
+                                          local_block, project)
 
 PyTree = Any
 
@@ -129,18 +132,22 @@ def _mixer_apply(kind: str, prm, x, cfg: ModelConfig, positions, shared,
 
 
 def _ffn_apply(kind: str, prm, x, cfg: ModelConfig, shared,
-               moe_groups: int):
+               moe_groups: int, keep_weights: bool = False):
     """The FFN after a block's mixer, added to the residual: MoE for the
     "_moe" kinds, the block's dense FFN for "attn", "mla" and "cross_attn",
     the shared FFN for "shared_attn" (when the config has one). mamba1 and
     mamba2 blocks are mixer-only (falcon-mamba has d_ff=0); zamba2's shared
-    block carries the model's single (shared) FFN."""
+    block carries the model's single (shared) FFN. `keep_weights`: a
+    decode step's (`runtime.sharding.project`)."""
     if kind.endswith("_moe"):
-        return x + mlp_mod.moe_apply(prm["moe"], x, cfg, groups=moe_groups)
+        return x + mlp_mod.moe_apply(prm["moe"], x, cfg, groups=moe_groups,
+                                     keep_weights=keep_weights)
     if kind in ("attn", "mla", "cross_attn"):
-        return x + mlp_mod.mlp_apply(prm["mlp"], x, cfg)
+        return x + mlp_mod.mlp_apply(prm["mlp"], x, cfg,
+                                     keep_weights=keep_weights)
     if kind == "shared_attn" and shared.get("mlp") is not None:
-        return x + mlp_mod.mlp_apply(shared["mlp"], x, cfg)
+        return x + mlp_mod.mlp_apply(shared["mlp"], x, cfg,
+                                     keep_weights=keep_weights)
     return x
 
 
@@ -158,12 +165,17 @@ def _shared_attn_apply(lora, shared, x, cfg: ModelConfig, positions):
     shared-block LoRA): the shared attention's output plus a low-rank
     delta of the normed input."""
     base = attn.gqa_apply(shared, x, cfg, positions)
-    h = rms_norm(x, shared["norm"])
-    q_delta = torch.einsum("bsd,dr->bsr", h, lora["lora_q_a"])
-    q_delta = torch.einsum("bsr,rhk->bshk", q_delta, lora["lora_q_b"])
-    o_delta = torch.einsum("bshk,hkr->bsr", q_delta, lora["lora_o_a"])
-    o_delta = torch.einsum("bsr,rd->bsd", o_delta, lora["lora_o_b"])
-    return base + o_delta
+    return base + _lora_delta(lora, rms_norm(x, shared["norm"]))
+
+
+def _lora_delta(lora, h, keep_weights: bool = False):
+    """The shared attention's low-rank delta of the normed input h, each
+    product on local shards when sharded (`project`)."""
+    kw = dict(keep_weights=keep_weights)
+    q_delta = project("bsd,dr->bsr", h, lora["lora_q_a"], **kw)
+    q_delta = project("bsr,rhk->bshk", q_delta, lora["lora_q_b"], **kw)
+    o_delta = project("bshk,hkr->bsr", q_delta, lora["lora_o_a"], **kw)
+    return project("bsr,rd->bsd", o_delta, lora["lora_o_b"], **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +224,7 @@ def _block_decode(kind: str, prm, x, cache, cfg: ModelConfig, pos, shared,
     else:
         raise ValueError(kind)
     x = x + out.to(x.dtype)  # a float32 cache must not promote the carry
-    x = _ffn_apply(kind, prm, x, cfg, shared, moe_groups)
+    x = _ffn_apply(kind, prm, x, cfg, shared, moe_groups, keep_weights=True)
     return constrain(x, ("batch", "seq", "embed_act"))
 
 
@@ -227,7 +239,7 @@ def _cross_decode(prm, x, cache, cfg: ModelConfig):
     'model' under the rules) are attended as they lie: the softmax over
     the tokens split across their ranks (`attention._CacheLayout`)."""
     h = rms_norm(x, prm["norm"])
-    q = torch.einsum("bsd,dhk->bshk", h, prm["wq"])
+    q = project("bsd,dhk->bshk", h, prm["wq"], keep_weights=True)
     ek, ev = cache["ek"], cache["ev"]
     if is_dtensor(ek):
         lay = attn._CacheLayout(ek, contracted=3)
@@ -241,7 +253,7 @@ def _cross_decode(prm, x, cache, cfg: ModelConfig):
                             for pl, lq in zip(q.placements, lay.query)))
     else:
         out = _cross_attend(q, ek, ev, cfg.hd, x.dtype)
-    out = promoted_einsum("bshk,hkd->bsd", out, prm["wo"])
+    out = project("bshk,hkd->bsd", out, prm["wo"], keep_weights=True)
     out = torch.tanh(prm["gate"].float()).to(x.dtype) * out
     return constrain(out, ("batch", "seq", "embed_act")), cache
 
@@ -276,12 +288,8 @@ def _cross_attend(q, ek, ev, hd: int, dtype, lay=None):
 
 def _shared_attn_decode(lora, shared, x, cache, cfg: ModelConfig, pos):
     base, cache = attn.gqa_decode(shared, x, cache, cfg, pos)
-    h = rms_norm(x, shared["norm"])
-    q_delta = torch.einsum("bsd,dr->bsr", h, lora["lora_q_a"])
-    q_delta = torch.einsum("bsr,rhk->bshk", q_delta, lora["lora_q_b"])
-    o_delta = torch.einsum("bshk,hkr->bsr", q_delta, lora["lora_o_a"])
-    o_delta = torch.einsum("bsr,rd->bsd", o_delta, lora["lora_o_b"])
-    return base + o_delta, cache
+    return base + _lora_delta(lora, rms_norm(x, shared["norm"]),
+                              keep_weights=True), cache
 
 
 # ---------------------------------------------------------------------------
@@ -447,13 +455,25 @@ def _reduced(x):
 
 
 def _unembed(params, x, cfg: ModelConfig, fsdp: bool = True):
+    """The logits: the head gathered whole over the batch's ranks by
+    `project` (with `fsdp`), or met where it lies by a decode step's
+    tokens (the final norm then left where it lies too)."""
     x = constrain(x, ("batch", "seq", "embed_act"))  # one sequence gather
-    gather = gather_axis if fsdp else (lambda t: t)
-    x = rms_norm(x, gather(params["final_norm"]))
-    head = gather(params["embed"].T if cfg.tie_embeddings
-                  else params["lm_head"])
-    logits = torch.einsum("bsd,dv->bsv", x, head)
+    norm = gather_axis(params["final_norm"]) if fsdp else params["final_norm"]
+    x = rms_norm(x, norm)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = project("bsd,dv->bsv", x, head, keep_weights=not fsdp)
     return constrain(logits, ("batch", "seq", "vocab"))
+
+
+def _vectors_gathered(tree: PyTree) -> PyTree:
+    """A layer's FSDP gather over 'data': its vectors (the norms' scales)
+    gathered here; its matrices are gathered by the products that take
+    them (`project`, and the MoE's own), each in one redistribute with
+    the other mesh dims it needs, so that each gradient comes back in
+    one reduce-scatter."""
+    return _map_leaves(lambda t: gather_axis(t) if is_dtensor(t)
+                       and t.ndim == 1 else t, tree)
 
 
 def _layer(tree: PyTree, j: int) -> PyTree:
@@ -478,8 +498,8 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     def block(x, kind, prm):
         # FSDP: a layer's parameters gathered over 'data' where it runs
         # (again in the backward's recomputation)
-        return _block_apply(kind, gather_axis(prm), x, cfg, positions,
-                            gather_axis(shared), enc, moe_groups)
+        return _block_apply(kind, _vectors_gathered(prm), x, cfg, positions,
+                            _vectors_gathered(shared), enc, moe_groups)
 
     for i, kind in enumerate(cfg.prologue):
         if remat:
@@ -566,8 +586,9 @@ def decode_step(params, cache, tokens: torch.Tensor, pos, cfg: ModelConfig,
     position, an int or a 0-d integer tensor, shared by the batch. Writes
     every block's new state into `cache` in place and returns (logits
     (B,1,V), cache): the same tensors. On a sharded replica (DTensors)
-    each block's parameters are gathered over 'data' where it runs, as in
-    `forward`, and each cache is written where it lies."""
+    every parameter stays where it lies (the products' partial sums
+    reduced, `project(keep_weights=True)`), and each cache is written
+    where it lies."""
     x = _embed(params, tokens, cfg, fsdp=False)
     shared = {"attn": params.get("shared_attn"),
               "mlp": params.get("shared_mlp")}

@@ -33,6 +33,7 @@ import sys
 import threading
 from typing import Any, Sequence
 
+import torch
 import torch.utils._pytree as _pytree
 
 PyTree = Any
@@ -206,27 +207,131 @@ def constrain(x, axes: Sequence[str | None]):
     return x.redistribute(x.device_mesh, placements)
 
 
-def gather_axis(tree: PyTree, axis: str = "data") -> PyTree:
+def gather_axis(tree: PyTree, axis: str | tuple[str, ...] = "data"
+                ) -> PyTree:
     """Every DTensor leaf of `tree` gathered over the mesh dimension `axis`
-    (its placement there made `Replicate()`, the others kept), anything
-    else as it is: the FSDP gather of a layer's parameters before use.
-    Its backward reduce-scatters the gradients back to the parameters'
-    placements. Without installed rules the tree comes back as it is."""
+    (or each of a tuple of them, in one redistribute: their placements
+    made `Replicate()`, the others kept), anything else as it is: the FSDP
+    gather of a layer's parameters before use. Its backward
+    reduce-scatters the gradients back to the parameters' placements.
+    Without installed rules the tree comes back as it is."""
     if not rules_active():
         return tree
     from torch.distributed.tensor import Replicate
 
+    axes = (axis,) if isinstance(axis, str) else axis
+
     def one(t):
-        if not is_dtensor(t) or axis not in (t.device_mesh.mesh_dim_names
-                                             or ()):
+        if not is_dtensor(t):
             return t
-        m = t.device_mesh.mesh_dim_names.index(axis)
-        if t.placements[m].is_replicate():
+        names = t.device_mesh.mesh_dim_names or ()
+        placements = [Replicate() if n in axes else pl
+                      for n, pl in zip(names, t.placements)]
+        if placements == list(t.placements):
             return t
-        placements = list(t.placements)
-        placements[m] = Replicate()
         return t.redistribute(t.device_mesh, placements)
     return _pytree.tree_map(one, tree)
+
+
+def _einsum(eq: str, x, w):
+    """`torch.einsum(eq, x, w)` in the operands' promoted dtype, as jax
+    promotes them (an operand already in it is taken as it is)."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return torch.einsum(eq, x.to(dt), w.to(dt))
+
+
+def project(eq: str, x, *weights, keep_weights: bool = False):
+    """The product `einsum(eq, x, w)` of an activation `x` with a weight
+    `w` (dtypes promoted, `_einsum`), or a tuple of them, one for each of
+    several weights that take the same x. On plain tensors it is that
+    einsum. On DTensors it runs on each rank's local shards (`local_map`),
+    so DTensor never views a sharded product, and each mesh dim decides
+    one of these layouts:
+
+      * x's token dims (labels of x and the output alone) sharded there:
+        the weight whole there, its gradient a partial sum over the ranks'
+        tokens; with `keep_weights` (a decode step's few tokens) x is
+        gathered there instead wherever the weight is sharded;
+      * x sharded on a dim it shares with the weight: the weight sliced to
+        match (or as it lies), the output sharded on that dim, or a
+        partial sum where it is contracted;
+      * x whole there: the weight as it lies; an output dim of the weight
+        sharded gives the output so sharded (x's gradient a partial sum),
+        a contracted dim sharded slices x to match (a partial sum out).
+
+    x's partial sums are reduced first, and x is redistributed once for
+    the weights that need the same layout of it. Each weight goes from
+    its stored placements to these in one redistribute, whose backward
+    takes its gradient back in one too (the token ranks' partial sums
+    reduce-scattered over every mesh dim at once)."""
+    if not (is_dtensor(x) and all(is_dtensor(w) for w in weights)):
+        out = tuple(_einsum(eq, x, w) for w in weights)
+        return out[0] if len(out) == 1 else out
+    from torch.distributed.tensor.experimental import local_map
+
+    ins, lo = eq.replace(" ", "").split("->")
+    lx, lw = ins.split(",")
+    mesh = x.device_mesh
+    laid = {}                      # x in each layout the weights ask for
+    out = []
+    for w in weights:
+        x_to, w_to, o_pl, x_grad, w_grad = _layouts(
+            lx, lw, lo, x.placements, w.placements, keep_weights)
+        if x_to not in laid:
+            laid[x_to] = (x if x_to == tuple(x.placements)
+                          else x.redistribute(mesh, x_to))
+        if w_to != tuple(w.placements):
+            w = w.redistribute(mesh, w_to)
+        out.append(local_map(lambda a, b: _einsum(eq, a, b),
+                             out_placements=(o_pl,),
+                             in_placements=(x_to, w_to),
+                             in_grad_placements=(x_grad, w_grad),
+                             device_mesh=mesh)(laid[x_to], w))
+    return out[0] if len(out) == 1 else tuple(out)
+
+
+def _layouts(lx: str, lw: str, lo: str, x_pl, w_pl, keep_weights: bool):
+    """`project`'s placements of one product, mesh dim by mesh dim, from
+    the labels of x, the weight and the output: (x's, the weight's, the
+    output's, x's gradient's, the weight's gradient's)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    x_to = [Replicate() if pl.is_partial() else pl for pl in x_pl]
+    w_to = list(w_pl)
+    out, x_grad, w_grad = [], [], []
+    for m in range(len(x_to)):
+        a = lx[x_to[m].dim] if x_to[m].is_shard() else None
+        b = lw[w_to[m].dim] if w_to[m].is_shard() else None
+        if a is not None and a not in lw and a in lo:        # a token dim
+            if not (keep_weights and b is not None):
+                w_to[m] = Replicate()
+                out.append(Shard(lo.index(a)))
+                x_grad.append(x_to[m])
+                w_grad.append(Partial())
+                continue
+            a = None
+        elif a is not None and (a not in lw or b not in (None, a)):
+            a = None      # summed in x alone, or the weight sharded apart
+        if a is not None:                                    # shared dim
+            w_to[m] = Shard(lw.index(a))
+            out.append(Shard(lo.index(a)) if a in lo else Partial())
+            x_grad.append(x_to[m])
+            w_grad.append(w_to[m])
+            continue
+        x_to[m] = Replicate()
+        if b is None:
+            out.append(Replicate())
+            x_grad.append(Replicate())
+        elif b not in lx:                                    # w's output
+            out.append(Shard(lo.index(b)) if b in lo else Partial())
+            x_grad.append(Partial())
+        else:                                  # x sliced to w's shard
+            x_to[m] = Shard(lx.index(b))
+            out.append(Shard(lo.index(b)) if b in lo else Partial())
+            x_grad.append(x_to[m])
+        w_grad.append(w_to[m])
+    return (tuple(x_to), tuple(w_to), tuple(out), tuple(x_grad),
+            tuple(w_grad))
 
 
 def cut(t, device_mesh, placements):

@@ -400,6 +400,7 @@ def _block_case(case: str, payload: dict) -> dict:
     import dataclasses
 
     from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.compress import prng
     from repro_torch.launch.mesh import make_mesh
@@ -444,21 +445,24 @@ def _block_case(case: str, payload: dict) -> dict:
             leaves, spec = _pytree.tree_flatten(prm)
             leaves = [t.detach().requires_grad_() for t in leaves]
             block = _pytree.tree_unflatten(leaves, spec)
-            if kind == "moe":
-                with _recorded_choices() as choices:
-                    y = mlp.moe_apply(sh.gather_axis(block), x, cfg,
-                                      groups=2)
-                out["choices"] = [c.tolist() for c in choices]
-            elif kind == "mamba1":  # rows over 'data', channels over 'model'
-                y = ssm.mamba1_apply(sh.gather_axis(block), x, cfg)
-            else:
-                S = x.shape[1]
-                y = attention.mla_apply(sh.gather_axis(block), x, cfg,
-                                        torch.arange(S).expand(x.shape[0],
-                                                               S))
-            w = distribute_tensor(torch.from_numpy(
-                arrays[f"{case}/w"].copy()), dm, y.placements)
-            got = torch.autograd.grad((y * w).sum(), leaves + [x])
+            # plain positions and rope tables beside DTensors, forward and
+            # backward, as the launcher's steps run a block
+            with implicit_replication():
+                if kind == "moe":
+                    with _recorded_choices() as choices:
+                        y = mlp.moe_apply(sh.gather_axis(block), x, cfg,
+                                          groups=2)
+                    out["choices"] = [c.tolist() for c in choices]
+                elif kind == "mamba1":  # rows over data, channels over model
+                    y = ssm.mamba1_apply(sh.gather_axis(block), x, cfg)
+                else:
+                    S = x.shape[1]
+                    y = attention.mla_apply(sh.gather_axis(block), x, cfg,
+                                            torch.arange(S).expand(x.shape[0],
+                                                                   S))
+                w = distribute_tensor(torch.from_numpy(
+                    arrays[f"{case}/w"].copy()), dm, y.placements)
+                got = torch.autograd.grad((y * w).sum(), leaves + [x])
             got = [g.redistribute(t.device_mesh, t.placements)
                    for g, t in zip(got, leaves + [x])]
             out["out"] = y.full_tensor().detach().numpy()
@@ -619,6 +623,7 @@ def _serve_case(rank, payload, case) -> dict:
                       (v.to_local().shape,))]
     out["cache_placements"] = {k: _placement_names(v)
                                for k, v in tree_names(d_cache).items()}
+    out["param_shard_shapes"] = _param_shard_shapes(d_params)
     digests = {"prefill": _digest(out["prefill"]),
                "logits": _digest(out["logits"]),
                "cache": {k: _digest(v) for k, v in out["cache"].items()}}
@@ -630,6 +635,33 @@ def _serve_case(rank, payload, case) -> dict:
                      "logits": out["logits"].numpy(),
                      "cache": {k: v.numpy() for k, v in out["cache"].items()}})
     return keep
+
+
+def _merged(shape: tuple) -> list:
+    """`shape` and every shape that merges adjacent dims of it (the views
+    an einsum may take of a tensor before it is gathered)."""
+    if len(shape) <= 1:
+        return [tuple(shape)]
+    out = []
+    for rest in _merged(shape[1:]):
+        out.append((shape[0],) + rest)
+        out.append((shape[0] * rest[0],) + rest[1:])
+    return out
+
+
+def _param_shard_shapes(d_params) -> list:
+    """The shapes of the sharded parameters' local shards (a stacked
+    leaf's per-layer view of it too), each with its merged views."""
+    shapes = set()
+    for name, v in tree_names(d_params).items():
+        if not any(pl.is_shard() and v.device_mesh.size(d) > 1
+                   for d, pl in enumerate(v.placements)):
+            continue
+        local = tuple(v.to_local().shape)
+        for shape in ((local, local[1:]) if name.startswith("stack/")
+                      else (local,)):
+            shapes.update(_merged(shape))
+    return sorted(list(s) for s in shapes)
 
 
 def _gate_case(arch: str, axes, shape, path: str) -> dict:

@@ -26,22 +26,24 @@ Standards:
   * each step's logits, the final cache and the prefill logits within
     `F32_TOL` = 1e-5 of their largest magnitude against the reference's
     (the standard of `tests/test_torch_decode_models.py`; observed at
-    most 1.9e-6, deepseek-v2's decode logits; the rest at most 1.0e-6);
+    most 2.3e-6, deepseek-v2's decode logits; the rest at most 1.5e-6);
   * every rank's gathered tensors equal bit for bit;
-  * no serve step gathers a cache: no all-gather of one step takes in a
-    tensor of a cache shard's shape (the collectives recorded by
-    `launch.dryrun.CollectiveBytes`, those DTensor issues inside an op
-    included), and each cache lies as the rules place it. The bytes a
-    step all-gathers (output bytes) pass one rank's cache-shard bytes in
-    six of the seven layouts (llama3-8b's kv-head layout 116,240 B
-    against 4,096 B: weight shards DTensor gathers over 'data' inside the
-    projections' einsums, activations; the pods layout 2,064 B), so the
-    shapes are the test;
+  * no serve step gathers a cache or a weight: no all-gather of one step
+    takes in a tensor of a cache shard's shape, or of a parameter
+    shard's (or a view merging adjacent dims of one: decode's products
+    meet the weights where they lie, `runtime.sharding.project`) (the
+    collectives recorded by `launch.dryrun.CollectiveBytes`, those
+    DTensor issues inside an op included), and each cache lies as the
+    rules place it. The bytes a step all-gathers (output bytes, a few
+    tokens' activations) still pass one rank's cache-shard bytes in
+    five of the seven layouts (llama3-8b's kv-head layout 19,472 B
+    against 4,096 B; 116,240 B before the weights stayed in place), so
+    the shapes are the test;
   * the reference's own gate (`tests/test_models.py`
     test_decode_matches_forward) with the decode on the sharded path at
     (2, 2): its inputs (S = 8, tokens from PRNGKey(7), encoder states
     from PRNGKey(0)), bf16 weights, a float32 cache, drop-free MoE
-    capacity, atol 0.13 and rtol 0.1 (observed at most 0.064,
+    capacity, atol 0.13 and rtol 0.1 (observed at most 0.074,
     deepseek-v2);
   * `_write_at` over a sequence-sharded cache writes only in the shard
     holding `pos` (the fault by which deepseek-v2's sharded decode was
@@ -310,14 +312,21 @@ def test_ranks_agree_bit_for_bit(runs, case):
 @pytest.mark.parametrize("case", CASES)
 def test_no_serve_step_gathers_a_cache(runs, case):
     """No all-gather of one serve step, on any rank, takes in a tensor of
-    a cache shard's shape (a leaf's local shard or a layer's view of it);
-    the cache leaves lie as the rules place them (so the writes and the
-    attention met each layout the case names)."""
+    a cache shard's shape (a leaf's local shard or a layer's view of it),
+    nor of a parameter shard's (a sharded leaf's local shard, a layer's
+    view of it, or a view merging adjacent dims of these: decode's
+    products meet the weights where they lie); the cache leaves lie as
+    the rules place them (so the writes and the attention met each
+    layout the case names)."""
     for rank in runs["ranks"]:
         got = rank["cases"][case]
         shards = got["cache_shard_shapes"]
         assert got["gathered_shapes"], got["collectives"]
         hit = [s for s in got["gathered_shapes"] if s in shards]
+        assert not hit, (hit, got["collectives"])
+        params = got["param_shard_shapes"]
+        assert params
+        hit = [s for s in got["gathered_shapes"] if s in params]
         assert not hit, (hit, got["collectives"])
     placements = runs["ranks"][0]["cases"][case]["cache_placements"]
     for leaf, want in LAYOUTS[case].items():
@@ -420,8 +429,18 @@ def test_write_lands_in_the_shard_holding_pos(runs, form):
         assert rank["write"][form] == {"equal": True, "local": True}
 
 
+#: each case's all-gathered bytes a step before decode's products met
+#: the weights where they lie (ROADMAP queue 3)
+ALL_GATHERED_BEFORE = {"llama3_kv_heads": 116240,
+                       "llama3_head_dim": 73728, "deepseek_mla": 183568,
+                       "vision_cross": 311824, "falcon_mamba": 17936,
+                       "zamba2_hybrid": 260752, "llama3_pods": 2064}
+
+
 def _report(runs) -> dict:
-    """The observed errors and bytes the standards above quote."""
+    """The observed errors and bytes the standards above quote, each
+    case's all-gathered bytes beside those before decode's products met
+    the weights where they lie."""
     ref, ours = runs["reference"], runs["ranks"][0]
     out = {}
     for case in CASES:
@@ -435,6 +454,7 @@ def _report(runs) -> dict:
             "all_gathered_bytes": max(
                 r["cases"][case]["collectives"].get("all-gather", 0)
                 for r in runs["ranks"]),
+            "all_gathered_bytes_before": ALL_GATHERED_BEFORE[case],
             "cache_shard_bytes": got["cache_shard_bytes"]}
     out["gate_max_abs"] = {
         arch: float(np.abs(g["decode"] - g["forward"]).max())
