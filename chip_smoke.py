@@ -367,6 +367,25 @@ non-zero and the last line is not printed. The phases:
             card through the DTensor path on the one-rank serving mesh,
             logits and caches equal to the plain card run's bit for bit.
             `python3 chip_smoke.py lm_decode_smoke` runs it alone
+  dryrun_memory
+            the production dry-run's memory reckoning held to the card's
+            allocator: for each DRYRUN_MEMORY_CELLS cell of llama3-8b at
+            its published widths (one pod's AdamW train step at 4 of 32
+            layers, B = 1, S = 4096, lm's cell; prefill at B = 1, S =
+            4096, full depth; one decode step at B = 8 over a 32,768
+            cache, lm_decode's), launch/dryrun.py `reckon` on a (data 1,
+            model 1) layout (meta DTensors over a one-rank placeholder
+            group, as `dryrun_cell` reckons the production mesh) gives
+            temp + max(output - alias, 0); the step (`dryrun.cell_args`,
+            the plain path) then runs on seeded arguments on the card
+            once to warm up, and once more after the peak statistics are
+            reset: its peak less the bytes resident before it
+            (`torch.cuda.max_memory_allocated()` less
+            `memory_allocated()`) must lie within DRYRUN_MEMORY_TOL of
+            the reckoning, and its outputs must be finite; prints both,
+            their ratio and the seconds taken. Host and card, no kernel
+            of the port; `python3 chip_smoke.py dryrun_memory` runs env
+            and this phase alone (no build)
   kernel_k3 K3 (the flat per-node mix, `kernels.ops.gossip_mix`) against
             its plain version over M in {1, 3, 130, 4099, 8192, 65537,
             2^20} (and a misaligned view), k in {1, 4, 8}, fp32 and bf16
@@ -4776,6 +4795,117 @@ def phase_lm_vlm() -> None:
     torch.cuda.empty_cache()
 
 
+#: dryrun_memory's cells of llama3-8b: (name, S, B, kind, superblocks of
+#: its 32), one microbatch
+DRYRUN_MEMORY_CELLS = (("lm", 4096, 1, "train", 4),
+                       ("prefill", 4096, 1, "prefill", 32),
+                       ("lm_decode", 32768, 8, "decode", 32))
+#: how far the card's peak above its resident bytes may lie from the
+#: dry-run's reckoning, as a share of the reckoning
+DRYRUN_MEMORY_TOL = 0.05
+
+
+def _cell_on_card(kind: str, args: tuple, vocab: int, seq: int) -> tuple:
+    """A dry-run cell's meta arguments (`dryrun.cell_args`) on the card:
+    the parameters drawn N(0, 0.02) from a seeded generator, tokens and
+    labels uniform over the vocabulary, the optimizer's state and the
+    cache zero, the decode position the cache's last."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+
+    def on_card(tree, fill):
+        return pytree.tree_map(
+            lambda t: None if t is None else fill(torch.empty(
+                t.shape, dtype=t.dtype, device="cuda")), tree)
+
+    def draw(t):
+        return t.normal_(0.0, 0.02, generator=gen)
+
+    def tokens(t):
+        return t.random_(0, vocab, generator=gen)
+
+    def zero(t):
+        return t.zero_()
+
+    fills = {"train": (draw, zero, tokens), "prefill": (draw, tokens),
+             "decode": (draw, zero, tokens, lambda t: t.fill_(seq - 1))}
+    return tuple(on_card(a, f) for a, f in zip(args, fills[kind]))
+
+
+def phase_dryrun_memory() -> None:
+    """The dry-run's reckoned temporaries and unaliased outputs of each
+    DRYRUN_MEMORY_CELLS cell against the card's allocator: the step's peak
+    above its resident bytes after a warm-up step, within
+    DRYRUN_MEMORY_TOL of the reckoning."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw, cosine_lr
+
+    cells, t_all = [], time.perf_counter()
+    for name, seq, batch, kind, n_super in DRYRUN_MEMORY_CELLS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(registry.get_config("llama3-8b", "full"),
+                                  n_super=n_super, train_microbatches=1)
+        cell = ShapeCell(name, seq, batch, kind)
+        optimizer = adamw(cosine_lr(3e-4, 10000),
+                          moment_dtype=(torch.bfloat16 if cfg.opt_moments_bf16
+                                        else torch.float32))
+        layout = Mesh(("data", "model"), (1, 1), torch.device("meta"))
+        rec = dryrun.reckon(cfg, cell, layout, False, optimizer)
+        mem = rec["memory"]
+        reckoned = mem["temp_size_in_bytes"] + max(
+            mem["output_size_in_bytes"] - mem["alias_size_in_bytes"], 0)
+        reckon_s = time.perf_counter() - t0
+        built = dryrun.cell_args(cfg, cell, layout, False, optimizer)
+        step = built["step"]
+        args = _cell_on_card(kind, built["args"], cfg.vocab_size, seq)
+        del built
+        out = step(*args)  # warm-up: cuBLAS's workspaces, cached blocks
+        torch.cuda.synchronize()
+        del out
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t1
+        measured = torch.cuda.max_memory_allocated() - resident
+        # the metrics, the last position's logits, the next token's
+        result = {"train": lambda: out[2], "prefill": lambda: out,
+                  "decode": lambda: out[0]}[kind]()
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in pytree.tree_leaves(result))
+        del out, result, args
+        torch.cuda.empty_cache()
+        c = {"cell": name, "kind": kind, "seq_len": seq, "batch": batch,
+             "n_super": n_super, "arguments_reckoned": mem[
+                 "argument_size_in_bytes"], "resident": resident,
+             "temp_reckoned": mem["temp_size_in_bytes"],
+             "reckoned": reckoned, "measured": measured,
+             "ratio": measured / reckoned, "finite": finite,
+             "reckon_s": reckon_s, "step_s": step_s,
+             "seconds": time.perf_counter() - t0}
+        emit("dryrun_memory_cell", **c)
+        cells.append(c)
+    emit("dryrun_memory", tol=DRYRUN_MEMORY_TOL, torch=torch.__version__,
+         seconds=time.perf_counter() - t_all,
+         ratios={c["cell"]: c["ratio"] for c in cells})
+    missed = {c["cell"]: c["ratio"] for c in cells
+              if abs(c["ratio"] - 1) > DRYRUN_MEMORY_TOL or not c["finite"]}
+    if missed:
+        raise AssertionError(f"the card's peak above its resident bytes "
+                             f"misses the dry-run's reckoning by more than "
+                             f"{DRYRUN_MEMORY_TOL} (or its outputs are not "
+                             f"finite): {missed}")
+
+
 def phase_lm_decode_smoke() -> None:
     """All ten archs at smoke width in float32 (their parameters the port's
     init plus seeded noise, so the cross-attention gates and zamba2's LoRA
@@ -5333,9 +5463,11 @@ def main() -> int:
              "lm_sharded_moe": phase_lm_sharded_moe,
              "lm_decode": phase_lm_decode,
              "lm_decode_smoke": phase_lm_decode_smoke,
-             "lm_sharded_plan": phase_lm_sharded_plan}
+             "lm_sharded_plan": phase_lm_sharded_plan,
+             "dryrun_memory": phase_dryrun_memory}
     if len(sys.argv) >= 2 and all(a in alone for a in sys.argv[1:]):
-        if set(sys.argv[1:]) != {"lm_sharded_plan"}:  # host-side: no build
+        # these phases launch no kernel of the port: no build
+        if not set(sys.argv[1:]) <= {"lm_sharded_plan", "dryrun_memory"}:
             phase_build()
         for name in sys.argv[1:]:  # those phases alone (no result line)
             alone[name]()
@@ -5400,6 +5532,7 @@ def _default_run(build_s) -> list:
     phase_lm_decode()
     phase_lm_vlm()
     phase_lm_decode_smoke()
+    phase_dryrun_memory()
     k3 = phase_kernel_k3()
     k4 = phase_kernel_k4(build_s)
     k5 = phase_kernel_k5()

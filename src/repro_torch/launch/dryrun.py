@@ -18,10 +18,18 @@ their specs (`launch/specs.py`) and reckons:
   * `output_size_in_bytes` and `alias_size_in_bytes` from the same sums
     (outputs under the specs of the arguments they update, the metrics
     and logits as the port lays them; donation aliases the training state
-    and the decode cache, as in the reference);
-  * `temp_size_in_bytes` and `generated_code_size_in_bytes`: null, since
-    torch has no compile-time memory analysis, so `bytes_per_device` is
-    arguments plus unaliased outputs, without temporaries;
+    and the decode cache, as in the reference: the train step overwrites
+    the state it is given and the serve step its cache);
+  * `temp_size_in_bytes`: rank 0's peak temporaries in one pod's step,
+    counted on the DTensor run that counts the collectives (below) by
+    `StepMemory`: the most bytes alive at once of the storages rank 0's
+    local ops make, a collective's output (a gathered layer, a gathered
+    activation) included, leaving out the arguments' storages and the
+    ones the step returns. Meta tensors take the card's branches
+    (`attention._bmm_f32`). `bytes_per_device` is the reference's
+    `argument + temp + max(output - alias, 0)`;
+  * `generated_code_size_in_bytes`: null. Torch compiles nothing ahead
+    of a run: an eager step launches kernels that ship in its libraries;
   * `cost.flops`: one pod's step counted by `FlopCounterMode` on the meta
     tensors (matmuls and convolutions; XLA also counts elementwise work),
     divided over the devices that run it;
@@ -38,16 +46,23 @@ their specs (`launch/specs.py`) and reckons:
     `collective-permute`, as its `collective_bytes` reads them off the
     partitioned HLO): an all-gather's output is its input times the
     group's size, a reduce-scatter's its input over it. The step runs at
-    1 and 2 superblocks and the bytes extend linearly to `cfg.n_super`,
-    as the flops do. On the multi-pod mesh the pods serve replicas, so
-    rank 0 runs its pod's share of a serving batch (a training pod its
-    own batch); beside the kinds, `pod_mix`, the port's own name for the
-    consensus mix: the fused step's float32 mix of each device's
-    parameter shard, one all-reduce on the complete graph (k exchanges
-    on a k-regular one), bytes per device per comm round. XLA counts a
-    collective inside a loop once as the HLO text holds it; the port
-    counts every one that runs. `hlo_collective_op_counts` is null (no
-    HLO);
+    2 and 3 superblocks (`DEPTHS`) and the bytes, the calls and the
+    temporaries extend linearly to `cfg.n_super`, as the flops do, the
+    temporaries phase by phase, but for a train step's tail (its update
+    and grad norm follow the largest leaf), which is counted alone at
+    `cfg.n_super` (`_meta_runs`, `extended`). On the multi-pod mesh
+    the pods serve replicas, so rank 0 runs its pod's share of a serving
+    batch (a training pod its own batch); beside the kinds, `pod_mix`,
+    the port's own name for the consensus mix: the fused step's float32
+    mix of each device's parameter shard, one all-reduce on the complete
+    graph (k exchanges on a k-regular one), bytes per device per comm
+    round (its float32 copy of a leaf is not in the temporaries). XLA
+    counts a collective inside a loop once as the HLO text holds it; the
+    port counts every one that runs;
+  * `hlo_collective_op_counts`: rank 0's collective calls in that step
+    under the reference's five kinds, counted as they run, where XLA's
+    HLO text holds a loop body's ops once (the port's training counts are
+    per layer and microbatch where XLA's are per loop body);
   * `sharding_refusals`, the port's own: the ops on DTensors in the same
     DTensor runs that torch 2.11's DTensor refuses (`refused_sharding`),
     extended as the bytes are. A cell with any is on the CLI's FAILURES
@@ -76,15 +91,17 @@ from typing import Any
 import torch
 import torch.distributed as dist
 import torch.utils._pytree as _pytree
+from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs.shapes import ShapeCell
 from repro_torch.core.graphs import complete_graph
 from repro_torch.launch import specs as sp
-from repro_torch.launch.mesh import Mesh, make_production_mesh, mesh_shape
-from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
-                                      make_train_step)
+from repro_torch.launch.mesh import (Mesh, make_production_mesh, mesh_shape,
+                                     placed_on)
+from repro_torch.launch.steps import (apply_update, make_prefill_step,
+                                      make_serve_step, make_train_step)
 from repro_torch.models import registry
 from repro_torch.optim import adamw, cosine_lr
 from repro_torch.runtime import sharding as shrules
@@ -119,11 +136,19 @@ def _specs(specs: PyTree) -> list:
     return [s for s in sp.spec_leaves(specs) if s is not None]
 
 
+def _bmm_flops(a_shape, b_shape, *_, **__) -> int:
+    """`torch.bmm`'s flops, its `out_dtype` overload's too (whose third
+    argument torch's own formula takes for the output's shape)."""
+    (b, m, k), n = a_shape, b_shape[-1]
+    return 2 * b * m * n * k
+
+
 def _meta_run(step, args: tuple) -> tuple[float, set[int]]:
     """(flops, ids of the argument leaves read) of one call of `step` on
     meta tensors."""
     reads = _Reads(_leaves(args))
-    with FlopCounterMode(display=False) as counter, reads:
+    with FlopCounterMode(display=False, custom_mapping={
+            torch.ops.aten.bmm: _bmm_flops}) as counter, reads:
         step(*args)
     return float(counter.get_total_flops()), reads.read
 
@@ -157,6 +182,9 @@ _COLLECTIVE_OPS = {
 }
 #: ops of those namespaces that move no data
 _NOT_COLLECTIVES = ("wait_tensor", "_wrap_tensor_autograd", "barrier")
+#: those of them whose output is their input on a device (a meta tensor's
+#: is a new one)
+_ALIASES = ("wait_tensor", "_wrap_tensor_autograd")
 
 
 #: the view ops a reshape or flatten of a DTensor reaches
@@ -234,7 +262,8 @@ def refused_sharding(func, args, kwargs) -> str | None:
 class CollectiveBytes(TorchDispatchMode):
     """Output bytes on this rank of the collectives the ops issue while
     active, by the reference's kinds (`bytes`) and by kind and process
-    group (`by_group`, the group's global ranks), and each all-gather's
+    group (`by_group`, the group's global ranks), the calls by kind
+    (`calls`), and each all-gather's
     input as (shape, dtype, the group's ranks) (`gathered`): the
     functional collectives (DTensor's redistributions, those inside an
     op's dispatch included, the microbatches' all-to-all, the sharded grad
@@ -254,6 +283,7 @@ class CollectiveBytes(TorchDispatchMode):
 
         super().__init__()
         self.bytes: dict[str, float] = {}
+        self.calls: dict[str, int] = {}
         self.by_group: dict[tuple[str, tuple[int, ...]], float] = {}
         self.gathered: list[tuple[list[int], str, tuple[int, ...]]] = []
         self.refused: list[str] = []
@@ -283,6 +313,7 @@ class CollectiveBytes(TorchDispatchMode):
                       if isinstance(t, torch.Tensor)))
         group = _group_ranks(func, args, kwargs)
         self.bytes[kind] = self.bytes.get(kind, 0.0) + n
+        self.calls[kind] = self.calls.get(kind, 0) + 1
         self.by_group[kind, group] = self.by_group.get((kind, group),
                                                        0.0) + n
         if kind == "all-gather":
@@ -292,6 +323,148 @@ class CollectiveBytes(TorchDispatchMode):
                 for t in _pytree.tree_leaves(given)
                 if isinstance(t, torch.Tensor))
         return out
+
+
+def _local_leaves(tree: PyTree) -> list:
+    """The tensors of `tree`, each DTensor as its local tensor."""
+    from torch.distributed.tensor import DTensor
+
+    return [t.to_local() if isinstance(t, DTensor) else t
+            for t in _pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+class StepMemory(CollectiveBytes):
+    """`CollectiveBytes` that also follows the storages the ops on this
+    rank's local tensors make while active, for a step's peak
+    temporaries (`finish`). Each output's storage is keyed by its
+    StorageImpl (`StorageWeakRef.cdata`: a meta storage has no data
+    pointer), so a view is its storage's; a storage seen for the first
+    time is born there, and it dies at the first op that finds its weak
+    reference `expired()`. The weak references are held to the end, so
+    no storage takes a dead one's key. The storages of `args` (a
+    DTensor's local tensor's) are not temporaries and are skipped, and
+    so are the ops DTensor runs on fake tensors to propagate shapes: they
+    allocate nothing on a device. Neither does a functional collective's
+    op that returns its input there (`_ALIASES`): its new meta output is
+    counted as its input.
+
+    The step's phases are told apart as they run: a phase ends where the
+    ops pass into or out of an autograd backward (a training step's
+    forward, its backward, then what follows the last microbatch's
+    backward), and where `mark` is called (`count_step` marks the train
+    step's tail, `steps.apply_update`, whose phase is `tail`);
+    `phase_peaks` holds each one's peak, the bytes alive at its fullest
+    moment, and `phase_bases` the bytes alive where it starts."""
+
+    def __init__(self, args: PyTree):
+        from torch._subclasses.fake_tensor import FakeTensor
+
+        super().__init__()
+        self._fake = FakeTensor
+        self._refs = [StorageWeakRef(t.untyped_storage())
+                      for t in _local_leaves(args)]
+        self._args = {ref.cdata for ref in self._refs}
+        self._live: dict[int, int] = {}  # key -> birth
+        self._holders: dict[int, int] = {}  # birth -> its keys alive
+        self._born: list[int] = []  # bytes a birth
+        # birth i as i + 1, its death as -(i + 1), in the order they ran;
+        # the timeline's index where each phase after the first starts
+        self._timeline: list[int] = []
+        self._starts: list[int] = []
+        self._backward = False
+        self.phase_peaks: list[int] = []
+        self.phase_bases: list[int] = []
+        self.tail: int | None = None
+        self.temp: int | None = None
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        if out is NotImplemented:
+            return out
+        outs = [t for t in _pytree.tree_leaves(out)
+                if isinstance(t, torch.Tensor)]
+        if any(isinstance(t, self._fake) for t in outs):
+            return out
+        # a dead storage keeps its key while its weak reference is held, so
+        # a storage not seen before is a new one
+        new = [(t, ref) for t, ref in ((t, StorageWeakRef(t.untyped_storage()))
+                                       for t in outs)
+               if ref.cdata not in self._args and ref.cdata not in self._live]
+        backward = torch._C._current_graph_task_id() != -1
+        if not new and backward == self._backward:
+            return out  # the peak moves only where storages are born
+        # the inputs are alive while the op runs: what died since the last
+        # op that made a storage died before this op's outputs were made
+        self._poll()
+        if backward != self._backward:
+            self._backward = backward
+            self._starts.append(len(self._timeline))
+        alias = (func.namespace == "_c10d_functional"
+                 and func.__name__.split(".")[0] in _ALIASES)
+        for t, ref in new:
+            key = ref.cdata
+            if key in self._live:  # an op's two outputs on one storage
+                continue
+            self._refs.append(ref)
+            src = self._storage_key(args[0]) if alias else None
+            if src in self._args:
+                self._args.add(key)
+                continue
+            if src in self._live:  # the input's, held as long as this one
+                birth = self._live[src]
+            else:
+                birth = len(self._born)
+                self._born.append(t.untyped_storage().nbytes())
+                self._timeline.append(birth + 1)
+            self._live[key] = birth
+            self._holders[birth] = self._holders.get(birth, 0) + 1
+        return out
+
+    def _poll(self) -> None:
+        """Records the deaths of the storages whose weak references have
+        expired."""
+        expired = torch.Storage._expired
+        for key in [k for k in self._live if expired(k)]:
+            birth = self._live.pop(key)
+            self._holders[birth] -= 1
+            if not self._holders[birth]:
+                self._timeline.append(-1 - birth)
+
+    def mark(self) -> None:
+        """Starts a phase here and makes it `tail`."""
+        self._poll()
+        self._backward = torch._C._current_graph_task_id() != -1
+        self._starts.append(len(self._timeline))
+        self.tail = len(self._starts)
+
+    @staticmethod
+    def _storage_key(t: torch.Tensor) -> int:
+        return StorageWeakRef(t.untyped_storage()).cdata
+
+    def finish(self, returned: PyTree) -> int:
+        """Sets `phase_peaks` and `phase_bases` and returns `temp`, the
+        largest peak: the most bytes alive at once of the storages born
+        while active, the ones `returned` (the step's outputs) holds left
+        out; drops the weak references."""
+        out = {self._live.get(self._storage_key(t))
+               for t in _local_leaves(returned)}
+        starts = iter(self._starts)
+        start = next(starts, None)
+        live, peaks, bases = 0, [0], [0]
+        for i, event in enumerate(self._timeline + [0]):
+            while start == i:
+                peaks.append(live)
+                bases.append(live)
+                start = next(starts, None)
+            if event and abs(event) - 1 not in out:
+                n = self._born[abs(event) - 1]
+                live += n if event > 0 else -n
+                peaks[-1] = max(peaks[-1], live)
+        self.phase_peaks, self.phase_bases = peaks, bases
+        self.temp = max(peaks)
+        self._refs, self._live, self._holders = [], {}, {}
+        self._born, self._timeline = [], []
+        return self.temp
 
 
 def _group_ranks(func, args, kwargs) -> tuple[int, ...]:
@@ -370,17 +543,17 @@ def _pod_rows(cell: ShapeCell, pods: int, data: int) -> int:
     return rows
 
 
-def count_step(cfg, cell: ShapeCell, mesh, optimizer) -> CollectiveBytes:
-    """Rank 0's collectives in one pod's step as meta DTensors on
-    `mesh.shard_mesh` (a mesh whose DeviceMesh stands on a placeholder
-    group), the step's arguments placed by the specs of one pod's (data,
-    model) layout at the pod's rows (`_pod_rows`)."""
+def _pod_step(cfg, cell: ShapeCell, mesh, optimizer) -> tuple:
+    """One pod's step on `mesh.shard_mesh` (a mesh whose DeviceMesh stands
+    on a placeholder group): the step, its arguments as meta DTensors
+    placed by the specs of one pod's (data, model) layout at the pod's
+    rows (`_pod_rows`), and the sharding rules it runs under."""
     sizes = mesh_shape(mesh)
     single = Mesh(("data", "model"), (sizes["data"], sizes["model"]),
                   torch.device("meta"))
     rows = _pod_rows(cell, sizes.get("pod", 1), sizes["data"])
-    built = _cell_args(cfg, dataclasses.replace(cell, global_batch=rows),
-                       single, False, optimizer)
+    built = cell_args(cfg, dataclasses.replace(cell, global_batch=rows),
+                      single, False, optimizer)
     dm = mesh.shard_mesh
     flat, treedef = _pytree.tree_flatten(built["args"])
     args = _pytree.tree_unflatten(
@@ -388,10 +561,56 @@ def count_step(cfg, cell: ShapeCell, mesh, optimizer) -> CollectiveBytes:
          for t, s in zip(flat, sp.spec_leaves(built["specs"]))], treedef)
     rules = (shrules.DEFAULT_RULES if cell.kind == "train"
              else sp.serve_rules(single))
-    counted = CollectiveBytes()
+    return built["step"], args, rules, single
+
+
+def count_step(cfg, cell: ShapeCell, mesh, optimizer, memory: bool = False
+               ) -> CollectiveBytes:
+    """Rank 0's collectives and refusals in one pod's step as meta
+    DTensors (`_pod_step`); with `memory` a `StepMemory` that also holds
+    the step's peak temporaries, the train step's tail
+    (`steps.apply_update`) marked as a phase of its own (`tail`)."""
+    counted = None
+    if memory and cell.kind == "train":
+        inner = optimizer
+
+        def update_(grads, state, params):
+            counted.mark()
+            inner.update_(grads, state, params)
+        optimizer = dataclasses.replace(inner, update_=update_)
+    step, args, rules, single = _pod_step(cfg, cell, mesh, optimizer)
+    counted = StepMemory(args) if memory else CollectiveBytes()
     with shrules.use_rules(rules, single), counted:
-        built["step"](*args)
+        out = step(*args)
+    if memory:
+        counted.finish(out)
     return counted
+
+
+def count_tail(cfg, cell: ShapeCell, mesh, optimizer) -> int:
+    """Rank 0's peak temporaries in the train step's tail alone
+    (`steps.apply_update`): on one pod's arguments placed as `count_step`
+    places them, beside gradients placed as the parameters (as `grad_fn`
+    places them), in their dtype or, where the step accumulates
+    microbatches, in float32; the gradients are arguments, not
+    temporaries."""
+    from torch.distributed.tensor import DTensor
+
+    _, (params, state, _), rules, single = _pod_step(cfg, cell, mesh,
+                                                     optimizer)
+    dtype = torch.float32 if cfg.train_microbatches > 1 else None
+
+    def grad(p):
+        local = torch.empty(p.to_local().shape, dtype=dtype or p.dtype,
+                            device="meta")
+        return DTensor.from_local(local, p.device_mesh, p.placements,
+                                  run_check=False, shape=p.shape,
+                                  stride=p.stride())
+    grads = _pytree.tree_map(grad, params)
+    counted = StepMemory((grads, state, params))
+    with shrules.use_rules(rules, single), counted:
+        norm = apply_update(optimizer, grads, state, params)
+    return counted.finish(norm)
 
 
 def pod_mix_bytes(param_shard_bytes_f32: int, graph) -> int:
@@ -402,11 +621,12 @@ def pod_mix_bytes(param_shard_bytes_f32: int, graph) -> int:
     return rounds * param_shard_bytes_f32
 
 
-def _cell_args(cfg, cell: ShapeCell, mesh, multi_pod: bool,
-               optimizer) -> dict:
-    """A cell's step, its arguments on the meta device beside their specs
-    (pod-stacked on the multi-pod mesh for training), the arguments of one
-    pod's call of the step, and the devices that call runs on."""
+def cell_args(cfg, cell: ShapeCell, mesh, multi_pod: bool, optimizer
+              ) -> dict:
+    """A cell's step (a training step overwrites the state it is given),
+    its arguments on the meta device beside their specs (pod-stacked on
+    the multi-pod mesh for training), the arguments of one pod's call of
+    the step, and the devices that call runs on."""
     sizes = mesh_shape(mesh)
     moe_groups = sizes["data"] if cfg.moe_experts else 1
     params, pspecs = sp.param_specs(cfg, mesh)
@@ -439,67 +659,122 @@ def _cell_args(cfg, cell: ShapeCell, mesh, multi_pod: bool,
     return out
 
 
+#: the depths (superblocks) the dry-run counts a step at, from which its
+#: counts extend to a config's: a step's peak grows by a fixed amount a
+#: superblock only from the second on (the first takes the embedding's
+#: output)
+DEPTHS = (2, 3)
+
+
 def _meta_runs(cfg, cell: ShapeCell, mesh, multi_pod: bool, optimizer
-               ) -> tuple[float, list, dict, int]:
-    """(flops of one pod's step, which of its argument leaves it reads, by
-    position, rank 0's collective output bytes by kind, the ops on
-    DTensors torch 2.11 refuses). The superblock repetitions are identical
-    work, so the step runs on meta at 1 and 2 repetitions, plainly for the
-    flops and the reads and as DTensors on `mesh.shard_mesh` for the
-    collectives and the refusals, and the counts extend linearly to
-    `cfg.n_super`, exactly; the leaves read are the same at any depth."""
+               ) -> dict:
+    """One pod's step counted on meta: its `flops`, which of its argument
+    leaves it `read` (by position), and rank 0's collective output bytes
+    by kind (`collectives`), collective calls by kind (`calls`), peak
+    temporaries (`temp`) and ops on DTensors torch 2.11 refuses
+    (`refused`). The superblock repetitions are identical work, so the
+    step runs on meta at the `DEPTHS`, plainly for the flops and the
+    reads and as DTensors on `mesh.shard_mesh` for the rest, and the
+    counts extend to `cfg.n_super` (`extended`; at most as deep: run
+    there), a train step's tail counted alone at each of those depths
+    (`count_tail`). The leaves read are the same at any depth."""
     runs = []
-    for n in ((1, 2) if cfg.n_super > 2 else (cfg.n_super,)):
+    deep = cfg.n_super > DEPTHS[-1]
+    for n in DEPTHS if deep else (cfg.n_super,):
         part_cfg = dataclasses.replace(cfg, n_super=n)
-        part = _cell_args(part_cfg, cell, mesh, multi_pod, optimizer)
+        part = cell_args(part_cfg, cell, mesh, multi_pod, optimizer)
         flops, read = _meta_run(part["step"], part["pod_args"])
-        counted = count_step(part_cfg, cell, mesh, optimizer)
-        runs.append((flops, [[id(t) in read for t in _leaves(a)]
-                             for a in part["pod_args"]],
-                     counted.bytes, len(counted.refused)))
-    flops, read, coll, refused = runs[0]
-    if len(runs) == 2:
-        flops += (cfg.n_super - 1) * (runs[1][0] - flops)
-        refused += (cfg.n_super - 1) * (runs[1][3] - refused)
-        coll = {k: coll.get(k, 0.0) + (cfg.n_super - 1) * (
-            runs[1][2].get(k, 0.0) - coll.get(k, 0.0))
-            for k in KINDS if k in coll or k in runs[1][2]}
-    return flops, read, coll, refused
+        run = {"flops": flops, **counts(count_step(
+            part_cfg, cell, mesh, optimizer, memory=True))}
+        if deep and cell.kind == "train":
+            run["tail_temp"] = count_tail(part_cfg, cell, mesh, optimizer)
+        runs.append(run)
+        read = [[id(t) in read for t in _leaves(a)] for a in part["pod_args"]]
+    tail_temp = (count_tail(cfg, cell, mesh, optimizer)
+                 if deep and cell.kind == "train" else None)
+    return {**extended(runs, cfg.n_super, tail_temp), "read": read}
 
 
-def dryrun_cell(arch: str, cell: ShapeCell, multi_pod: bool,
-                *, save: bool = True, donate: bool = True,
-                verbose: bool = True, cfg_override=None) -> dict:
-    """Build one (arch, shape, mesh) cell on meta tensors, reckon its
-    per-device bytes and count rank 0's collectives (over a placeholder
-    process group made and destroyed here: it raises beside a default
-    process group); return the record."""
-    cfg = cfg_override or registry.get_config(arch, "full")
-    mesh = make_production_mesh(multi_pod=multi_pod)
-    mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
-    sizes = mesh_shape(mesh)
-    rec: dict[str, Any] = {"arch": arch, "shape": cell.name,
-                           "mesh": mesh_name, "kind": cell.kind,
-                           "seq_len": cell.seq_len,
-                           "global_batch": cell.global_batch}
+def counts(counted: StepMemory) -> dict:
+    """A DTensor run's counts that extend to depth: collective bytes and
+    calls by kind, each phase's peak and starting bytes, which phase is
+    the train step's tail, refusals."""
+    return {"collectives": counted.bytes, "calls": counted.calls,
+            "phases": counted.phase_peaks, "bases": counted.phase_bases,
+            "tail": counted.tail, "refused": len(counted.refused)}
+
+
+def extended(runs: list[dict], n_super: int,
+             tail_temp: int | None = None) -> dict:
+    """`runs`' counts (`counts`, with "flops" where counted) at the
+    `DEPTHS`, extended linearly to `n_super` superblocks, with `temp`, the
+    largest phase's peak (one run: at `n_super` itself). The sums extend
+    as they are; the peak phase by phase, then the largest, since the
+    phases grow by different amounts a superblock (a training step's
+    backward by its checkpointed inputs, an inference step's peak not at
+    all). A train step's tail (`steps.apply_update`) holds the gradients
+    and the optimizer's float32 temporaries for one leaf's chunk at a
+    time, and its grad norm's for one whole leaf: those follow the
+    largest leaf, which may be another at `n_super` (a stacked leaf
+    overtakes the embedding), so its phase is the bytes alive where it
+    starts, extended, plus `tail_temp`, the tail counted alone at
+    `n_super` (`count_tail`); each run's tail phase must be its bases
+    plus its own "tail_temp", else this raises. tests/test_torch_dryrun.py
+    holds the extension to a count at a depth past them."""
+    if len(runs) == 1:
+        return {**runs[0], "temp": max(runs[0]["phases"])}
+    one, two = runs
+    if len(one["phases"]) != len(two["phases"]) or one["tail"] != two["tail"]:
+        raise RuntimeError(f"the step's phases at {DEPTHS} superblocks "
+                           f"differ")
+
+    def extend(a, b):
+        return a + (n_super - DEPTHS[0]) * (b - a)
+    out = {k: extend(one[k], two[k]) for k in ("flops", "refused")
+           if k in one}
+    peaks = [extend(a, b) for a, b in zip(one["phases"], two["phases"])]
+    tail = one["tail"]
+    if tail is not None:
+        for run in runs:
+            if run["phases"][tail] != run["bases"][tail] + run["tail_temp"]:
+                raise RuntimeError(
+                    f"the train step's tail peaks at {run['phases'][tail]} "
+                    f"B where its bases {run['bases'][tail]} B and its "
+                    f"count alone {run['tail_temp']} B sum otherwise")
+        peaks[tail] = extend(one["bases"][tail],
+                             two["bases"][tail]) + tail_temp
+    out["temp"] = max(peaks)
+    for k in ("collectives", "calls"):
+        out[k] = {kind: extend(one[k].get(kind, 0), two[k].get(kind, 0))
+                  for kind in KINDS if kind in one[k] or kind in two[k]}
+    return out
+
+
+def reckon(cfg, cell: ShapeCell, layout: Mesh, multi_pod: bool, optimizer
+           ) -> dict:
+    """A cell's reckoned fields (memory, cost, collectives and their
+    calls, refusals, bytes_per_device, devices, lower_s, compile_s) on
+    `layout`, a Mesh of the meta device whose (pod,) data and model axes
+    are the production mesh's or any other's, counted over a placeholder
+    process group of its size made and destroyed here (it raises beside
+    a default process group)."""
+    sizes = mesh_shape(layout)
+    rec: dict[str, Any] = {}
     t0 = time.time()
-    optimizer = adamw(cosine_lr(3e-4, 10000),
-                      moment_dtype=(torch.bfloat16 if cfg.opt_moments_bf16
-                                    else torch.float32))
-    built = _cell_args(cfg, cell, mesh, multi_pod, optimizer)
+    built = cell_args(cfg, cell, layout, multi_pod, optimizer)
     args, specs = built["args"], [_specs(s) for s in built["specs"]]
     leaves = [_leaves(a) for a in args]
     rec["lower_s"] = round(time.time() - t0, 1)
 
     t1 = time.time()
-    with placeholder_group(mesh.size) as group:
-        flops, read, collectives, refused = _meta_runs(
-            cfg, cell, make_production_mesh(multi_pod=multi_pod, group=group),
-            multi_pod, optimizer)
+    with placeholder_group(layout.size) as group:
+        runs = _meta_runs(cfg, cell, placed_on(layout, group), multi_pod,
+                          optimizer)
     rec["compile_s"] = round(time.time() - t1, 1)
+    read, collectives = runs["read"], runs["collectives"]
 
     def total(i, only_read=False):
-        return sum(sp.shard_bytes(t, s, mesh) for t, s, r in
+        return sum(sp.shard_bytes(t, s, layout) for t, s, r in
                    zip(leaves[i], specs[i], read[i]) if r or not only_read)
 
     arg_bytes = sum(total(i, only_read=True) for i in range(len(args)))
@@ -507,10 +782,10 @@ def dryrun_cell(arch: str, cell: ShapeCell, multi_pod: bool,
         state_bytes = total(0) + total(1)
         n_metrics = sizes["pod"] if multi_pod else 1
         out_bytes = state_bytes + 2 * 4 * n_metrics  # loss, grad_norm
-        alias_bytes = state_bytes if donate else 0
+        alias_bytes = state_bytes
         if multi_pod:
             # the fused step's float32 mix of each device's parameter shard
-            shard_f32 = sum(sp.shard_bytes(t, s, mesh) // t.element_size()
+            shard_f32 = sum(sp.shard_bytes(t, s, layout) // t.element_size()
                             * 4 for t, s in zip(_leaves(built["params"]),
                                                 _specs(built["pspecs"])))
             collectives["pod_mix"] = float(
@@ -521,7 +796,7 @@ def dryrun_cell(arch: str, cell: ShapeCell, multi_pod: bool,
         logits = torch.empty((B, cfg.vocab_size), dtype=cfg.dtype,
                              device="meta")
         out_bytes = sp.shard_bytes(logits, built["specs"][1]["tokens"][:1],
-                                   mesh)
+                                   layout)
         alias_bytes = 0
     else:
         # logits (B, 1, V), B as the tokens are laid out, and the cache
@@ -530,27 +805,50 @@ def dryrun_cell(arch: str, cell: ShapeCell, multi_pod: bool,
                              device="meta")
         cache_bytes = total(1)
         out_bytes = cache_bytes + sp.shard_bytes(
-            logits, built["specs"][2][:1], mesh)
-        alias_bytes = cache_bytes if donate else 0
+            logits, built["specs"][2][:1], layout)
+        alias_bytes = cache_bytes
+    temp = float(runs["temp"])
     rec["memory"] = {"argument_size_in_bytes": float(arg_bytes),
                      "output_size_in_bytes": float(out_bytes),
-                     "temp_size_in_bytes": None,
+                     "temp_size_in_bytes": temp,
                      "generated_code_size_in_bytes": None,
                      "alias_size_in_bytes": float(alias_bytes)}
-    rec["cost"] = {"flops": flops / built["run_devices"]}
+    rec["cost"] = {"flops": runs["flops"] / built["run_devices"]}
     rec["collectives"] = collectives
-    rec["hlo_collective_op_counts"] = None
+    rec["hlo_collective_op_counts"] = {k: runs["calls"].get(k, 0)
+                                       for k in KINDS}
     # the port's own: ops on DTensors torch 2.11 refuses (0 to build there)
-    rec["sharding_refusals"] = refused
-    rec["bytes_per_device"] = float(arg_bytes
+    rec["sharding_refusals"] = runs["refused"]
+    rec["bytes_per_device"] = float(arg_bytes + temp
                                     + max(out_bytes - alias_bytes, 0))
-    rec["devices"] = mesh.size
+    rec["devices"] = layout.size
+    return rec
+
+
+def dryrun_cell(arch: str, cell: ShapeCell, multi_pod: bool,
+                *, save: bool = True, verbose: bool = True,
+                cfg_override=None) -> dict:
+    """Build one (arch, shape, mesh) cell on meta tensors and reckon its
+    per-device bytes, temporaries and rank 0's collectives on the
+    production mesh (`reckon`); return the record."""
+    cfg = cfg_override or registry.get_config(arch, "full")
+    mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
+    rec: dict[str, Any] = {"arch": arch, "shape": cell.name,
+                           "mesh": mesh_name, "kind": cell.kind,
+                           "seq_len": cell.seq_len,
+                           "global_batch": cell.global_batch}
+    optimizer = adamw(cosine_lr(3e-4, 10000),
+                      moment_dtype=(torch.bfloat16 if cfg.opt_moments_bf16
+                                    else torch.float32))
+    rec.update(reckon(cfg, cell, make_production_mesh(multi_pod=multi_pod),
+                      multi_pod, optimizer))
     if verbose:
         print(f"[dryrun] {arch} {cell.name} {mesh_name}: "
               f"build {rec['lower_s']}s meta run {rec['compile_s']}s  "
               f"mem/dev {rec['bytes_per_device'] / 2 ** 30:.2f} GiB "
-              f"(no temporaries)  flops {rec['cost']['flops']:.3g}  "
-              f"refused {refused}", flush=True)
+              f"(temp {rec['memory']['temp_size_in_bytes'] / 2 ** 30:.2f})"
+              f"  flops {rec['cost']['flops']:.3g}  "
+              f"refused {rec['sharding_refusals']}", flush=True)
     if save:
         RESULTS.mkdir(parents=True, exist_ok=True)
         fname = RESULTS / f"{arch}__{cell.name}__{mesh_name}.json"

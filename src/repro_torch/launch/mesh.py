@@ -113,17 +113,24 @@ def make_production_mesh(*, multi_pod: bool = False, group=None) -> Mesh:
     that shape over the group's ranks, on which meta DTensors run."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    if group is None:
-        return Mesh(axes, shape, torch.device("meta"))
-    if dist.get_world_size(group) != math.prod(shape):
-        raise ValueError(f"the production mesh {shape} needs a group of "
-                         f"{math.prod(shape)} ranks, not "
+    mesh = Mesh(axes, shape, torch.device("meta"))
+    return mesh if group is None else placed_on(mesh, group)
+
+
+def placed_on(layout: Mesh, group) -> Mesh:
+    """`layout` (a Mesh on the meta device) with a "cuda" DeviceMesh of its
+    axes over the ranks of `group` (the dry-run's placeholder group, of
+    the layout's size), on which meta DTensors run."""
+    if dist.get_world_size(group) != layout.size:
+        raise ValueError(f"the layout {layout.shape} needs a group of "
+                         f"{layout.size} ranks, not "
                          f"{dist.get_world_size(group)}")
     from torch.distributed.device_mesh import DeviceMesh
 
-    ranks = torch.tensor(dist.get_process_group_ranks(group)).reshape(shape)
-    return Mesh(axes, shape, torch.device("meta"), group,
-                DeviceMesh("cuda", ranks, mesh_dim_names=axes))
+    ranks = torch.tensor(dist.get_process_group_ranks(group)).reshape(
+        layout.shape)
+    return dataclasses.replace(layout, group=group, device_mesh=DeviceMesh(
+        "cuda", ranks, mesh_dim_names=layout.axis_names))
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,

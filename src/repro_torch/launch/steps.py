@@ -290,11 +290,23 @@ def _loss_and_grads(params, batch, cfg: ModelConfig, moe_groups: int,
             _pytree.tree_map(lambda g: g / microbatches, g_acc))
 
 
+def apply_update(optimizer: Optimizer, grads: PyTree, opt_state,
+                 params: PyTree) -> torch.Tensor:
+    """The train step's tail: the optimizer's update of `params` and
+    `opt_state` in place (`Optimizer.update_`, elementwise: a sharded
+    replica's on each rank's own shards, as the consensus steps update
+    them), then the gradients' 2-norm, returned."""
+    optimizer.update_(_local(grads), _local(opt_state), _local(params))
+    return _grad_norm(grads)
+
+
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                     moe_groups: int = 1, microbatches: int = 1):
-    """Pure synchronous step on one replica: (params, opt_state, batch) ->
-    (params, opt_state, metrics), new tensors (DTensors placed as the
-    old on a sharded replica). `microbatches` > 1 runs gradient
+    """Synchronous step on one replica: (params, opt_state, batch) ->
+    (params, opt_state, metrics). It overwrites the params and opt_state
+    it is given (`apply_update`) and returns them, as the reference's
+    jitted step with `donate_argnums=(0, 1)` reuses their buffers: no
+    second copy of the state is made. `microbatches` > 1 runs gradient
     accumulation (`_microbatches`, fp32 gradient sums). `moe_groups` is
     the MoE dispatch groups (`mlp.moe_apply`'s `groups`); the dense
     blocks ignore it."""
@@ -302,12 +314,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     def train_step(params, opt_state, batch):
         loss, grads = _loss_and_grads(params, batch, cfg, moe_groups,
                                       microbatches)
-        # elementwise: a sharded replica's update runs on each rank's own
-        # shards, as the consensus steps update them
-        new_params, new_state = optimizer.update(
-            _local(grads), _local(opt_state), _local(params))
-        return (_like(new_params, params), _like(new_state, opt_state),
-                {"loss": loss, "grad_norm": _grad_norm(grads)})
+        grad_norm = apply_update(optimizer, grads, opt_state, params)
+        return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
 
     return train_step
 
@@ -339,7 +347,8 @@ def make_prefill_step(cfg: ModelConfig, moe_groups: int = 1, mesh=None):
             logits = transformer.forward(params, batch["tokens"], cfg,
                                          enc=batch.get("enc"),
                                          moe_groups=moe_groups)
-            return logits[:, -1, :]
+            # a copy: the view would hold the whole (B, S, V) logits
+            return logits[:, -1, :].clone()
 
     return prefill_step
 

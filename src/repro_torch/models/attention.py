@@ -53,7 +53,8 @@ import torch
 from repro_torch import resolve_device_or_meta
 from repro_torch.compress import prng
 from repro_torch.models.common import (ModelConfig, apply_rope, p,
-                                       promoted_einsum, pz, rms_norm)
+                                       promoted_einsum, pz, rms_norm,
+                                       shard_offset)
 from repro_torch.runtime.sharding import constrain, is_dtensor, project
 
 PyTree = Any
@@ -231,18 +232,6 @@ def _write_at(buf: torch.Tensor, pos, value: torch.Tensor) -> torch.Tensor:
     return buf
 
 
-def _shard_offset(t, dim: int) -> int:
-    """The global index of this rank's first element of DTensor `t` along
-    `dim` (its shards even: the rules shard only dimensions their ranks
-    divide)."""
-    mesh = t.device_mesh
-    chunk = 0
-    for d, pl in enumerate(t.placements):
-        if pl.is_shard(dim):
-            chunk = chunk * mesh.size(d) + mesh.get_local_rank(d)
-    return chunk * t.to_local().shape[dim]
-
-
 def _write_local(buf, pos, value) -> None:
     """`_write_at` of a DTensor cache: the value taken to the cache's
     layout, whole along the sequence (its rows and heads, or head-dim
@@ -260,7 +249,7 @@ def _write_local(buf, pos, value) -> None:
     v = value.redistribute(mesh, whole_seq).to_local().to(buf.dtype)
     local = buf.to_local()
     T = local.shape[1]
-    idx = pos - _shard_offset(buf, 1)
+    idx = pos - shard_offset(buf, 1)
     if isinstance(idx, int):
         if 0 <= idx < T:
             local.narrow(1, idx, 1).copy_(v)
@@ -291,7 +280,7 @@ class _CacheLayout:
         self.seq = [d for d in live if pls[d].is_shard(1)]
         self.contracted = ([] if contracted is None else
                            [d for d in live if pls[d].is_shard(contracted)])
-        self.offset = _shard_offset(cache, 1)
+        self.offset = shard_offset(cache, 1)
         self.query = tuple(Replicate() if pl.is_shard(1) else pl
                            for pl in pls)
 
@@ -337,8 +326,11 @@ def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     reference's `preferred_element_type=float32` contraction: on the card,
     bf16 operands go to cuBLAS with float32 output (bf16 products are exact
     in float32, summed there), so a bf16 cache is read once and never
-    copied to float32; elsewhere the operands are taken to float32."""
-    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+    copied to float32; elsewhere the operands are taken to float32. Meta
+    tensors take the card's form, so that a step reckoned on them (the
+    dry-run's temporaries) makes no float32 copy of a cache that the card
+    never makes."""
+    if (a.is_cuda or a.is_meta) and a.dtype == b.dtype == torch.bfloat16:
         return torch.bmm(a, b, out_dtype=torch.float32)
     return torch.bmm(a.float(), b.float())
 

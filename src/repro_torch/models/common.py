@@ -312,13 +312,56 @@ def activation(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(f"activation {kind} handled in mlp (swiglu) or unknown")
 
 
+def shard_offset(t, dim: int) -> int:
+    """The global index of this rank's first element of DTensor `t` along
+    `dim` (its shards even: the rules shard only dimensions their ranks
+    divide)."""
+    mesh = t.device_mesh
+    chunk = 0
+    for d, pl in enumerate(t.placements):
+        if pl.is_shard(dim):
+            chunk = chunk * mesh.size(d) + mesh.get_local_rank(d)
+    return chunk * t.to_local().shape[dim]
+
+
+def _gold(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """`torch.gather(logits, -1, idx)`, idx (..., 1). DTensor logits are
+    taken on each rank's local shards (`local_map`): a rank whose vocab
+    shard holds the label takes its logit and the others 0, a partial sum
+    over the mesh dims that shard the vocab, as DTensor's own gather
+    gives it; the gradient is scattered into zeros of the rank's shard.
+    (DTensor's gather backward makes those zeros replicated, the whole
+    logits on every rank.)"""
+    if not is_dtensor(logits):
+        return torch.gather(logits, -1, idx)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    lp = tuple(Replicate() if pl.is_partial() else pl
+               for pl in logits.placements)
+    if lp != tuple(logits.placements):
+        logits = logits.redistribute(mesh, lp)
+    ip = tuple(Replicate() if pl.is_shard(last) else pl for pl in lp)
+    op = tuple(Partial() if pl.is_shard(last) else pl for pl in lp)
+    lo = shard_offset(logits, last)
+
+    def local(lg, ix):
+        rel = ix - lo
+        inside = (rel >= 0) & (rel < lg.shape[-1])
+        g = torch.gather(lg, -1, rel.clamp(0, lg.shape[-1] - 1))
+        return torch.where(inside, g, torch.zeros_like(g))
+    return local_map(local, out_placements=(op,), in_placements=(lp, ip),
+                     in_grad_placements=(lp, ip), device_mesh=mesh)(
+        logits, idx.redistribute(mesh, ip))
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
                        ) -> torch.Tensor:
     """Mean token cross-entropy in fp32; labels < 0 are masked out."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        torch.clamp(labels, min=0)[..., None].long())
+    gold = _gold(logits, torch.clamp(labels, min=0)[..., None].long())
     # subtracted before the trailing dimension goes, so a vocab-sharded
     # DTensor's masked partial gold is reduced at the gather's own shape
     nll = (logz[..., None] - gold)[..., 0]

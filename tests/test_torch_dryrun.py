@@ -16,6 +16,17 @@ placeholder process group. Standards:
     they are printed beside XLA's, not held to them;
   * a small case's collectives over 'data' equal a count by hand from
     the placements exactly;
+  * the temporaries (`StepMemory`): a two-layer step's peaks, with and
+    without checkpoints, and one all-gather's call and bytes equal a
+    count by hand exactly; the counts at `DEPTHS` extended to a deeper
+    step equal a direct count there exactly (a dense and the hybrid
+    smoke arch, a train and a decode step, and a train step whose
+    largest leaf changes past the `DEPTHS`); the compared cells'
+    temporaries and collective calls are printed beside XLA's, not held
+    to them; the record's `bytes_per_device` is the reference's sum;
+  * meta tensors take the card's decode scores, the CPU the upcast
+    form bit for bit; the sharded loss's backward keeps its gradient on
+    each rank's shard;
   * no placeholder group outlives a cell; a default group, or a missing
     placeholder backend, is refused;
   * `iter_cells` the reference's sequence, skips and reasons included;
@@ -112,13 +123,22 @@ def test_argument_bytes_equal_the_references(reference, cell_records,
         ref["memory"]["argument_size_in_bytes"]
     assert ours["devices"] == ref["devices"]
     # the keys are the reference's and the port's own count of the ops
-    # torch 2.11's DTensor refuses (none); the port has no temporaries or
-    # code size to report, and says so
+    # torch 2.11's DTensor refuses (none); the port counts its
+    # temporaries, has no generated code to report, and says so
     assert set(ours) == set(ref) | {"sharding_refusals"}
     assert ours["sharding_refusals"] == 0
     assert set(ours["memory"]) == set(ref["memory"])
-    assert ours["memory"]["temp_size_in_bytes"] is None
-    assert ours["memory"]["generated_code_size_in_bytes"] is None
+    mem = ours["memory"]
+    assert mem["temp_size_in_bytes"] > 0
+    assert mem["generated_code_size_in_bytes"] is None
+    assert ours["bytes_per_device"] == (
+        mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        + max(mem["output_size_in_bytes"] - mem["alias_size_in_bytes"], 0))
+    counts = ours["hlo_collective_op_counts"]
+    assert tuple(counts) == port_dryrun.KINDS == tuple(
+        ref["hlo_collective_op_counts"])
+    assert {k for k, n in counts.items() if n} == set(
+        ours["collectives"]) - {"pod_mix"}
     assert ours["cost"]["flops"] > 0
     kinds = set(ours["collectives"]) - {"pod_mix"}
     assert kinds and kinds <= set(port_dryrun.KINDS)
@@ -161,6 +181,211 @@ def test_print_collectives_beside_xlas(reference, cell_records, capsys):
                       f"  xla {ref['collectives'].get(kind)}"
                       f"  port before {old.get(kind)}")
     assert len(cell_records) == len(reference["records"])
+
+
+def test_print_temporaries_beside_xlas(reference, cell_records, capsys):
+    """Each compared cell's temporaries, bytes a device and collective
+    calls by kind beside XLA's: printed, no tolerance (XLA assigns
+    buffers and rematerializes where eager torch frees as it goes, and
+    its HLO holds a loop body's collectives once)."""
+    with capsys.disabled():
+        for (arch, shape, mp), ours, ref in zip(CELLS, cell_records,
+                                                reference["records"]):
+            print(f"\n[memory] {arch} {shape} "
+                  f"{'pod2x16x16' if mp else 'pod16x16'}: temp port "
+                  f"{ours['memory']['temp_size_in_bytes']} xla "
+                  f"{ref['memory']['temp_size_in_bytes']}; bytes_per_device "
+                  f"port {ours['bytes_per_device']} xla "
+                  f"{ref['bytes_per_device']}")
+            for kind in port_dryrun.KINDS:
+                print(f"  {kind:18s} calls port "
+                      f"{ours['hlo_collective_op_counts'][kind]}  xla "
+                      f"{ref['hlo_collective_op_counts'][kind]}")
+    assert len(cell_records) == len(reference["records"])
+
+
+def _layer(x, w):
+    return torch.relu(x @ w)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_step_memory_equals_a_count_by_hand(remat):
+    """A two-layer step on meta tensors, each layer relu(h @ w), x (2, 3),
+    w1 (3, 5), w2 (5, 7), float32, after one DTensor all-gather of a
+    (2, 3) shard over 4 placeholder ranks, whose output W (8, 3) the step
+    holds to its end; the gradients of w1 and w2 are returned. In bytes:
+    W = 96; the layers' products and outputs m1 = h1 = 40, m2 = h2 = 56;
+    the loss L and the backward's seed G0, 4 each; the output gradients
+    g2 = 56 and dh1 = 40. The phases are the forward and the backward.
+      forward = W + h1 + m2 + h2 = 248 (at relu2: m1 is freed, relu keeps
+                its output, not its input)
+      backward, plain = W + h1 + h2 + L + G0 + g2 + dh1 = 296 (the second
+                layer's input gradient; g2 is freed after it)
+      backward, remat = W + h1 + h2 + L + G0 + m2' + h2' = 312 (the second
+                layer recomputed beside its checkpointed input h1 and
+                the output h2 the step still holds)
+    and one all-gather call of 96 bytes."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.utils.checkpoint import checkpoint
+
+    f4 = 4
+    W, h1, h2 = 8 * 3 * f4, 2 * 5 * f4, 2 * 7 * f4
+    m2, L, G0, g2, dh1 = h2, f4, f4, h2, h1
+    want = [W + h1 + m2 + h2,
+            W + h1 + h2 + L + G0 + (m2 + h2 if remat else g2 + dh1)]
+    assert want == [248, 312 if remat else 296]
+    with port_dryrun.placeholder_group(4):
+        dm = DeviceMesh("cuda", torch.arange(4), mesh_dim_names=("data",))
+        x, w1, w2 = (torch.empty(shape, device="meta")
+                     for shape in ((2, 3), (3, 5), (5, 7)))
+        shard = DTensor.from_local(torch.empty(2, 3, device="meta"), dm,
+                                   [Shard(0)], run_check=False)
+        counted = port_dryrun.StepMemory((x, w1, w2, shard))
+        with counted:
+            whole = shard.redistribute(dm, [Replicate()])
+            ws = [w.detach().requires_grad_() for w in (w1, w2)]
+            h = x
+            for w in ws:
+                h = (checkpoint(_layer, h, w, use_reentrant=False) if remat
+                     else _layer(h, w))
+            grads = torch.autograd.grad(h.sum(), ws)
+        assert counted.finish(grads) == max(want)
+    assert whole.shape == (8, 3)
+    assert counted.phase_peaks == want
+    assert counted.calls == {"all-gather": 1}
+    assert counted.bytes == {"all-gather": float(W)}
+
+
+#: the depth the extension is held to, past `DEPTHS`
+DIRECT_DEPTH = 4
+#: a vocabulary at which llama3-8b smoke's embedding shard is the largest
+#: leaf at the `DEPTHS` and a stacked leaf's outgrows it by OVERTAKE_DEPTH
+OVERTAKE_VOCAB, OVERTAKE_DEPTH = 1024, 5
+
+
+def _largest_leaf(cfg, mesh) -> str:
+    """The path of the largest local leaf of `cfg`'s parameters on
+    `mesh`'s layout."""
+    params, specs = port_sp.param_specs(cfg, mesh)
+    paths = _pytree.tree_flatten_with_path(params)[0]
+    return max(zip(paths, port_sp.spec_leaves(specs)),
+               key=lambda ps: port_sp.shard_bytes(ps[0][1], ps[1], mesh)
+               )[0][0][0].key
+
+
+@pytest.mark.parametrize("arch,kind,vocab,depth", [
+    ("llama3-8b", "train", None, DIRECT_DEPTH),
+    ("llama3-8b", "decode", None, DIRECT_DEPTH),
+    ("zamba2-2.7b", "train", None, DIRECT_DEPTH),
+    ("zamba2-2.7b", "decode", None, DIRECT_DEPTH),
+    ("llama3-8b", "train", OVERTAKE_VOCAB, OVERTAKE_DEPTH),
+], ids=["llama3-8b-train", "llama3-8b-decode", "zamba2-2.7b-train",
+        "zamba2-2.7b-decode", "overtake-train"])
+def test_extension_equals_a_direct_count(arch, kind, vocab, depth):
+    """The counts at `DEPTHS` superblocks extended to `depth`
+    (`dryrun._meta_runs`: the peak phase by phase, a train step's tail
+    counted alone there) equal a count at `depth` exactly: a dense and the
+    hybrid smoke arch (its shared attention's weights in every
+    superblock), a training step and a decode step, on a placeholder
+    (data 2, model 2) layout; and a train step whose largest leaf is the
+    embedding's shard at the `DEPTHS` and a stacked one at `depth`, where
+    the tail's peak grows by more than its slope between the `DEPTHS`
+    (extended from them as the other phases are, it falls short)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    assert depth > max(port_dryrun.DEPTHS)
+    cfg = dataclasses.replace(port_registry.get_config(arch, "smoke"),
+                              train_microbatches=1,
+                              vocab_size=vocab or port_registry.get_config(
+                                  arch, "smoke").vocab_size)
+    cell = ShapeCell(kind, 16, 4, kind)
+    optimizer = adamw(cosine_lr(3e-4, 10))
+    with port_dryrun.placeholder_group(4) as group:
+        dm = DeviceMesh("cuda", torch.arange(4).reshape(2, 2),
+                        mesh_dim_names=("data", "model"))
+        mesh = Mesh(("data", "model"), (2, 2), torch.device("meta"), group,
+                    dm)
+        deep = dataclasses.replace(cfg, n_super=depth)
+        ext = port_dryrun._meta_runs(deep, cell, mesh, False, optimizer)
+        direct = port_dryrun.count_step(deep, cell, mesh, optimizer,
+                                        memory=True)
+        if vocab:
+            assert [_largest_leaf(dataclasses.replace(cfg, n_super=n), mesh)
+                    for n in port_dryrun.DEPTHS + (depth,)] == [
+                        "embed", "embed", "stack"]
+    if kind == "train":  # forward, backward, the gradients' stacking, the
+        # tail
+        assert len(direct.phase_peaks) == 4 and direct.tail == 3
+    else:
+        assert len(direct.phase_peaks) == 1 and direct.tail is None
+    assert ext["temp"] == direct.temp > 0
+    assert ext["calls"] == direct.calls
+    assert ext["collectives"] == direct.bytes
+    assert ext["refused"] == len(direct.refused) == 0
+
+
+def test_meta_takes_the_cards_decode_scores():
+    """`attention._bmm_f32` on meta bf16 operands takes the card's form (a
+    bf16 product with float32 output, no float32 copy of either operand),
+    and on the CPU the upcast form, as before, bit for bit."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.models.attention import _bmm_f32
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    a = torch.empty(2, 3, 4, dtype=torch.bfloat16, device="meta")
+    b = torch.empty(2, 4, 5, dtype=torch.bfloat16, device="meta")
+    with Ops() as ops:
+        out = _bmm_f32(a, b)
+    assert (out.dtype, out.shape) == (torch.float32, (2, 3, 5))
+    assert ops.names == ["aten.bmm.dtype"]
+    gen = torch.Generator().manual_seed(0)
+    a, b = (torch.randn(shape, generator=gen).to(torch.bfloat16)
+            for shape in ((2, 3, 4), (2, 4, 5)))
+    assert torch.equal(_bmm_f32(a, b), torch.bmm(a.float(), b.float()))
+
+
+def test_sharded_loss_keeps_its_gradient_sharded():
+    """The loss's gold logits on DTensor logits (rows over 'data' 2, vocab
+    over 'model' 4) take a rank's own shard, forward and backward: the
+    backward's temporaries stay below the whole float32 logits, which
+    DTensor's own gather made in its backward on every rank (zeros of the
+    global shape, replicated). (The forward's logsumexp gathers the vocab
+    of the rank's rows: DTensor's own plan.)"""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.models.common import cross_entropy_loss
+
+    B, S, V = 4, 8, 64
+    with port_dryrun.placeholder_group(8):
+        dm = DeviceMesh("cuda", torch.arange(8).reshape(2, 4),
+                        mesh_dim_names=("data", "model"))
+        logits = DTensor.from_local(
+            torch.empty(B // 2, S, V // 4, device="meta"), dm,
+            [Shard(0), Shard(2)], run_check=False, shape=(B, S, V),
+            stride=(S * V, V, 1)).requires_grad_()
+        labels = DTensor.from_local(
+            torch.empty(B // 2, S, dtype=torch.int32, device="meta"), dm,
+            [Shard(0), Replicate()], run_check=False, shape=(B, S),
+            stride=(S, 1))
+        counted = port_dryrun.StepMemory((logits, labels))
+        with counted:
+            grad, = torch.autograd.grad(
+                cross_entropy_loss(logits, labels), logits)
+        counted.finish(grad)
+        assert tuple(grad.placements) == (Shard(0), Shard(2))
+    forward, backward = counted.phase_peaks
+    assert 0 < backward < B * S * V * 4
 
 
 #: the small case: llama3-8b smoke, 8 rows of 32 tokens, two microbatches,
