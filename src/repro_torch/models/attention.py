@@ -4,7 +4,10 @@
 both run (`_sdpa_causal`, with `_sdpa_causal_streamed`'s online softmax
 over KV chunks for long sequences), the VLM's cross-attention to encoder
 states (`cross_attn_init`, `cross_attn_apply`, streamed over
-`_ENC_CHUNK`-token encoder chunks), and the one-token decode of GQA and
+`_ENC_CHUNK`-token encoder chunks; each chunk of either stream a
+checkpointed function, `_chunked`, as the reference's `jax.checkpoint`
+of its scan bodies: its float32 scores are recomputed for the backward,
+not kept), and the one-token decode of GQA and
 MLA with their caches (`gqa_init_cache`, `gqa_decode`, `mla_init_cache`,
 the absorbed `mla_decode`).
 
@@ -24,8 +27,13 @@ over their heads; the encoder over its tokens), every projection runs on
 each rank's local shards (`runtime.sharding.project`: its own tokens by
 the weights gathered whole, a decode step's token by the weights' shards
 where they lie), and the causal attention and the cross-attention's
-softmax run on each rank's own rows and kv heads under `local_map`
-(`_on_local_heads`); on one device none of this changes a bit.
+softmax run on each rank's own shards under `local_map`
+(`_on_local_heads`): its batch rows and, where the kv heads divide the
+model axis, its kv heads with their q heads; where they do not, k and v
+are gathered whole over the axis and q's rows stay sequence-parallel
+(the reference's), each rank attending its own rows over all keys, the
+causal mask at their global positions. On one device none of this
+changes a bit.
 
 Decode writes the new token's keys (or latent) into the cache at `pos` in
 place, the counterpart of the reference's donated cache, and returns the
@@ -49,12 +57,13 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device_or_meta
 from repro_torch.compress import prng
-from repro_torch.models.common import (ModelConfig, apply_rope, p,
-                                       promoted_einsum, pz, rms_norm,
-                                       shard_offset)
+from repro_torch.models.common import (ModelConfig, all_reduce,
+                                       apply_rope, p, promoted_einsum, pz,
+                                       rms_norm, shard_offset)
 from repro_torch.runtime.sharding import constrain, is_dtensor, project
 
 PyTree = Any
@@ -113,43 +122,70 @@ def _sqrt_hd(hd: int, device) -> torch.Tensor:
                                    device=device))
 
 
-def _sdpa_causal_streamed(q, k, v):
+def _causal_chunk(qg, k_c, v_c, m, l, acc, c0: int, rows, scale):
+    """One KV chunk of `_sdpa_causal_streamed`'s online softmax: the
+    chunk's float32 scores masked by the global rows, the running max `m`,
+    denominator `l` and float32 accumulator `acc` carried on. Its scores
+    and weights live only while it runs (checkpointed: the backward
+    recomputes them)."""
+    chunk = k_c.shape[1]
+    s = torch.einsum("bskgh,btkh->bskgt", qg, k_c).float() * scale
+    cols = c0 + torch.arange(chunk, device=qg.device)
+    mask = rows[:, None] >= cols[None, :]                     # (S, chunk)
+    s = torch.where(mask[None, :, None, None, :], s,
+                    torch.tensor(-1e30, dtype=torch.float32,
+                                 device=qg.device))
+    m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
+    pr = torch.exp(s - m_new)
+    corr = torch.exp(m - m_new)
+    l = corr * l + torch.sum(pr, dim=-1, keepdim=True)
+    pv = torch.einsum("bskgt,btkh->bskgh", pr.to(qg.dtype), v_c)
+    return m_new, l, acc * corr + pv
+
+
+def _chunked(body, *args):
+    """`body(*args)` checkpointed, as the reference's `jax.checkpoint` of
+    each chunk of its scans (whatever `cfg.remat` says): the backward
+    recomputes the chunk from its inputs, to the same values."""
+    return checkpoint(body, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
+def _global_rows(S: int, T: int, first_row, device) -> torch.Tensor:
+    """The global index of each of q's S rows among the T keys: row r of
+    the whole sequence sees the keys up to r + T - S; `first_row` (a
+    rank's rows of a sequence shard: their first's global index plus
+    T - S) in place of T - S."""
+    return torch.arange(S, device=device) + (T - S if first_row is None
+                                             else first_row)
+
+
+def _sdpa_causal_streamed(q, k, v, first_row=None):
     """Causal attention with the online-softmax (flash) recurrence over KV
-    chunks. q: (B,S,H,hd); k, v: (B,T,K,hd) with T a multiple of the
-    chunk; masks use global row indices (row r sees columns up to
-    r + T - S)."""
+    chunks, each checkpointed (`_causal_chunk`). q: (B,S,H,hd); k, v:
+    (B,T,K,hd) with T a multiple of the chunk; masks use global row
+    indices (row r sees columns up to r + T - S; `_global_rows`)."""
     B, S, H, hd = q.shape
     T, K = k.shape[1], k.shape[2]
     G = H // K
     v_hd = v.shape[-1]
     qg = q.reshape(B, S, K, G, hd)
     scale = 1.0 / _sqrt_hd(hd, q.device)
-    rows = torch.arange(S, device=q.device) + (T - S)
+    rows = _global_rows(S, T, first_row, q.device)
     m = torch.full((B, S, K, G, 1), -1e30, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, S, K, G, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((B, S, K, G, v_hd), dtype=torch.float32,
                       device=q.device)
     for c0 in range(0, T, _KV_CHUNK):
-        k_c, v_c = k[:, c0:c0 + _KV_CHUNK], v[:, c0:c0 + _KV_CHUNK]
-        s = torch.einsum("bskgh,btkh->bskgt", qg, k_c).float() * scale
-        cols = c0 + torch.arange(_KV_CHUNK, device=q.device)
-        mask = rows[:, None] >= cols[None, :]                 # (S, chunk)
-        s = torch.where(mask[None, :, None, None, :], s,
-                        torch.tensor(-1e30, dtype=torch.float32,
-                                     device=q.device))
-        m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
-        pr = torch.exp(s - m_new)
-        corr = torch.exp(m - m_new)
-        l = corr * l + torch.sum(pr, dim=-1, keepdim=True)
-        pv = torch.einsum("bskgt,btkh->bskgh", pr.to(q.dtype), v_c)
-        acc = acc * corr + pv
-        m = m_new
+        m, l, acc = _chunked(_causal_chunk, qg, k[:, c0:c0 + _KV_CHUNK],
+                             v[:, c0:c0 + _KV_CHUNK], m, l, acc, c0, rows,
+                             scale)
     out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
     return out.reshape(B, S, H, v_hd)
 
 
-def _sdpa_causal_whole(q, k, v):
+def _sdpa_causal_whole(q, k, v, first_row=None):
     """Grouped causal attention over the whole (S x T) score matrix with
     its softmax (the reference's q-chunked form computes this, row block
     by row block). q: (B,S,H,hd); k, v: (B,T,K,hd)."""
@@ -159,45 +195,68 @@ def _sdpa_causal_whole(q, k, v):
     qg = q.reshape(B, S, K, G, hd)
     scores = torch.einsum("bskgh,btkh->bkgst", qg, k).float()
     scores = scores / _sqrt_hd(hd, q.device)
-    mask = torch.ones((S, T), dtype=torch.bool,
-                      device=q.device).tril(diagonal=T - S)
+    rows = _global_rows(S, T, first_row, q.device)
+    mask = rows[:, None] >= torch.arange(T, device=q.device)[None, :]
     scores = scores.masked_fill(~mask, float("-inf"))
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bkgst,btkh->bskgh", w, v).reshape(
         B, S, H, v.shape[-1])
 
 
-def _sdpa_causal(q, k, v):
-    """Grouped causal attention. q: (B,S,H,hd); k, v: (B,T,K,hd).
+def _sdpa_causal(q, k, v, first_row=None):
+    """Grouped causal attention. q: (B,S,H,hd); k, v: (B,T,K,hd);
+    `first_row` (`_global_rows`) where q holds a rank's rows of a
+    sequence shard.
 
     The reference's launcher takes the streamed form where T is above one
-    KV chunk and a multiple of it, else the whole score matrix. DTensors
-    (a sharded replica) run it on local shards (`_on_local_heads`)."""
+    KV chunk and a multiple of it, else the whole score matrix. Its
+    q-chunked form (a checkpointed scan over 256-row blocks, taken only
+    without sharding rules) has no counterpart: the port takes the
+    streamed form wherever the launcher does, and the whole matrix
+    elsewhere, which computes the q-chunked form's values. DTensors (a
+    sharded replica) run it on local shards (`_on_local_heads`)."""
     if is_dtensor(q):
-        return _on_local_heads(_sdpa_causal, q, k, v)
+        return _on_local_heads(_sdpa_causal, q, k, v, causal=True)
     T = k.shape[1]
     if T > _KV_CHUNK and T % _KV_CHUNK == 0:
-        return _sdpa_causal_streamed(q, k, v)
-    return _sdpa_causal_whole(q, k, v)
+        return _sdpa_causal_streamed(q, k, v, first_row)
+    return _sdpa_causal_whole(q, k, v, first_row)
 
 
-def _on_local_heads(core, q, k, v, *args):
+def _on_local_heads(core, q, k, v, *args, causal: bool = False):
     """`core(q, k, v, *args)` of DTensors on each rank's own shards: every
-    rank attends its batch rows and its kv heads (with their q heads) over
-    all keys, as one device would. k and v keep the batch and head
-    placements their constraints gave them (a head-dim or sequence shard,
-    where the heads do not divide, is gathered); q is taken to the same
-    layout. The output keeps it (heads over 'model'), for the output
-    projection's reduce-scatter."""
-    from torch.distributed.tensor import Replicate
+    rank attends its batch rows, its kv heads (with their q heads) and
+    its query rows over all keys. k and v keep the batch and kv-head
+    placements their constraints gave them; a head-dim or sequence shard
+    of theirs, where the kv heads do not divide the mesh dim, is gathered
+    (k and v are small, (B, T, K, hd)). q is taken to k's batch and head
+    shards; on a mesh dim (of more than one rank) where k lies whole and
+    q is sequence-parallel, q stays so (the reference's "q rows stay
+    sequence-parallel"): each rank runs its S/m rows over all keys, and
+    k's and v's gradients there are partial sums over the ranks' rows.
+    With `causal` the core's last argument is the global index of the
+    rank's first row plus T - S (`_global_rows`), read here: the core
+    reads no mesh. The output keeps q's placements (heads or rows over
+    'model'), for the output projection."""
+    from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
 
     mesh = k.device_mesh
     kv = tuple(pl if pl.is_shard() and pl.dim in (0, 2) else Replicate()
                for pl in k.placements)
-    q, k, v = (t.redistribute(mesh, kv) for t in (q, k, v))
-    return local_map(core, out_placements=(kv,),
-                     in_placements=(kv,) * 3 + (None,) * len(args),
+    rows = tuple(kp.is_replicate() and qp.is_shard(1) and mesh.size(d) > 1
+                 for d, (kp, qp) in enumerate(zip(kv, q.placements)))
+    qp = tuple(q.placements[d] if r else kp
+               for d, (kp, r) in enumerate(zip(kv, rows)))
+    kv_grad = tuple(Partial() if r else kp for kp, r in zip(kv, rows))
+    q = q.redistribute(mesh, qp)
+    k, v = (t.redistribute(mesh, kv) for t in (k, v))
+    if causal:
+        args = args + (shard_offset(q, 1) + k.shape[1] - q.shape[1],)
+    return local_map(core, out_placements=(qp,),
+                     in_placements=(qp, kv, kv) + (None,) * len(args),
+                     in_grad_placements=(qp, kv_grad, kv_grad)
+                     + (None,) * len(args),
                      device_mesh=mesh)(q, k, v, *args)
 
 
@@ -285,13 +344,8 @@ class _CacheLayout:
                            for pl in pls)
 
     def reduce(self, t: torch.Tensor, dims, op: str = "sum") -> torch.Tensor:
-        """`t` all-reduced over the mesh dims `dims` (functional
-        collectives: DTensor's own)."""
-        from torch.distributed import _functional_collectives as funcol
-
-        for d in dims:
-            t = funcol.all_reduce(t, op, (self.mesh, d))
-        return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+        """`t` all-reduced over the mesh dims `dims` (`all_reduce`)."""
+        return all_reduce(t, self.mesh, dims, op)
 
     def softmax(self, scores: torch.Tensor, dtype) -> torch.Tensor:
         """The softmax over the last dim, the positions, in `dtype`."""
@@ -684,8 +738,8 @@ def cross_attn_apply(prm, x, enc, cfg: ModelConfig) -> torch.Tensor:
     ('model'), k and v projected on each rank's encoder shard and then
     gathered over the tokens with their heads over 'model', q
     sequence-parallel (the projections on local shards, `project`, as
-    GQA's); the softmax runs on each rank's rows and kv heads
-    (`_on_local_heads`)."""
+    GQA's); the softmax runs on each rank's rows and kv heads, or its
+    own query rows where the kv heads do not divide (`_on_local_heads`)."""
     h = rms_norm(x, prm["norm"])
     # the encoder's shape is read where the reference's sharding constraint
     # reads it, so that enc=None fails here with the reference's error
@@ -707,9 +761,22 @@ def cross_attn_apply(prm, x, enc, cfg: ModelConfig) -> torch.Tensor:
     return constrain(out, ("batch", "seq_sp", "embed_act"))
 
 
+def _cross_chunk(qg, k_c, v_c, m, l, acc, scale, dtype):
+    """One encoder chunk of `_cross_softmax`'s online softmax, unmasked
+    (`_causal_chunk`'s recurrence; checkpointed the same way)."""
+    s = promoted_einsum("bskgh,bnkh->bskgn", qg, k_c).float() * scale
+    m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
+    pr = torch.exp(s - m_new)
+    corr = torch.exp(m - m_new)
+    l = corr * l + torch.sum(pr, dim=-1, keepdim=True)
+    pv = promoted_einsum("bskgn,bnkh->bskgh", pr.to(dtype), v_c)
+    return m_new, l, acc * corr + pv
+
+
 def _cross_softmax(q, k, v, dtype):
     """The streamed softmax of q (B,S,H,hd) over the N encoder keys of k
-    and v (B,N,K,hd), unmasked: (B,S,H,hd) in `dtype`."""
+    and v (B,N,K,hd), unmasked, each chunk checkpointed (`_cross_chunk`):
+    (B,S,H,hd) in `dtype`."""
     B, S, H, hd = q.shape
     N, K = k.shape[1], k.shape[2]
     G = H // K
@@ -722,12 +789,6 @@ def _cross_softmax(q, k, v, dtype):
     acc = torch.zeros((B, S, K, G, hd), dtype=torch.float32,
                       device=q.device)
     for k_c, v_c in zip(k.split(chunk, dim=1), v.split(chunk, dim=1)):
-        s = promoted_einsum("bskgh,bnkh->bskgn", qg, k_c).float() * scale
-        m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
-        pr = torch.exp(s - m_new)
-        corr = torch.exp(m - m_new)
-        l = corr * l + torch.sum(pr, dim=-1, keepdim=True)
-        pv = promoted_einsum("bskgn,bnkh->bskgh", pr.to(dtype), v_c)
-        acc = acc * corr + pv
-        m = m_new
+        m, l, acc = _chunked(_cross_chunk, qg, k_c, v_c, m, l, acc, scale,
+                             dtype)
     return (acc / torch.clamp(l, min=1e-30)).to(dtype).reshape(B, S, H, hd)

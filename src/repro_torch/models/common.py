@@ -325,8 +325,9 @@ def shard_offset(t, dim: int) -> int:
 
 
 def _gold(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """`torch.gather(logits, -1, idx)`, idx (..., 1). DTensor logits are
-    taken on each rank's local shards (`local_map`): a rank whose vocab
+    """`torch.gather(logits, -1, idx)`, idx (..., 1). DTensor logits (none
+    of their placements partial) are taken on each rank's local shards
+    (`local_map`): a rank whose vocab
     shard holds the label takes its logit and the others 0, a partial sum
     over the mesh dims that shard the vocab, as DTensor's own gather
     gives it; the gradient is scattered into zeros of the rank's shard.
@@ -338,10 +339,7 @@ def _gold(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     from torch.distributed.tensor.experimental import local_map
 
     mesh, last = logits.device_mesh, logits.ndim - 1
-    lp = tuple(Replicate() if pl.is_partial() else pl
-               for pl in logits.placements)
-    if lp != tuple(logits.placements):
-        logits = logits.redistribute(mesh, lp)
+    lp = tuple(logits.placements)
     ip = tuple(Replicate() if pl.is_shard(last) else pl for pl in lp)
     op = tuple(Partial() if pl.is_shard(last) else pl for pl in lp)
     lo = shard_offset(logits, last)
@@ -356,11 +354,82 @@ def _gold(logits: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         logits, idx.redistribute(mesh, ip))
 
 
+def all_reduce(t: torch.Tensor, mesh, dims, op: str = "sum"
+               ) -> torch.Tensor:
+    """`t` all-reduced by `op` over the mesh dims `dims` (DTensor's
+    functional collectives)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    for d in dims:
+        t = funcol.all_reduce(t, op, (mesh, d))
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+class _LogSumExpOverRanks(torch.autograd.Function):
+    """`torch.logsumexp(x, dim=-1)` of a vocabulary sharded over the mesh
+    dims `dims`, on a rank's shard `x`: its max all-reduced (max), its sum
+    of exp(x - max) all-reduced (sum), the log of the sum plus the max.
+    The result is replicated over those ranks and so is its gradient: the
+    backward is `torch.logsumexp`'s, grad * exp(x - result), on the
+    rank's shard."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        m = all_reduce(torch.amax(x, dim=-1, keepdim=True), mesh, dims,
+                       "max")
+        total = all_reduce(torch.sum(torch.exp(x - m), dim=-1,
+                                     keepdim=True), mesh, dims)
+        out = torch.log(total) + m
+        ctx.save_for_backward(x, out)
+        return out[..., 0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, out = ctx.saved_tensors
+        return grad[..., None] * torch.exp(x - out), None, None
+
+
+def _logsumexp(logits: torch.Tensor) -> torch.Tensor:
+    """`torch.logsumexp(logits, dim=-1)`. DTensor logits (none of their
+    placements partial) are taken on each rank's local shards
+    (`local_map`), the vocabulary never gathered:
+    where mesh dims of more than one rank shard the vocab, by
+    `_LogSumExpOverRanks`, replicated over those dims, the gradient on
+    each rank's shard; elsewhere by `torch.logsumexp` of the local
+    logits."""
+    if not is_dtensor(logits):
+        return torch.logsumexp(logits, dim=-1)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    lp = tuple(logits.placements)
+    vocab = [d for d, pl in enumerate(lp)
+             if pl.is_shard(last) and mesh.size(d) > 1]
+    op = tuple(Replicate() if pl.is_shard(last) else pl for pl in lp)
+
+    def local(lg):
+        if not vocab:
+            return torch.logsumexp(lg, dim=-1)
+        return _LogSumExpOverRanks.apply(lg, mesh, vocab)
+    return local_map(local, out_placements=(op,), in_placements=(lp,),
+                     in_grad_placements=(lp,), device_mesh=mesh)(logits)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor
                        ) -> torch.Tensor:
-    """Mean token cross-entropy in fp32; labels < 0 are masked out."""
+    """Mean token cross-entropy in fp32; labels < 0 are masked out. The
+    log-sum-exp and the gold logits of vocab-sharded DTensor logits run on
+    each rank's shard (`_logsumexp`, `_gold`), partial logits first
+    reduced."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
+    if is_dtensor(logits) and any(pl.is_partial() for pl in logits.placements):
+        from torch.distributed.tensor import Replicate
+
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if pl.is_partial() else pl
+            for pl in logits.placements])
+    logz = _logsumexp(logits)
     gold = _gold(logits, torch.clamp(labels, min=0)[..., None].long())
     # subtracted before the trailing dimension goes, so a vocab-sharded
     # DTensor's masked partial gold is reduced at the gather's own shape

@@ -754,3 +754,97 @@ def serving(rank, n, payload):
         out["gate"][arch] = gate if rank == 0 else None
     out["write"] = _write_case(*payload["gate"]["mesh"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# a rank's own query rows and the loss on vocab shards
+# (tests/test_torch_attention_memory.py)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _recorded_rows(module, names, rows: list):
+    """Each of `module`'s functions `names` wrapped to append its first
+    argument's rows (dim 1) to `rows` while the context lasts."""
+    saved = {name: getattr(module, name) for name in names}
+
+    def recording(fn):
+        def wrapped(q, *args):
+            rows.append(q.shape[1])
+            return fn(q, *args)
+        return wrapped
+    try:
+        for name, fn in saved.items():
+            setattr(module, name, recording(fn))
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def _attention_case(dm, case: dict) -> dict:
+    """One attention case on the mesh `dm` (data 1, model n): q (B, S, H,
+    hd) sequence-parallel over 'model', k and v (B, T, 1, hd) over their
+    head dim (the constraints' layout where one kv head does not divide
+    the axis); the core's local query rows, the output's placements, the
+    all-gathers' inputs, the output and the gradients of q, k and v for
+    the cotangent g, each whole."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.launch.dryrun import CollectiveBytes
+    from repro_torch.models import attention
+
+    q, k, v, g = (torch.from_numpy(case[n]) for n in "qkvg")
+    seq, head = [Replicate(), Shard(1)], [Replicate(), Shard(3)]
+    qd = distribute_tensor(q, dm, seq).requires_grad_()
+    kd, vd = (distribute_tensor(t, dm, head).requires_grad_()
+              for t in (k, v))
+    gd = distribute_tensor(g, dm, seq)
+    rows: list = []
+    counted = CollectiveBytes()
+    if case["kind"] == "causal":
+        cores = ("_sdpa_causal_streamed", "_sdpa_causal_whole")
+        with _recorded_rows(attention, cores, rows), counted:
+            out = attention._sdpa_causal(qd, kd, vd)
+            out.backward(gd)
+    else:
+        with _recorded_rows(attention, ("_cross_softmax",), rows), counted:
+            out = attention._on_local_heads(attention._cross_softmax, qd,
+                                            kd, vd, torch.float32)
+            out.backward(gd)
+    return {"rows": rows, "placements": _placement_names(out),
+            "gathered": [shape for shape, _, _ in counted.gathered],
+            "out": out.full_tensor().detach().numpy(),
+            "grads": [t.grad.full_tensor().numpy() for t in (qd, kd, vd)]}
+
+
+def _loss_case(dm, case: dict) -> dict:
+    """`cross_entropy_loss` of logits (B, S, V) sharded over their vocab
+    on 'model' (rows replicated over 'data') and labels replicated: the
+    loss and the gradient of the logits, whole, and the gradient's
+    placements."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models.common import cross_entropy_loss
+
+    logits = distribute_tensor(torch.from_numpy(case["logits"]), dm,
+                               [Replicate(), Shard(2)]).requires_grad_()
+    labels = distribute_tensor(torch.from_numpy(case["labels"]), dm,
+                               [Replicate(), Replicate()])
+    loss = cross_entropy_loss(logits, labels)
+    loss.backward()
+    return {"loss": loss.full_tensor().detach().numpy(),
+            "grad": logits.grad.full_tensor().numpy(),
+            "grad_placements": _placement_names(logits.grad)}
+
+
+def attention_rows(rank, n, payload):
+    """The payload's attention and loss cases on a (data 1, model n) mesh
+    of this process group's ranks."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    dm = DeviceMesh("cpu", torch.arange(n).reshape(1, n),
+                    mesh_dim_names=("data", "model"))
+    return {"attention": {name: _attention_case(dm, case) for name, case
+                          in payload.get("attention", {}).items()},
+            "loss": _loss_case(dm, payload["loss"])}

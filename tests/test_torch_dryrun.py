@@ -21,9 +21,11 @@ placeholder process group. Standards:
     count by hand exactly; the counts at `DEPTHS` extended to a deeper
     step equal a direct count there exactly (a dense and the hybrid
     smoke arch, a train and a decode step, and a train step whose
-    largest leaf changes past the `DEPTHS`); the compared cells'
-    temporaries and collective calls are printed beside XLA's, not held
-    to them; the record's `bytes_per_device` is the reference's sum;
+    largest leaf changes past the `DEPTHS`); the compared train and
+    prefill cells' temporaries at most `TEMP_OVER_XLA` = 1.25 times
+    XLA's, zamba2's decode cell and every cell's collective calls
+    printed beside XLA's, not held to them; the record's
+    `bytes_per_device` is the reference's sum;
   * meta tensors take the card's decode scores, the CPU the upcast
     form bit for bit; the sharded loss's backward keeps its gradient on
     each rank's shard;
@@ -183,11 +185,21 @@ def test_print_collectives_beside_xlas(reference, cell_records, capsys):
     assert len(cell_records) == len(reference["records"])
 
 
-def test_print_temporaries_beside_xlas(reference, cell_records, capsys):
+#: the compared train and prefill cells' temporaries (the first three of
+#: CELLS) may exceed XLA's by this factor (PERF.md: 1.05-1.11 observed);
+#: zamba2's decode cell is printed only (the port holds a thousandth of
+#: XLA's there)
+TEMP_OVER_XLA = 1.25
+
+
+def test_temporaries_within_a_quarter_of_xlas(reference, cell_records,
+                                              capsys):
     """Each compared cell's temporaries, bytes a device and collective
-    calls by kind beside XLA's: printed, no tolerance (XLA assigns
+    calls by kind beside XLA's, printed; the train and prefill cells'
+    temporaries held to at most TEMP_OVER_XLA times XLA's (XLA assigns
     buffers and rematerializes where eager torch frees as it goes, and
-    its HLO holds a loop body's collectives once)."""
+    its HLO holds a loop body's collectives once: the calls are printed,
+    not held)."""
     with capsys.disabled():
         for (arch, shape, mp), ours, ref in zip(CELLS, cell_records,
                                                 reference["records"]):
@@ -202,6 +214,13 @@ def test_print_temporaries_beside_xlas(reference, cell_records, capsys):
                       f"{ours['hlo_collective_op_counts'][kind]}  xla "
                       f"{ref['hlo_collective_op_counts'][kind]}")
     assert len(cell_records) == len(reference["records"])
+    over = {f"{arch} {shape} {mp}": ours["memory"]["temp_size_in_bytes"]
+            / ref["memory"]["temp_size_in_bytes"]
+            for (arch, shape, mp), ours, ref in zip(
+                CELLS, cell_records, reference["records"])
+            if shape != "decode_32k"}
+    assert len(over) == 3
+    assert max(over.values()) <= TEMP_OVER_XLA, over
 
 
 def _layer(x, w):
@@ -359,8 +378,8 @@ def test_sharded_loss_keeps_its_gradient_sharded():
     over 'model' 4) take a rank's own shard, forward and backward: the
     backward's temporaries stay below the whole float32 logits, which
     DTensor's own gather made in its backward on every rank (zeros of the
-    global shape, replicated). (The forward's logsumexp gathers the vocab
-    of the rank's rows: DTensor's own plan.)"""
+    global shape, replicated). (The log-sum-exp runs on the shards too:
+    tests/test_torch_attention_memory.py.)"""
     from torch.distributed.device_mesh import DeviceMesh
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
