@@ -122,8 +122,12 @@ non-zero and the last line is not printed. The phases:
             under the churn plan (churn_adversarial), and the object and
             vectorized engines' traces equal bit for bit; prints each
             run's host wall and its trace's sha256 (not asserted: the CPU
-            tests hold the bits against the reference). Then
-            expander_periodic's cell on the vectorized engine with its
+            tests hold the bits against the reference). Then a straggler
+            spec at slow_factor 5.35, whose scale is not the factor
+            (5.3500000000000005), on both engines: each trace equal to the
+            port's CPU run of the spec; prints sim_time[-1] and the
+            trace's sha256. Then expander_periodic's cell on the
+            vectorized engine with its
             gradients through netsim.torch_batch_grad on the card, beside
             the numpy gradients' run: the largest fvals difference
             (float32 against float64; relative 1e-4 at most)
@@ -1900,6 +1904,21 @@ def _trace_digest(trace) -> str:
                                      sort_keys=True).encode()).hexdigest()
 
 
+#: a straggler whose scale, 197e12 / (197e12 / 5.35), is 5.3500000000000005
+#: and not its factor (tests/test_torch_netsim.py SMALL)
+STRAGGLER_SPEC = {
+    "name": "netsim_straggler_5_35",
+    "problem": {"kind": "quadratic_consensus",
+                "params": {"n": 8, "d": 4, "seed": 0}},
+    "topology": {"kind": "expander", "params": {"k": 4, "seed": 0}},
+    "schedule": {"kind": "periodic", "params": {"h": 2}},
+    "backends": [{"kind": "netsim",
+                  "params": {"scenario": "straggler", "slow_factor": 5.35,
+                             "n_slow": 3}}],
+    "T": 80, "eval_every": 10, "seed": 3, "r": 0.05, "eps_frac": 0.2,
+}
+
+
 def phase_netsim() -> None:
     """Every netsim backend of the six manifests that declare one, through
     repro_torch.run on the card's device (the event loops are host numpy):
@@ -1908,8 +1927,10 @@ def phase_netsim() -> None:
     plan; the object and vectorized engines of a manifest give equal traces
     bit for bit. Prints each run's host wall and its trace's sha256 (not
     asserted: the bits against the reference are the CPU tests' to hold).
-    Then one quadratic-consensus cell with its gradient through
-    `torch_batch_grad` on the card, beside the numpy gradient's run."""
+    Then `STRAGGLER_SPEC` on both engines, each trace and its extras equal
+    to the port's CPU run of the spec. Then one quadratic-consensus cell
+    with its gradient through `torch_batch_grad` on the card, beside the
+    numpy gradient's run."""
     import numpy as np
     import torch
 
@@ -1947,6 +1968,20 @@ def phase_netsim() -> None:
                  trace_sha256=_trace_digest(trace))
         if len(traces) == 2 and traces["object"] != traces["vectorized"]:
             raise AssertionError(f"{name}: the engines' traces differ")
+
+    for engine in ("object", "vectorized"):
+        d = json.loads(json.dumps(STRAGGLER_SPEC))
+        d["backends"][0]["params"]["engine"] = engine
+        spec = repro_torch.ExperimentSpec.from_dict(d)
+        card = repro_torch.run(spec, device="cuda")
+        cpu = repro_torch.run(spec, device="cpu")
+        if card.trace != cpu.trace or card.extras != cpu.extras:
+            raise AssertionError(f"straggler 5.35 ({engine}): the card's run "
+                                 f"differs from the CPU's")
+        emit("netsim_straggler", slow_factor=5.35, engine=engine,
+             host_wall_s=card.wall_s, sim_time_final=card.trace.sim_time[-1],
+             final_f=card.trace.fvals[-1],
+             trace_sha256=_trace_digest(card.trace))
 
     # one cell's gradients through torch.func.vmap on the card
     spec = repro_torch.ExperimentSpec.from_file(

@@ -11,7 +11,9 @@ from repro_torch.core.schedules import (CommSchedule, EveryIteration,
                                         PiecewisePeriodic, c1_constant,
                                         ch_constant, cp_constant,
                                         make_schedule, optimal_stepsize_A)
-from repro_torch.core.tradeoff import (ew_alpha, ew_update, h_opt, h_opt_int,
+from repro_torch.core.tradeoff import (H100_SXM, HardwareSpec,
+                                       derive_r_from_roofline, ew_alpha,
+                                       ew_update, h_opt, h_opt_int,
                                        iteration_cost, lambda2_fast,
                                        measure_r, n_opt_complete,
                                        predict_speedup, time_to_accuracy)

@@ -10,18 +10,27 @@ on the FULL dataset in 1 unit):
                                                         (eq. 21)
 
 r is a *measured* quantity: (time to transmit+receive one message) /
-(time for one processor to compute a full-data gradient).
+(time for one processor to compute a full-data gradient). Where it is not
+measured it is derived from a roofline of the step:
+
+    t_msg  = message_bytes / link_bw        (cross-consensus-axis transfer)
+    t_grad = max(step_flops / peak_flops, step_bytes / hbm_bw) * n
+             (local shard gradient time scaled back to full data)
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 from repro_torch.core import schedules as _sched
 from repro_torch.core.graphs import lambda2 as _lambda2
 
 __all__ = [
+    "HardwareSpec",
+    "H100_SXM",
     "measure_r",
+    "derive_r_from_roofline",
     "iteration_cost",
     "time_to_accuracy",
     "n_opt_complete",
@@ -33,12 +42,58 @@ __all__ = [
 ]
 
 
+@dataclasses.dataclass(frozen=True)
+class HardwareSpec:
+    """Per-chip peaks used in the roofline and tradeoff math.
+
+    The defaults are one NVIDIA H100 SXM5 80GB at its 700 W power limit,
+    from NVIDIA's H100 Tensor Core GPU data sheet (dense rates, without
+    sparsity). `ici_bw` is one NVLink 4 link in one direction: the sheet's
+    900 GB/s is both directions of 18 links, so 25 GB/s a link a
+    direction, the rate one message sees. `dcn_bw` is an assumed 400 Gb/s
+    NIC a GPU.
+    """
+
+    peak_flops: float = 989.4e12      # dense bf16 FLOP/s per chip
+    hbm_bw: float = 3.35e12           # HBM3 bytes/s per chip
+    ici_bw: float = 25e9              # bytes/s per NVLink link, one direction
+    dcn_bw: float = 50e9              # bytes/s off the node (400 Gb/s), assumed
+    hbm_per_chip: float = 80e9        # bytes (80 GB)
+
+
+H100_SXM = HardwareSpec()
+
+
 def measure_r(t_msg_seconds: float, t_full_grad_seconds: float) -> float:
     """Direct measurement, exactly as the paper does on its cluster:
     r = 0.85s / 29s = 0.0293 for full-MNIST metric learning (paper V.A)."""
     if t_full_grad_seconds <= 0:
         raise ValueError("gradient time must be positive")
     return t_msg_seconds / t_full_grad_seconds
+
+
+def derive_r_from_roofline(
+    message_bytes: float,
+    local_step_flops: float,
+    local_step_bytes: float,
+    n: int,
+    hw: HardwareSpec = H100_SXM,
+    *,
+    link_bw: float | None = None,
+    chips_per_node: int = 1,
+) -> float:
+    """Derive r for a consensus node that is itself a `chips_per_node`-chip
+    synchronous group. `local_step_flops/bytes` are PER NODE per local step on
+    its 1/n shard of the data; time for the full data on one node is n * that.
+    """
+    bw = link_bw if link_bw is not None else hw.dcn_bw
+    t_msg = message_bytes / bw
+    t_local = max(
+        local_step_flops / (hw.peak_flops * chips_per_node),
+        local_step_bytes / (hw.hbm_bw * chips_per_node),
+    )
+    t_full = t_local * n
+    return t_msg / t_full
 
 
 def iteration_cost(n: int, k: int, r: float, c: float = 1.0) -> float:

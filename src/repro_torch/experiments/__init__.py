@@ -12,13 +12,13 @@
     results = repro_torch.run_sweep(spec, "schedule.params.h",
                                     [1, 2, 4, 8, 16], parallel="vmap")
 
-Only the dense backend is ported so far, uncompressed and compressed,
-with its sweeps.
+Every backend of the reference runs: dense (uncompressed and
+compressed, with its sweeps), netsim and launch.
 """
 
-from repro_torch.experiments.components import (Problem, problems,
-                                                schedules, stepsizes,
-                                                topologies)
+from repro_torch.experiments.components import (LMProblem, Problem,
+                                                problems, schedules,
+                                                stepsizes, topologies)
 from repro_torch.experiments.registry import Registry
 from repro_torch.experiments.result import RunResult
 from repro_torch.experiments.runner import (backends, run, run_all,
@@ -27,9 +27,12 @@ from repro_torch.experiments.spec import ComponentSpec, ExperimentSpec
 
 
 def __getattr__(name):
-    # lazy: repro_torch.compress imports this package's registry module, so
-    # an eager import here would be circular when repro_torch.compress
-    # loads first
+    # lazy: repro_torch.faults.plan and repro_torch.compress import this
+    # package's registry module, so an eager import here would be circular
+    # when either loads first
+    if name in ("FaultPlan", "faultplans"):
+        from repro_torch.faults.plan import FaultPlan, faultplans
+        return {"FaultPlan": FaultPlan, "faultplans": faultplans}[name]
     if name in ("Compressor", "compressors"):
         from repro_torch.compress import Compressor, compressors
         return {"Compressor": Compressor, "compressors": compressors}[name]
@@ -40,11 +43,14 @@ __all__ = [
     "ComponentSpec",
     "Compressor",
     "ExperimentSpec",
+    "FaultPlan",
+    "LMProblem",
     "Problem",
     "Registry",
     "RunResult",
     "backends",
     "compressors",
+    "faultplans",
     "problems",
     "run",
     "run_all",

@@ -26,8 +26,9 @@ import json
 import pathlib
 import sys
 
-from repro_torch.experiments import (ExperimentSpec, backends, problems,
-                                     run, schedules, stepsizes, topologies)
+from repro_torch.experiments import (ExperimentSpec, backends, faultplans,
+                                     problems, run, schedules, stepsizes,
+                                     topologies)
 from repro_torch.obs import Tracer, render_summary, write_chrome_trace, write_jsonl
 
 
@@ -100,7 +101,8 @@ def _cmd_trace(args) -> int:
 
 
 def _cmd_list(_args) -> int:
-    for reg in (problems, topologies, schedules, stepsizes, backends):
+    for reg in (problems, topologies, schedules, stepsizes, backends,
+                faultplans):
         print(f"{reg.kind} kinds: {', '.join(reg.names())}")
     return 0
 

@@ -43,11 +43,6 @@ schedules = Registry("schedule")
 stepsizes = Registry("stepsize")
 
 
-def _not_ported(what: str, slice_name: str):
-    raise NotImplementedError(f"{what} is not ported yet "
-                              f"(slice: {slice_name})")
-
-
 # ---------------------------------------------------------------------------
 # problems
 # ---------------------------------------------------------------------------

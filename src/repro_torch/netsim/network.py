@@ -6,8 +6,10 @@ gradient on the REFERENCE node = 1.0), so a link configured with
 and the event timeline stays directly comparable to `core.tradeoff`.
 
   * `LinkModel`   -- per-link latency / bandwidth / jitter / packet loss.
-  * `NodeSpec`    -- per-node compute speed relative to the reference
-                     node, `compute_scale` (a straggler factor).
+  * `NodeSpec`    -- per-node compute speed: the node's
+                     `core.tradeoff.HardwareSpec` relative to a reference
+                     one (`SIM_NODE` by default), or an explicit
+                     `compute_scale` (a straggler factor).
   * `Network`     -- the topology (a `CommGraph` or a time-varying
                      `GraphSequence`), link models with per-edge overrides,
                      and message transmission sampling.
@@ -21,8 +23,18 @@ import math
 import numpy as np
 
 from repro_torch.core.graphs import CommGraph, GraphSequence
+from repro_torch.core.tradeoff import HardwareSpec
 
-__all__ = ["LinkModel", "NodeSpec", "Network"]
+__all__ = ["LinkModel", "NodeSpec", "Network", "SIM_NODE"]
+
+#: The netsim's nominal node: the reference package's simulated node, field
+#: for field. It is a parameter of the simulation model, in normalized time
+#: units (one full-data gradient on it = 1.0); no time of any card follows
+#: from it. A straggler's scale is `peak_flops / (peak_flops / factor)`,
+#: whose float depends on this mantissa, so the port keeps it to give the
+#: reference's event times bit for bit.
+SIM_NODE = HardwareSpec(peak_flops=197e12, hbm_bw=819e9, ici_bw=50e9,
+                        dcn_bw=25e9, hbm_per_chip=16e9)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,25 +97,32 @@ class LinkModel:
 
 @dataclasses.dataclass(frozen=True)
 class NodeSpec:
-    """Per-node compute speed, relative to the reference node.
+    """Per-node compute speed.
 
     `compute_scale` multiplies the node's local-step time (1.0 = reference
-    speed, 4.0 = a 4x straggler). The reference package derives the ratio
-    from two chips' peak FLOP/s; the port carries the ratio alone, which
-    for every factor a scenario or manifest uses is the same float.
+    speed, 4.0 = a 4x straggler). When None it is derived from the node's
+    `HardwareSpec` peak FLOPs relative to `ref` (compute-bound local steps;
+    memory-bound workloads should set `compute_scale` explicitly from their
+    roofline, see tradeoff.derive_r_from_roofline).
     """
 
-    compute_scale: float = 1.0
+    hw: HardwareSpec = SIM_NODE
+    compute_scale: float | None = None
+    ref: HardwareSpec = SIM_NODE
 
     @property
     def scale(self) -> float:
-        return self.compute_scale
+        if self.compute_scale is not None:
+            return self.compute_scale
+        return self.ref.peak_flops / self.hw.peak_flops
 
     @staticmethod
     def slowed(factor: float) -> "NodeSpec":
-        """A straggler: `factor`x less effective compute (e.g. co-scheduled
-        unrelated work, the paper's section I motivation)."""
-        return NodeSpec(compute_scale=float(factor))
+        """A straggler: the nominal node with `factor`x less effective
+        compute (e.g. co-scheduled unrelated work, the paper's section I
+        motivation)."""
+        return NodeSpec(hw=dataclasses.replace(
+            SIM_NODE, peak_flops=SIM_NODE.peak_flops / factor))
 
 
 class Network:

@@ -11,3 +11,6 @@ from repro_torch.runtime.fault_tolerance import (StragglerModel,
                                                  degraded_matrix,
                                                  effective_round_time,
                                                  sinkhorn_project)
+from repro_torch.runtime.sharding import (DEFAULT_RULES, constrain,
+                                          tree_placements, tree_specs,
+                                          use_rules)

@@ -119,11 +119,15 @@ def test_registry_and_errors_match_reference():
 
 def test_experiments_exports_the_registry():
     from repro_torch import experiments
+    from repro_torch.faults import plan
 
     assert experiments.compressors is pc.compressors
     assert experiments.Compressor is pc.Compressor
+    # the fault plans resolve lazily too, as in the reference
+    assert experiments.faultplans is plan.faultplans
+    assert experiments.FaultPlan is plan.FaultPlan
     with pytest.raises(AttributeError):
-        experiments.FaultPlan
+        experiments.NoSuchName
 
 
 @pytest.mark.parametrize("kind,params", KINDS, ids=KIND_IDS)

@@ -224,10 +224,9 @@ def test_stepsize_is_float32_on_tensors():
                                       ref_stepsize(A, q)(host))
 
 
-def test_compression_is_not_ported():
-    """Compression is ported now; what stays refused is the legacy
-    `compress_keep` alias together with `compression`, as in the
-    reference."""
+def test_compress_keep_with_compression_is_refused():
+    """The legacy `compress_keep` alias together with `compression` is
+    refused, with the reference's error."""
     from repro_torch.core.graphs import complete_graph
 
     for sim_cls, comp in ((PortSim, port_comp), (RefSim, ref_comp)):

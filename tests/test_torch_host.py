@@ -1,6 +1,10 @@
 """The host-side modules the port copies agree bitwise with the reference:
 graphs, schedules, tradeoff algebra, specs, registries and the obs layer."""
 
+import ast
+import dataclasses
+import importlib
+import inspect
 import json
 import math
 import pathlib
@@ -8,6 +12,7 @@ import pathlib
 import numpy as np
 import pytest
 
+import repro
 import repro.experiments as ref_exp
 from repro.core import tradeoff as ref_tradeoff
 from repro.experiments import components as ref_C
@@ -95,11 +100,10 @@ def test_schedules_bitwise(kind, params):
             == _schedule_record(port, port_tradeoff))
 
 
-def test_adaptive_schedule_is_not_ported():
-    """Named for the refusal it used to pin: the adaptive schedule is now
-    ported, and built from the registry it equals the reference's bit for
-    bit, before and after the same retunes (eq. 21 re-solved and spliced
-    in)."""
+def test_adaptive_schedule_matches_reference_through_retunes():
+    """The adaptive schedule built from the registry equals the reference's
+    bit for bit, before and after the same retunes (eq. 21 re-solved and
+    spliced in)."""
     params = {"h0": 2, "p": 0.1, "h_max": 16}
     ref = ref_C.build_component(ref_C.schedules, "adaptive", params)
     port = port_C.build_component(port_C.schedules, "adaptive", params)
@@ -141,7 +145,45 @@ def test_tradeoff_functions_bitwise():
                 == port_tradeoff.ew_update(mean, 0.5, 4, alpha))
     P = np.full((5, 5), 0.2)
     assert ref_tradeoff.lambda2_fast(P) == port_tradeoff.lambda2_fast(P)
-    assert not hasattr(port_tradeoff, "HardwareSpec")
+    # the reference's hardware model, with the card as the port's default
+    assert ([f.name for f in dataclasses.fields(port_tradeoff.HardwareSpec)]
+            == [f.name for f in dataclasses.fields(ref_tradeoff.HardwareSpec)])
+    assert port_tradeoff.HardwareSpec() == port_tradeoff.H100_SXM
+    hw = inspect.signature(port_tradeoff.derive_r_from_roofline).parameters[
+        "hw"]
+    assert hw.default is port_tradeoff.H100_SXM
+    assert dataclasses.astuple(port_tradeoff.H100_SXM) == (
+        989.4e12, 3.35e12, 25e9, 50e9, 80e9)
+    doc = port_tradeoff.HardwareSpec.__doc__
+    assert "H100 SXM5 80GB" in doc and "700 W" in doc and "data sheet" in doc
+
+
+#: (message_bytes, local_step_flops, local_step_bytes, n, link_bw,
+#: chips_per_node): compute-bound, memory-bound, an explicit link, a
+#: multi-chip node
+ROOFLINES = [
+    (8.0, 2.6e9, 1.1e6, 16, None, 1),
+    (4096.0 * 4, 1.0e6, 3.3e9, 256, None, 1),
+    (1.6e7, 7.3e12, 2.1e10, 8, 50e9, 1),
+    (3.2e9, 4.8e15, 1.9e12, 32, None, 4),
+]
+
+
+@pytest.mark.parametrize("args", ROOFLINES, ids=range(len(ROOFLINES)))
+def test_derive_r_from_roofline_bitwise(args):
+    """Given the reference's hardware fields, the port's r is the
+    reference's to the bit (the defaults differ by design, so both sides
+    are passed `hw`)."""
+    msg, flops, nbytes, n, link_bw, chips = args
+    ref_hw = ref_tradeoff.TPU_V5E
+    port_hw = port_tradeoff.HardwareSpec(**dataclasses.asdict(ref_hw))
+    kw = {"link_bw": link_bw, "chips_per_node": chips}
+    theirs = ref_tradeoff.derive_r_from_roofline(msg, flops, nbytes, n,
+                                                 ref_hw, **kw)
+    ours = port_tradeoff.derive_r_from_roofline(msg, flops, nbytes, n,
+                                                port_hw, **kw)
+    assert type(ours) is type(theirs) is float
+    assert ours == theirs
 
 
 @pytest.mark.parametrize("path", MANIFESTS, ids=[p.stem for p in MANIFESTS])
@@ -171,3 +213,80 @@ def test_obs_layer_renders_a_result_identically():
             == RefRunMetrics.from_dict(m).to_dict() == m)
     assert (port_exp.RunResult.from_dict(d).to_dict()
             == ref_exp.RunResult.from_dict(d).to_dict() == d)
+
+
+#: every public name of `repro` (defined in a module, or re-exported by a
+#: package) that the port's same module lacks: its counterpart in the port,
+#: or None where the name is jax's alone (ROADMAP.md, the name map)
+NAME_MAP = {
+    "compress/__init__.py:topk_mask_jax": "compress:topk_mask_torch",
+    "compress/base.py:topk_mask_jax": "compress.base:topk_mask_torch",
+    "core/__init__.py:TPU_V5E": "core:H100_SXM",
+    "core/tradeoff.py:TPU_V5E": "core.tradeoff:H100_SXM",
+    "core/consensus.py:PyTree": None,
+    "core/dda.py:PyTree": None,
+    "launch/train.py:PyTree": None,
+    "kernels/flash_attention.py:NEG_INF": None,
+    "kernels/ops.py:gossip_gather_mix": "kernels.ops:gossip_gather_mix_impl",
+    "kernels/ops.py:compress_mix": "kernels.ops:compress_mix_impl",
+    "launch/compat.py": None,
+    "launch/dryrun.py:collective_bytes": "launch.dryrun:CollectiveBytes",
+    "launch/specs.py:to_shardings": "launch.specs:placements",
+    "netsim/__init__.py:jax_batch_grad": "netsim:torch_batch_grad",
+    "netsim/engine.py:jax_batch_grad": "netsim.engine:torch_batch_grad",
+    "runtime/__init__.py:tree_shardings": "runtime:tree_placements",
+    "runtime/sharding.py:tree_shardings": "runtime.sharding:tree_placements",
+}
+
+
+def _public_names(path: pathlib.Path, package: str) -> set[str]:
+    """A module's public top-level names: what it defines, what its
+    `__all__` lists and, in a package's `__init__`, what it re-exports
+    from its own package."""
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            for target in node.targets:
+                if isinstance(target, ast.Name):
+                    out.add(target.id)
+                    if (target.id == "__all__"
+                            and isinstance(node.value, ast.List)):
+                        out |= {e.value for e in node.value.elts}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                             ast.Name):
+            out.add(node.target.id)
+        elif (path.name == "__init__.py" and isinstance(node, ast.ImportFrom)
+              and node.module and node.module.startswith(package)):
+            out |= {a.asname or a.name for a in node.names}
+    return {n for n in out if not n.startswith("_")}
+
+
+def test_every_public_name_of_the_reference_has_its_counterpart():
+    """An AST walk over `src/repro/`: each public name is in the port's
+    same module (imported, so lazy exports count), or in `NAME_MAP` with
+    its counterpart, which must exist."""
+    src = ROOT / "src"
+    missing = set()
+    for path in sorted((src / "repro").rglob("*.py")):
+        rel = path.relative_to(src / "repro")
+        port = src / "repro_torch" / rel
+        if not port.exists():
+            missing.add(str(rel))
+            continue
+        names = _public_names(path, "repro")
+        if rel.name == "__main__.py":
+            have = _public_names(port, "repro_torch")
+        else:
+            module = ".".join(("repro_torch",) + rel.with_suffix("").parts)
+            module = importlib.import_module(
+                module.removesuffix(".__init__"))
+            have = {n for n in names if hasattr(module, n)}
+        missing |= {f"{rel}:{n}" for n in names - have}
+    assert missing == set(NAME_MAP)
+    assert [n for n in repro.__all__ if not hasattr(repro_torch, n)] == []
+    for counterpart in filter(None, NAME_MAP.values()):
+        module, name = counterpart.split(":")
+        assert hasattr(importlib.import_module(f"repro_torch.{module}"),
+                       name), counterpart

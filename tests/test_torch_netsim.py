@@ -7,20 +7,23 @@ fault plan restoring from on-disk checkpoints), each on both engines.
 
 Tolerance: none. The event loops are the reference's numpy copied, so
 traces must be equal bit for bit, and extras, `r_measurement` and
-predictions exactly; `assert_results_match` then holds the rest. Also the
-two decisions the port made on the way: `NodeSpec` carries a relative
-speed only (pinned against the reference's ratio of peak FLOP/s), and
-`torch_batch_grad` is `jax_batch_grad`'s twin (rtol 1e-6: both compute in
+predictions exactly; `assert_results_match` then holds the rest. Also
+the netsim node: `NodeSpec`'s scale is the reference's ratio of peak
+FLOP/s, the same float for every straggler factor; and
+`torch_batch_grad`, `jax_batch_grad`'s twin (rtol 1e-6: both compute in
 float32).
 """
 
 import copy
+import dataclasses
 import json
 import pathlib
 
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import repro
 import repro.experiments  # before repro.netsim: the reference's import order
@@ -28,6 +31,7 @@ from repro.netsim import NodeSpec as RefNodeSpec
 
 import repro_torch
 from repro_torch.convert import assert_results_match
+from repro_torch.core.tradeoff import HardwareSpec
 from repro_torch.netsim import NodeSpec
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -116,6 +120,10 @@ SMALL = {
                                     "retry_timeout": 0.05}),
     "straggler": _small({"scenario": "straggler", "slow_factor": 2.5,
                          "n_slow": 3}),
+    # 197e12 / (197e12 / 5.35) is 5.3500000000000005, not 5.35: the
+    # straggler's scale must be the reference's ratio, not the factor
+    "straggler_factor_5_35": _small({"scenario": "straggler",
+                                     "slow_factor": 5.35, "n_slow": 3}),
     "time_varying": _small(
         {"scenario": "time_varying", "rewire_every": 0.5, "loss": 0.1},
         topology={"kind": "expander_sequence",
@@ -205,15 +213,36 @@ SLOW_FACTORS = (1.5, 2.0, 2.5, 3.0, 4.0, 5.0, 6.0, 8.0, 10.0)
 
 @pytest.mark.parametrize("factor", SLOW_FACTORS)
 def test_nodespec_scale_is_the_references_ratio(factor):
-    """The reference derives a straggler's scale as a ratio of two chips'
-    peak FLOP/s; the port stores the factor itself. For these factors the
-    two are the same float, so event times stay bit for bit."""
+    """Both packages derive a straggler's scale as the ratio of the nominal
+    node's peak FLOP/s to the slowed node's, so for the factors the
+    scenarios and manifests use the scales are the same float, and an
+    explicit `compute_scale` is taken as given."""
     ours, theirs = NodeSpec.slowed(factor), RefNodeSpec.slowed(factor)
     assert ours.scale == theirs.scale
     assert type(ours.scale) is type(theirs.scale) is float
     assert NodeSpec().scale == RefNodeSpec().scale == 1.0
     assert NodeSpec(compute_scale=factor).scale == \
         RefNodeSpec(compute_scale=factor).scale
+
+
+def _port_hw(ref_hw):
+    return HardwareSpec(**dataclasses.asdict(ref_hw))
+
+
+@settings(max_examples=200, deadline=None)
+@given(factor=st.floats(0.1, 64.0), peak=st.floats(1e9, 1e16))
+def test_nodespec_scale_is_the_references_float_for_every_factor(factor,
+                                                                 peak):
+    """For any factor the port's straggler scale is the reference's float
+    (`197e12 / (197e12 / 5.35)` is 5.3500000000000005, not 5.35), and so is
+    the scale of a node given as `hw` and `ref` with equal field values."""
+    assert NodeSpec.slowed(factor).scale == RefNodeSpec.slowed(factor).scale
+    ref_hw = dataclasses.replace(RefNodeSpec().hw, peak_flops=peak)
+    ref_ref = dataclasses.replace(RefNodeSpec().ref, peak_flops=peak * factor)
+    ours = NodeSpec(hw=_port_hw(ref_hw), ref=_port_hw(ref_ref))
+    assert ours.scale == RefNodeSpec(hw=ref_hw, ref=ref_ref).scale
+    assert NodeSpec.slowed(factor) == NodeSpec(
+        hw=_port_hw(RefNodeSpec.slowed(factor).hw))
 
 
 def test_torch_batch_grad_matches_jax_batch_grad():

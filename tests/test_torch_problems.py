@@ -112,9 +112,9 @@ def test_device_halves_agree(kind, params, seed):
         assert np.all(p_port[:, -1] >= 1.0)
 
 
-def test_lm_problem_is_not_ported():
-    """Named for the refusal it used to pin: the "lm" problem is ported
-    now, and built from the registry it carries the reference's fields."""
+def test_lm_problem_carries_the_references_fields():
+    """The "lm" problem built from the registry carries the reference's
+    fields."""
     params = {"arch": "llama3-8b", "batch_per_node": 2, "seq_len": 32}
     port = port_C.build_component(port_C.problems, "lm", params,
                                   device=torch.device("cpu"))

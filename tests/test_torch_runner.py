@@ -88,10 +88,15 @@ def test_cli_run_writes_a_result_that_loads_back(tmp_path):
 
 
 def test_cli_list_names_the_registries(capsys):
+    from repro.experiments import __main__ as ref_cli
+
     assert cli.main(["list"]) == 0
     out = capsys.readouterr().out
     assert "backend kinds: dense, launch, netsim" in out
     assert "problem kinds: least_squares, lm, metric_learning" in out
+    assert "faultplan kinds: churn, plan" in out
+    assert ref_cli.main(["list"]) == 0
+    assert out == capsys.readouterr().out
 
 
 def test_run_all_on_a_dense_only_manifest():
